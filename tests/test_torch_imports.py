@@ -1,0 +1,43 @@
+"""The port stands alone: importing it and running one encode loads no
+module of JAX, `regex`, the `tokenizers` wheel or `tokenizers_tpu`, and
+no source file of the package imports them."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "regex", "tokenizers", "tokenizers_tpu")
+
+_PROBE = """
+import sys
+from tokenizers_tpu_torch import Tokenizer
+tok = Tokenizer.from_file("tests/fixtures/gpt2/tokenizer.json", device="cpu")
+ids = [e.ids for e in tok.encode_batch_fast(["Hello world! y'all'll've", "序号123", "a<|endoftext|>b"])]
+assert ids[2] == [65, 0, 66], ids
+print(sorted({m.split(".")[0] for m in sys.modules}))
+"""
+
+
+def test_encode_loads_no_jax_or_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = set(eval(out.stdout.strip().splitlines()[-1]))
+    assert not loaded & set(FORBIDDEN), loaded & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("top", ["tokenizers_tpu_torch", "chip_smoke.py"])
+def test_no_source_imports_them(top):
+    pat = re.compile(r"^\s*(import|from)\s+(%s)\b" % "|".join(FORBIDDEN), re.M)
+    path = os.path.join(REPO, top)
+    files = [path] if path.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs if f.endswith(".py")]
+    assert files
+    for f in files:
+        with open(f, encoding="utf-8") as fh:
+            assert not pat.search(fh.read()), f

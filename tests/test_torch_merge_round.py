@@ -1,0 +1,151 @@
+"""Merge kernels B1/B2 of the torch port (plain versions on the CPU) against
+the JAX package: the lax `merge_round` + `hash_jnp` oracle and the Pallas
+kernels in interpret mode.  Bit-exact.  The CUDA kernels themselves are
+held against the same plain versions by `test_gpu_kernels_match_plain` on
+a card, and by chip_smoke.py; `run_merge_phases` is in
+test_torch_merge_phases.py."""
+
+import random
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from tokenizers_tpu.ops import bpe_merge2 as jm
+from tokenizers_tpu.ops import merge_pallas as jp
+from tokenizers_tpu.ops.merge_table import CuckooMergeTable, consume_mins, hash_jnp
+from tokenizers_tpu_torch.ops import bpe_merge2 as tm
+from tokenizers_tpu_torch.ops import merge_kernels as tk
+
+# the lax oracle as one XLA program (op by op it costs ~5x more here)
+j_merge_round = jax.jit(jm.merge_round, static_argnames=("k_steps",))
+
+
+def random_table(rng, n_base, n_merges):
+    merges = {}
+    next_id = n_base
+    for rank in range(n_merges):
+        for _ in range(50):
+            a = rng.randrange(next_id)
+            b = rng.randrange(next_id)
+            if (a, b) not in merges:
+                merges[(a, b)] = (rank, next_id)
+                next_id += 1
+                break
+    return merges
+
+
+def random_case(seed, R, C, k):
+    """The random well-formed table and mid-merge layout of
+    tests/test_merge_pallas.py."""
+    rng = random.Random(seed)
+    merges = random_table(rng, 8, 120)
+    table = CuckooMergeTable(merges)
+    n_ids = max(nid for _r, nid in merges.values()) + 1
+    mclr = consume_mins(merges, n_ids)
+    ids = np.full((R, C), -1, np.int32)
+    wid = np.full((R, C), -1, np.int32)
+    for r in range(R):
+        col = 0
+        w = 0
+        while col < C - 4:
+            wl = rng.randrange(1, 12)
+            for _ in range(min(wl, C - 1 - col)):
+                ids[r, col] = rng.randrange(8)
+                wid[r, col] = w
+                col += 1
+            w += 1
+            if rng.random() < 0.2:
+                col += rng.randrange(1, 1 << min(k, 3))
+        for _ in range(8):
+            ids[r, rng.randrange(C)] = -1
+    return table, mclr, ids, wid
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x).copy())
+
+
+@pytest.mark.parametrize("seed,R,C,k", [(0, 8, 256, 9), (1, 5, 384, 9),
+                                        (2, 16, 256, 4), (3, 8, 256, 2)])
+def test_plain_round_matches_jax(seed, R, C, k):
+    table, mclr, ids, wid = random_case(seed, R, C, k)
+    rows0, rows1 = table.rows8(0, mclr), table.rows8(1, mclr)
+    s = table.seed
+    mask = rows0.shape[0] - 1
+
+    # keys (B2) against the Pallas keys kernel and hash_jnp
+    j_h0, j_h1, j_nid = jp.keys_pallas(jnp.asarray(ids), jnp.asarray(rows0),
+                                       jnp.int32(s), k_steps=k, interpret=True)
+    t_h0, t_h1, t_nid = tk.keys(_t(ids), _t(rows0), s, k_steps=k)
+    for a, b in ((j_h0, t_h0), (j_h1, t_h1), (j_nid, t_nid)):
+        np.testing.assert_array_equal(np.asarray(a)[:R], b.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(hash_jnp(jnp.asarray(ids), j_nid[:R], s, mask, 1)), t_h1.numpy()
+    )
+
+    # three rounds: lax merge_round, the fused Pallas round (interpret) and
+    # the port's fused round (carried keys) must agree at every step
+    jids, jwid = jnp.asarray(ids), jnp.asarray(wid)
+    jl, jr = jm.init_own(jids, jnp.asarray(mclr))
+    lax_st = (jids, jl, jr)
+    pst = (jp._pad_rb(jids, -1), jp._pad_rb(jl, 0), jp._pad_rb(jr, 0), j_h0, j_h1, j_nid)
+    wid_p = jp._pad_rb(jwid, -1)
+    tl, trr = tm.init_own(_t(ids), _t(mclr))
+    tst = (_t(ids), tl, trr, t_h0, t_h1, t_nid)
+    for _ in range(3):
+        a1, l1, r1, f1 = j_merge_round(
+            *lax_st, jwid, jm._seg_of(jwid), jnp.asarray(rows0),
+            jnp.asarray(rows1), jnp.int32(s), k_steps=k,
+        )
+        lax_st = (a1, l1, r1)
+        p_out = jp.merge_round_fused(
+            *pst[:3], wid_p, *pst[3:], jnp.asarray(rows0), jnp.asarray(rows1),
+            jnp.int32(s), k_steps=k, interpret=True,
+        )
+        pst = (p_out[0], p_out[1], p_out[2], p_out[4], p_out[5], p_out[6])
+        t_out = tk.merge_round_fused(
+            *tst[:3], _t(wid), *tst[3:], _t(rows0), _t(rows1), s, k_steps=k
+        )
+        tst = (t_out[0], t_out[1], t_out[2], t_out[4], t_out[5], t_out[6])
+        np.testing.assert_array_equal(np.asarray(a1), t_out[0].numpy())
+        np.testing.assert_array_equal(np.asarray(f1), t_out[3].numpy())
+        for j in range(7):
+            np.testing.assert_array_equal(np.asarray(p_out[j])[:R], t_out[j].numpy())
+        alive = np.asarray(a1) >= 0
+        np.testing.assert_array_equal(np.asarray(l1)[alive], t_out[1].numpy()[alive])
+        np.testing.assert_array_equal(np.asarray(r1)[alive], t_out[2].numpy()[alive])
+
+    # the port's self-contained lax-style round equals the fused one
+    t_m = tm.merge_round(_t(ids), tl, trr, _t(wid), tm._seg_of(_t(wid)),
+                         _t(rows0), _t(rows1), s, k_steps=k)
+    f_1 = tk.merge_round_fused(_t(ids), tl, trr, _t(wid), t_h0, t_h1, t_nid,
+                               _t(rows0), _t(rows1), s, k_steps=k)
+    for j in range(4):
+        np.testing.assert_array_equal(t_m[j].numpy(), f_1[j].numpy())
+
+
+@pytest.mark.gpu
+def test_gpu_kernels_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    table, mclr, ids, wid = random_case(7, 12, 1536, 9)
+    rows0, rows1 = _t(table.rows8(0, mclr)).cuda(), _t(table.rows8(1, mclr)).cuda()
+    s = table.seed
+    ids_c, wid_c = _t(ids).cuda(), _t(wid).cuda()
+    got = tk.keys(ids_c, rows0, s)
+    want = tk.keys_plain(ids_c, rows0, s)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ol, orr = tm.init_own(ids_c, _t(mclr).cuda())
+    st = (ids_c, ol, orr) + tuple(got)
+    for _ in range(3):
+        out = tk.merge_round_fused(*st[:3], wid_c, *st[3:], rows0, rows1, s)
+        ref = tk.merge_round_fused_plain(*st[:3], wid_c, *st[3:], rows0, rows1, s)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        st = (out[0], out[1], out[2], out[4], out[5], out[6])

@@ -1,0 +1,76 @@
+"""Regenerate the committed data files of this directory.
+
+    python -m tokenizers_tpu_torch.data.regen
+
+* `char_class.npz`: the two-stage codepoint -> class table, derived from
+  the `regex` module's \\p{L} and \\p{N} (the classes Oniguruma uses).
+* `gpt2_digests.json`: per-document SHA-256 of the ids that the
+  `tokenizers` wheel gives for `smoke_data.build_docs()` on the gpt2
+  fixture.
+
+Both references are optional dependencies: they are imported by name here
+only, so the package itself never needs them.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import os
+
+import numpy as np
+
+from ..ops.unicode_tables import (
+    CLS_L,
+    CLS_N,
+    CLS_SP,
+    CLS_WS,
+    MAX_CP,
+    PAGE_SIZE,
+    TABLE_PATH,
+)
+from ..smoke_data import DIGESTS, GPT2_JSON, build_docs, ids_digest
+
+# Oniguruma \s
+WS_CODEPOINTS = (
+    [0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x20, 0x85, 0xA0, 0x1680]
+    + list(range(0x2000, 0x200B))
+    + [0x2028, 0x2029, 0x202F, 0x205F, 0x3000]
+)
+
+
+def class_tables():
+    """(stage1 int32, stage2 int8), deduplicating identical pages."""
+    re_mod = importlib.import_module("regex")
+    cls = np.zeros(MAX_CP, dtype=np.int8)
+    cps = np.concatenate(
+        [np.arange(0, 0xD800, dtype=np.int64), np.arange(0xE000, MAX_CP, dtype=np.int64)]
+    )
+    all_chars = "".join(map(chr, cps.tolist()))
+    for pat, value in ((r"\p{L}", CLS_L), (r"\p{N}", CLS_N)):
+        hits = re_mod.compile(pat, re_mod.V0).findall(all_chars)
+        cls[np.array([ord(c) for c in hits], dtype=np.int64)] = value
+    cls[np.array(WS_CODEPOINTS, dtype=np.int64)] = CLS_WS
+    cls[0x20] = CLS_SP
+    uniq, stage1 = np.unique(cls.reshape(-1, PAGE_SIZE), axis=0, return_inverse=True)
+    return stage1.reshape(-1).astype(np.int32), uniq.reshape(-1).astype(np.int8)
+
+
+def wheel_digests():
+    wheel = importlib.import_module("tokenizers")
+    ref = wheel.Tokenizer.from_file(GPT2_JSON)
+    encs = ref.encode_batch_fast(build_docs(), add_special_tokens=True)
+    return [ids_digest(e.ids) for e in encs]
+
+
+def main():
+    stage1, stage2 = class_tables()
+    np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
+    with open(DIGESTS, "w") as f:
+        json.dump({"sha256": wheel_digests()}, f, indent=0)
+        f.write("\n")
+    print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes;", DIGESTS)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,151 @@
+"""Byte-Pair Encoding model of the host path: lowest-(rank, position)-first
+pair merging per word, with a bounded word cache.
+
+Copy of the merge of `tokenizers_tpu.models.bpe` (`_Word`, the heap loop
+and `_merge_word`) for the options this slice's loader admits: vocab,
+merges, and an unk token (with fuse_unk).  The host path encodes the
+inputs the device does not take: inputs with added tokens, long inputs
+with no safe seam, and rows the device program flags `row_bad`.
+"""
+
+from __future__ import annotations
+
+import heapq
+from typing import Dict, List, Optional, Tuple
+
+DEFAULT_CACHE_CAPACITY = 10_000
+MAX_CACHEABLE_LENGTH = 256
+
+
+def _utf8_len(c: str) -> int:
+    return len(c.encode("utf-8"))
+
+
+class Cache:
+    """Bounded word cache: insert only while below capacity."""
+
+    __slots__ = ("capacity", "map")
+
+    def __init__(self, capacity: int = DEFAULT_CACHE_CAPACITY):
+        self.capacity = capacity
+        self.map: Dict[str, List[int]] = {}
+
+    def get(self, key: str) -> Optional[List[int]]:
+        return self.map.get(key)
+
+    def set(self, key: str, value: List[int]) -> None:
+        if len(self.map) < self.capacity:
+            self.map[key] = value
+
+
+class _Word:
+    """Symbol list + merge loop; removed symbols keep byte_len 0."""
+
+    __slots__ = ("ids", "lens", "prev", "next")
+
+    def __init__(self):
+        self.ids: List[int] = []
+        self.lens: List[int] = []
+        self.prev: List[int] = []
+        self.next: List[int] = []
+
+    def add(self, id: int, byte_len: int) -> None:
+        n = len(self.ids)
+        if n > 0:
+            self.next[n - 1] = n
+        self.ids.append(id)
+        self.lens.append(byte_len)
+        self.prev.append(n - 1)
+        self.next.append(-1)
+
+    def merge_all(self, merges: Dict[Tuple[int, int], Tuple[int, int]]) -> None:
+        ids, lens, prev, nxt = self.ids, self.lens, self.prev, self.next
+        heap: List[Tuple[int, int, int]] = []  # (rank, pos, new_id)
+        for i in range(len(ids) - 1):
+            m = merges.get((ids[i], ids[i + 1]))
+            if m is not None:
+                heap.append((m[0], i, m[1]))
+        heapq.heapify(heap)
+        while heap:
+            rank, pos, new_id = heapq.heappop(heap)
+            if lens[pos] == 0 or nxt[pos] == -1:
+                continue
+            next_pos = nxt[pos]
+            # revalidate against the current symbols
+            cur = merges.get((ids[pos], ids[next_pos]))
+            if cur is None or cur[1] != new_id:
+                continue
+            ids[pos] = new_id
+            lens[pos] += lens[next_pos]
+            right_next = nxt[next_pos]
+            nxt[pos] = right_next
+            lens[next_pos] = 0
+            if right_next > -1:
+                prev[right_next] = pos
+            if prev[pos] >= 0:
+                p = prev[pos]
+                m = merges.get((ids[p], ids[pos]))
+                if m is not None:
+                    heapq.heappush(heap, (m[0], p, m[1]))
+            if right_next > -1:
+                m = merges.get((ids[pos], ids[right_next]))
+                if m is not None:
+                    heapq.heappush(heap, (m[0], pos, m[1]))
+
+    def token_ids(self) -> List[int]:
+        return [i for i, n in zip(self.ids, self.lens) if n]
+
+
+class BPE:
+    def __init__(self, vocab: Dict[str, int], merges: List[Tuple[str, str]],
+                 unk_token: Optional[str] = None, fuse_unk: bool = False):
+        self.vocab: Dict[str, int] = dict(vocab)
+        self.unk_token = unk_token
+        self.fuse_unk = fuse_unk
+        self.cache = Cache()
+        self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        for i, (a, b) in enumerate(merges):
+            for t in (a, b, a + b):
+                if t not in self.vocab:
+                    raise ValueError(f"Merge token out of vocabulary: {t!r}")
+            self.merges[(self.vocab[a], self.vocab[b])] = (i, self.vocab[a + b])
+
+    def _merge_word(self, w: str) -> List[int]:
+        word = _Word()
+        unk: Optional[Tuple[int, int]] = None  # (unk_id, byte_len)
+        for c in w:
+            byte_len = _utf8_len(c)
+            tid = self.vocab.get(c)
+            if tid is not None:
+                if unk is not None:
+                    word.add(*unk)
+                    unk = None
+                word.add(tid, byte_len)
+                continue
+            if self.unk_token is None:
+                continue
+            unk_id = self.vocab.get(self.unk_token)
+            if unk_id is None:
+                raise ValueError(f"Unk token `{self.unk_token}` is out of vocabulary")
+            if unk is not None and self.fuse_unk:
+                unk = (unk[0], unk[1] + byte_len)
+            else:
+                if unk is not None:
+                    word.add(*unk)
+                unk = (unk_id, byte_len)
+        if unk is not None:
+            word.add(*unk)
+        word.merge_all(self.merges)
+        return word.token_ids()
+
+    def tokenize(self, word: str) -> List[int]:
+        """The ids of one pre-tokenized word."""
+        if not word:
+            return []
+        hit = self.cache.get(word)
+        if hit is not None:
+            return hit
+        ids = self._merge_word(word)
+        if len(word) < MAX_CACHEABLE_LENGTH:
+            self.cache.set(word, ids)
+        return ids

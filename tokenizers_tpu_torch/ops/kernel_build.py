@@ -1,0 +1,126 @@
+"""Build the CUDA kernels of `csrc/` at first use and load them.
+
+Each `csrc/*.cu` file is compiled by `nvcc` into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), loaded
+with `ctypes`.  Libraries are named by a hash of their sources and flags
+and kept in `_build/` beside this package (git-ignored;
+`TOKENIZERS_TPU_TORCH_BUILD` overrides the directory), so an edited source
+is rebuilt and an unchanged one is reused.  `build()` compiles every
+missing library at once, one `nvcc` process per source.
+
+A failed build raises with the compiler's output: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Iterable
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG, "csrc")
+SOURCES = ("merge_round.cu", "layout.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}  # nvcc/ptxas output per source, from this process
+
+
+def build_dir() -> str:
+    return os.environ.get("TOKENIZERS_TPU_TORCH_BUILD") or os.path.join(PKG, "_build")
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _lib_path(src: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name == src or name.endswith(".cuh"):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(name.encode() + f.read())
+    stem = os.path.splitext(src)[0]
+    return os.path.join(build_dir(), f"lib{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile the libraries that are missing, all in parallel.
+    Returns {source: library path}."""
+    os.makedirs(build_dir(), exist_ok=True)
+    paths = {s: _lib_path(s) for s in sources}
+    procs = {}
+    for src, path in paths.items():
+        if os.path.exists(path):
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        procs[src] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    errors = []
+    for src, (tmp, p) in procs.items():
+        out, _ = p.communicate()
+        LOGS[src] = out
+        if p.returncode != 0:
+            errors.append(f"nvcc failed on {src} (exit {p.returncode}):\n{out}")
+        else:
+            os.replace(tmp, paths[src])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def library(src: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    lib = _libs.get(src)
+    if lib is None:
+        lib = ctypes.CDLL(build([src])[src])
+        _libs[src] = lib
+    return lib
+
+
+def check_status(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {status}")
+
+
+def check_cuda_int32(name: str, shape, **tensors) -> None:
+    """Raise unless every tensor is a contiguous int32 CUDA tensor of
+    `shape` (None: any shape) on one device."""
+    import torch
+
+    dev = None
+    for arg, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected cuda")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected int32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+
+
+def device_of(name: str, t) -> str:
+    """'cpu' for the plain version, 'cuda' for the kernel; anything else
+    raises."""
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"{name}: no kernel or plain version for device {t.device}")

@@ -1,0 +1,128 @@
+"""Merge-round kernels B1 and B2 (`csrc/merge_round.cu`) and their plain
+versions; port of `tokenizers_tpu.ops.merge_pallas`.
+
+* `keys` (B2, replaces `keys_pallas`): each position's next alive id
+  within 2^k_steps, and both cuckoo slot hashes of (id, next id).
+* `merge_round_fused` (B1, replaces `merge_round_fused`): one safe-set
+  merge round from the carried keys, merge-table row reads included, then
+  the next round's keys.  Returns (ids, own_l, own_r, f, h0, h1, nid).
+
+A wrapper runs its plain version for tensors on the CPU.  For CUDA
+tensors it launches the kernel or raises; there is no fallback.  Each
+launch adds one to `LAUNCHES[name]`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .bpe_merge2 import FILL_K, _seg_of, apply_round, fill_next, select_rows
+from .kernel_build import check_cuda_int32, check_status, device_of, library
+from .merge_table import hash_pair
+
+LAUNCHES = {"keys": 0, "merge_round_fused": 0}
+_SRC = "merge_round.cu"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+
+
+def _lib():
+    lib = library(_SRC)
+    if not getattr(lib, "_tt_typed", False):
+        lib.tt_keys.argtypes = [_P] * 5 + [_I, _I, _I, _U, _U, _P]
+        lib.tt_keys.restype = _I
+        lib.tt_merge_round.argtypes = [_P] * 17 + [_I, _I, _I, _U, _U, _P]
+        lib.tt_merge_round.restype = _I
+        lib.tt_n_scratch_merge_round.restype = _I
+        lib._tt_typed = True
+    return lib
+
+
+def _mask(rows0) -> int:
+    S = rows0.shape[0]
+    if S & (S - 1):
+        raise ValueError(f"merge table rows {S} is not a power of two")
+    return S - 1
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def keys_plain(ids, rows0, seed, k_steps=FILL_K):
+    """(h0, h1, nid) of every position: nid is the next alive id within
+    2^k_steps (0 beyond), h0/h1 the slot hashes of (id, nid)."""
+    (nid,), _ = fill_next([ids], ids >= 0, k_steps)
+    mask = _mask(rows0)
+    return hash_pair(ids, nid, seed, mask, 0), hash_pair(ids, nid, seed, mask, 1), nid
+
+
+def merge_round_fused_plain(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1,
+                            seed, k_steps=FILL_K):
+    r_in, new_id, mcl_new, mcr_new = select_rows(ids, nid, h0, h1, rows0, rows1)
+    ids2, ol2, or2, f = apply_round(
+        ids, own_l, own_r, wid, _seg_of(wid), r_in, new_id, mcl_new, mcr_new,
+        k_steps,
+    )
+    h0n, h1n, nidn = keys_plain(ids2, rows0, seed, k_steps)
+    return ids2, ol2, or2, f, h0n, h1n, nidn
+
+
+def keys(ids, rows0, seed, k_steps=FILL_K):
+    if device_of("keys", ids) == "cpu":
+        return keys_plain(ids, rows0, seed, k_steps)
+    R, C = ids.shape
+    check_cuda_int32("keys", (R, C), ids=ids)
+    check_cuda_int32("keys", None, rows0=rows0)
+    mask = _mask(rows0)
+    h0, h1, nid = (torch.empty_like(ids) for _ in range(3))
+    if ids.numel() == 0:
+        return h0, h1, nid
+    scratch = torch.empty_like(ids)
+    lib = _lib()
+    LAUNCHES["keys"] += 1
+    check_status("keys", lib.tt_keys(
+        ids.data_ptr(), h0.data_ptr(), h1.data_ptr(), nid.data_ptr(),
+        scratch.data_ptr(), R, C, 1 << k_steps, int(seed) & 0xFFFFFFFF, mask,
+        _stream(ids),
+    ))
+    return h0, h1, nid
+
+
+def merge_round_fused(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed,
+                      k_steps=FILL_K):
+    if device_of("merge_round_fused", ids) == "cpu":
+        return merge_round_fused_plain(
+            ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps
+        )
+    R, C = ids.shape
+    check_cuda_int32(
+        "merge_round_fused", (R, C), ids=ids, own_l=own_l, own_r=own_r,
+        wid=wid, h0=h0, h1=h1, nid=nid,
+    )
+    check_cuda_int32("merge_round_fused", None, rows0=rows0, rows1=rows1)
+    mask = _mask(rows0)
+    if rows1.shape != rows0.shape or rows0.shape[1] != 8:
+        raise ValueError("merge_round_fused: rows0/rows1 must both be [S, 8]")
+    outs = [torch.empty_like(ids) for _ in range(6)]
+    f = torch.empty((R, C), dtype=torch.bool, device=ids.device)
+    if ids.numel() == 0:
+        return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
+    lib = _lib()
+    scratch = torch.empty(
+        (lib.tt_n_scratch_merge_round(), R, C), dtype=torch.int32,
+        device=ids.device,
+    )
+    LAUNCHES["merge_round_fused"] += 1
+    check_status("merge_round_fused", lib.tt_merge_round(
+        ids.data_ptr(), own_l.data_ptr(), own_r.data_ptr(), wid.data_ptr(),
+        h0.data_ptr(), h1.data_ptr(), nid.data_ptr(), rows0.data_ptr(),
+        rows1.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+        outs[2].data_ptr(), f.data_ptr(), outs[3].data_ptr(),
+        outs[4].data_ptr(), outs[5].data_ptr(), scratch.data_ptr(), R, C,
+        1 << k_steps, int(seed) & 0xFFFFFFFF, mask, _stream(ids),
+    ))
+    return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
