@@ -18,6 +18,9 @@ from tokenizers_tpu_torch import Tokenizer
 tok = Tokenizer.from_file("tests/fixtures/gpt2/tokenizer.json", device="cpu")
 ids = [e.ids for e in tok.encode_batch_fast(["Hello world! y'all'll've", "序号123", "a<|endoftext|>b"])]
 assert ids[2] == [65, 0, 66], ids
+tok = Tokenizer.from_file("tests/fixtures/llama3/tokenizer.json", device="cpu")
+ids = [e.ids for e in tok.encode_batch_fast(["Hello world! Don'ſ 12345\\r\\n", "a<|end_of_text|>b"])]
+assert ids[0][0] == 0 and ids[1] == [0, 66, 1, 67], ids
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

@@ -1,10 +1,10 @@
-"""Merge kernels B1/B2 of the torch port (plain versions on the CPU) against
-the JAX package: the lax `merge_round` + `hash_jnp` oracle and the Pallas
-kernels in interpret mode.  Bit-exact.  The CUDA kernels themselves are
-held against the same plain versions by `test_gpu_kernels_match_plain` on
-a card, and by chip_smoke.py; `run_merge_phases` is in
-test_torch_merge_phases.py."""
+"""Merge kernels B1/B2/B4 of the torch port (plain versions on the CPU)
+against the JAX package: the lax `merge_round` + `hash_jnp` oracle and the
+Pallas kernels in interpret mode.  Bit-exact.  The CUDA kernels themselves
+are held against the same plain versions by the `gpu` tests on a card, and
+by chip_smoke.py; `run_merge_phases` is in test_torch_merge_phases.py."""
 
+import functools
 import random
 
 import numpy as np
@@ -128,6 +128,36 @@ def test_plain_round_matches_jax(seed, R, C, k):
         np.testing.assert_array_equal(t_m[j].numpy(), f_1[j].numpy())
 
 
+@pytest.mark.parametrize("seed,R,C,k", [(0, 8, 256, 9), (1, 5, 384, 9),
+                                        (2, 8, 256, 2), (3, 16, 256, 4)])
+def test_standalone_round_matches_jax(seed, R, C, k):
+    """B4's plain version (and `_round`, which runs it on the CPU) against
+    `merge_round_pallas(interpret=True)` and the lax `merge_round`, at the
+    cases of tests/test_merge_pallas.py (R = 5 pads the Pallas row block)."""
+    table, mclr, ids, wid = random_case(seed, R, C, k)
+    rows0, rows1 = table.rows8(0, mclr), table.rows8(1, mclr)
+    s = table.seed
+    jl, jr = jm.init_own(jnp.asarray(ids), jnp.asarray(mclr))
+    j_args = (jnp.asarray(ids), jl, jr, jnp.asarray(wid))
+    j_tabs = (jnp.asarray(rows0), jnp.asarray(rows1), jnp.int32(s))
+    # compiled at XLA's lowest backend optimisation level: the same program,
+    # compiled in less time on the CPU
+    pallas = jax.jit(functools.partial(jp.merge_round_pallas, k_steps=k, interpret=True))
+    p_out = pallas.lower(*j_args, *j_tabs).compile(
+        {"xla_backend_optimization_level": 0})(*j_args, *j_tabs)
+    l_out = j_merge_round(*j_args, jm._seg_of(j_args[3]), *j_tabs, k_steps=k)
+    tl, trr = tm.init_own(_t(ids), _t(mclr))
+    t_args = (_t(ids), tl, trr, _t(wid), _t(rows0), _t(rows1), s)
+    t_out = tk.merge_round_standalone(*t_args, k_steps=k)
+    assert tk.merge_round_standalone_plain(*t_args, k_steps=k)[3].dtype == torch.bool
+    for j in range(4):
+        np.testing.assert_array_equal(t_out[j].numpy(), np.asarray(p_out[j]))
+        np.testing.assert_array_equal(t_out[j].numpy(), np.asarray(l_out[j]))
+    for a, b in zip(tm._round(*t_args, k_steps=k), t_out):
+        assert torch.equal(a, b)
+    assert t_out[3].any()
+
+
 @pytest.mark.gpu
 def test_gpu_kernels_match_plain():
     if not torch.cuda.is_available():
@@ -149,3 +179,27 @@ def test_gpu_kernels_match_plain():
         for a, b in zip(out, ref):
             assert torch.equal(a, b)
         st = (out[0], out[1], out[2], out[4], out[5], out[6])
+
+
+@pytest.mark.gpu
+def test_gpu_standalone_round_matches_plain():
+    """B4 on the card against its plain version and against B2 then B1,
+    round after round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    table, mclr, ids, wid = random_case(8, 12, 1536, 9)
+    rows0, rows1 = _t(table.rows8(0, mclr)).cuda(), _t(table.rows8(1, mclr)).cuda()
+    s = table.seed
+    wid_c = _t(wid).cuda()
+    ol, orr = tm.init_own(_t(ids).cuda(), _t(mclr).cuda())
+    st = (_t(ids).cuda(), ol, orr)
+    before = tk.LAUNCHES["merge_round_standalone"]
+    for _ in range(3):
+        out = tm._round(*st, wid_c, rows0, rows1, s)
+        ref = tk.merge_round_standalone_plain(*st, wid_c, rows0, rows1, s)
+        chain = tk.merge_round_fused(*st, wid_c, *tk.keys(st[0], rows0, s), rows0, rows1, s)
+        torch.cuda.synchronize()
+        for a, b, c in zip(out, ref, chain):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        st = out[:3]
+    assert tk.LAUNCHES["merge_round_standalone"] == before + 3

@@ -1,9 +1,9 @@
 """The port's committed data and the tables it builds, re-derived from
 their references: the two-stage class table from the JAX package's
-`char_class_tables()`, the per-document gpt2 digests that chip_smoke.py
-checks from the `tokenizers` wheel on the same documents, and the
-engine's tables from the JAX engine's `_program_args()`, array for
-array."""
+`char_class_tables()`, the per-document gpt2 and llama3_128k digests that
+chip_smoke.py checks from the `tokenizers` wheel on the same documents,
+and the engine's tables (gpt2, and llama3 with its whole-word table) from
+the JAX engine's `_program_args()`, array for array."""
 
 import numpy as np
 import pytest
@@ -14,10 +14,11 @@ from tokenizers_tpu.ops import unicode_tables as ju
 from tokenizers_tpu.tokenizer import Tokenizer as JaxTokenizer
 from tokenizers_tpu_torch import Tokenizer
 from tokenizers_tpu_torch.ops import unicode_tables as tu
-from tokenizers_tpu_torch.ops.bpe_engine import TABLE_KEYS
-from tokenizers_tpu_torch.smoke_data import build_docs, ids_digest, load_digests
+from tokenizers_tpu_torch.ops.bpe_engine import TABLE_KEYS, WW_KEYS
+from tokenizers_tpu_torch.smoke_data import CONFIGS, build_docs, ids_digest, load_digests
 
 GPT2 = "tests/fixtures/gpt2/tokenizer.json"
+LLAMA3 = "tests/fixtures/llama3/tokenizer.json"
 
 
 def test_class_table_matches_jax():
@@ -29,21 +30,47 @@ def test_class_table_matches_jax():
         assert getattr(tu, name) == getattr(ju, name)
 
 
-def test_gpt2_digests_match_wheel():
+def _digests_match_wheel(config):
     docs = build_docs()
     assert len(docs) == 512 and sum(not d.isascii() for d in docs) == 20
-    wheel = WheelTokenizer.from_file(GPT2)
+    wheel = WheelTokenizer.from_file(CONFIGS[config])
     encs = wheel.encode_batch_fast(docs, add_special_tokens=True)
-    assert [ids_digest(e.ids) for e in encs] == load_digests()
+    assert [ids_digest(e.ids) for e in encs] == load_digests(config)
+
+
+def test_gpt2_digests_match_wheel():
+    _digests_match_wheel("gpt2")
+
+
+def test_llama3_digests_match_wheel():
+    _digests_match_wheel("llama3")
+
+
+def _check_key(args, tables, key):
+    want, got = args[key], tables[key]
+    if key in ("seed", "ww_seed"):
+        assert got == int(want)
+    elif key in ("boundary", "whole_word"):
+        assert got == want
+    else:
+        want, got = np.asarray(want), got.numpy()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("key", TABLE_KEYS + ("seed",))
 def test_engine_tables_match_jax(key):
-    want = np.asarray(JaxTokenizer.from_file(GPT2)._get_device_engine()._program_args()[key])
-    got = Tokenizer.from_file(GPT2, device="cpu")._get_device_engine().tables[key]
-    if key == "seed":
-        assert got == int(want)
-    else:
-        got = got.numpy()
-        assert got.dtype == want.dtype and got.shape == want.shape
-        np.testing.assert_array_equal(got, want)
+    args = JaxTokenizer.from_file(GPT2)._get_device_engine()._program_args()
+    _check_key(args, Tokenizer.from_file(GPT2, device="cpu")._get_device_engine().tables, key)
+
+
+@pytest.fixture(scope="module")
+def llama3_tables():
+    return (JaxTokenizer.from_file(LLAMA3)._get_device_engine()._program_args(),
+            Tokenizer.from_file(LLAMA3, device="cpu")._get_device_engine().tables)
+
+
+@pytest.mark.parametrize("key", TABLE_KEYS + WW_KEYS + ("seed", "ww_seed", "boundary",
+                                                        "whole_word"))
+def test_llama3_engine_tables_match_jax(llama3_tables, key):
+    _check_key(*llama3_tables, key)

@@ -1,4 +1,4 @@
-// Merge-round kernels of the byte-level BPE encode (kernels B1 and B2).
+// Merge-round kernels of the byte-level BPE encode (kernels B1, B2, B4).
 //
 // Replaces, from tokenizers_tpu/ops/merge_pallas.py:
 //   B2 tt_keys        <- keys_pallas (_keys_kernel): each position's next
@@ -8,15 +8,23 @@
 //                        merge-table row reads of _select_rows moved into
 //                        the kernel): one safe-set merge round, then the
 //                        next round's keys.
-// Plain versions: ops/merge_kernels.py (keys_plain, merge_round_fused_plain).
+//   B4 tt_merge_round_standalone
+//                     <- merge_round_pallas (_keys_kernel, the row reads
+//                        of _select_rows, then _apply_kernel): one round
+//                        that computes its own keys and carries none out.
+// Plain versions: ops/merge_kernels.py (keys_plain, merge_round_fused_plain,
+// merge_round_standalone_plain).  B1 and B4 share the round body
+// (round_row); B4 computes the keys in its first pass and stops after the
+// apply.
 //
 // Bound on an H100 (3.35 TB/s): B2 reads ids and writes h0, h1, nid, 16 B
 // per position (4.9 MB, 1.4 us at the main path's unique buffer
 // [74, 4096]); B1 reads ids, own_l, own_r, wid, h0, h1, nid and writes ids,
-// own_l, own_r, h0, h1, nid and the bool f, 53 B per position, plus the two
-// [S, 8] merge tables once (2 MB for gpt2): 18 MB, 5.4 us at [74, 4096].
-// Both are bound by bytes.  B1's two 32 B table-row reads per position hit
-// the 50 MB L2.
+// own_l, own_r, h0, h1, nid and the bool f, 53 B per position (16 MB at
+// [74, 4096]), plus each distinct merge-table row its keys hit, 32 B each.
+// B4 reads ids, own_l, own_r, wid and writes ids, own_l, own_r and f, 29 B
+// per position, plus the table rows as B1.  All are bound by bytes.  The
+// two 32 B table-row reads per position hit the 50 MB L2.
 //
 // First design: one block of 1024 threads per row (words never cross rows,
 // so rows are independent); the row is walked in 1024-wide tiles by a
@@ -128,27 +136,24 @@ keys_kernel(const int* ids, int* h0, int* h1, int* nid, int* scratch, int C,
             seed, mask, wt);
 }
 
-__global__ void __launch_bounds__(NT)
-merge_round_kernel(const int* ids_g, const int* ol_g, const int* or_g,
-                   const int* wid_g, const int* h0_g, const int* h1_g,
-                   const int* nid_g, const int* rows0, const int* rows1,
-                   int* ids_o, int* ol_o, int* or_o, unsigned char* f_o, int* h0_o,
-                   int* h1_o, int* nid_o, int* scratch, int R, int C, int reach,
-                   unsigned seed, unsigned mask) {
-  __shared__ int wti[32];
-  __shared__ long long wtl[32];
-  const size_t off = (size_t)blockIdx.x * C;
-  const size_t plane = (size_t)R * C;
-  const int* ids = ids_g + off;
-  const int* own_l = ol_g + off;
-  const int* own_r = or_g + off;
-  const int* wid = wid_g + off;
-  int* S[N_SCRATCH];
-#pragma unroll
-  for (int k = 0; k < N_SCRATCH; ++k) S[k] = scratch + k * plane + off;
+// One safe-set merge round over one row (row pointers; S: the scratch
+// planes of this row).  CARRIED: the pair keys (h0, h1, nid) come in from
+// the previous round (B1); otherwise the round computes them from ids
+// itself (B4) and h0_in, h1_in, nid_in are unused.
+template <bool CARRIED>
+__device__ __forceinline__ void round_row(
+    const int* ids, const int* own_l, const int* own_r, const int* wid,
+    const int* h0_in, const int* h1_in, const int* nid_in, const int* rows0,
+    const int* rows1, int* ids_o, int* ol_o, int* or_o, unsigned char* f_o,
+    int* const* S, int C, int reach, unsigned seed, unsigned mask, int* wti,
+    long long* wtl) {
   const int nt = n_tiles(C);
+  if (!CARRIED) {  // first alive >= i, needed for the keys in pass 1
+    scan_next_alive(ids, S[S_NXT], C, wti);
+    __syncthreads();
+  }
 
-  // ---- pass 1: table rows at the carried keys; last alive <= i --------
+  // ---- pass 1: pair keys; table rows at the keys; last alive <= i ------
   {
     int carry = -1;
     for (int t = 0; t < nt; ++t) {
@@ -156,9 +161,19 @@ merge_round_kernel(const int* ids_g, const int* ol_g, const int* or_g,
       int v = -1;
       if (i < C) {
         const int a = ids[i];
-        const int n = nid_g[off + i];
-        const int* r0 = rows0 + 8 * (size_t)h0_g[off + i];
-        const int* r1 = rows1 + 8 * (size_t)h1_g[off + i];
+        int n, k0, k1;
+        if (CARRIED) {
+          n = nid_in[i];
+          k0 = h0_in[i];
+          k1 = h1_in[i];
+        } else {
+          const int j = next_within(S[S_NXT], i, C, reach);
+          n = j >= 0 ? ids[j] : 0;
+          k0 = pair_hash(a, n, seed, mask, 0);
+          k1 = pair_hash(a, n, seed, mask, 1);
+        }
+        const int* r0 = rows0 + 8 * (size_t)k0;
+        const int* r1 = rows1 + 8 * (size_t)k1;
         const bool hit0 = r0[0] == a && r0[1] == n;
         const bool hit1 = r1[0] == a && r1[1] == n;
         const int* r = hit0 ? r0 : r1;
@@ -173,7 +188,7 @@ merge_round_kernel(const int* ids_g, const int* ol_g, const int* or_g,
     }
   }
   // ---- pass 2: first alive >= i ---------------------------------------
-  scan_next_alive(ids, S[S_NXT], C, wti);
+  if (CARRIED) scan_next_alive(ids, S[S_NXT], C, wti);
   __syncthreads();
 
   // ---- pass 3: pair validity and rank ---------------------------------
@@ -294,16 +309,56 @@ merge_round_kernel(const int* ids_g, const int* ol_g, const int* or_g,
     const bool f = S[S_F][i];
     const int p = prev_within(S[S_PRV], i, reach);
     const bool kill = a >= 0 && p >= 0 && S[S_F][p] == 1;
-    ids_o[off + i] = kill ? -1 : (f ? S[S_NEWID][i] : a);
-    ol_o[off + i] = f ? S[S_MCLN][i] : own_l[i];
-    or_o[off + i] = f ? S[S_MCRN][i] : own_r[i];
-    f_o[off + i] = f ? 1 : 0;
+    ids_o[i] = kill ? -1 : (f ? S[S_NEWID][i] : a);
+    ol_o[i] = f ? S[S_MCLN][i] : own_l[i];
+    or_o[i] = f ? S[S_MCRN][i] : own_r[i];
+    f_o[i] = f ? 1 : 0;
   }
+}
+
+// B1: the round from carried keys, then the next round's keys.
+__global__ void __launch_bounds__(NT)
+merge_round_kernel(const int* ids_g, const int* ol_g, const int* or_g,
+                   const int* wid_g, const int* h0_g, const int* h1_g,
+                   const int* nid_g, const int* rows0, const int* rows1,
+                   int* ids_o, int* ol_o, int* or_o, unsigned char* f_o, int* h0_o,
+                   int* h1_o, int* nid_o, int* scratch, int R, int C, int reach,
+                   unsigned seed, unsigned mask) {
+  __shared__ int wti[32];
+  __shared__ long long wtl[32];
+  const size_t off = (size_t)blockIdx.x * C;
+  const size_t plane = (size_t)R * C;
+  int* S[N_SCRATCH];
+#pragma unroll
+  for (int k = 0; k < N_SCRATCH; ++k) S[k] = scratch + k * plane + off;
+  round_row<true>(ids_g + off, ol_g + off, or_g + off, wid_g + off, h0_g + off,
+                  h1_g + off, nid_g + off, rows0, rows1, ids_o + off, ol_o + off,
+                  or_o + off, f_o + off, S, C, reach, seed, mask, wti, wtl);
   __syncthreads();
 
   // ---- passes 9-10: the next round's keys -----------------------------
   emit_keys(ids_o + off, S[S_NXT2], h0_o + off, h1_o + off, nid_o + off, C,
             reach, seed, mask, wti);
+}
+
+// B4: one standalone round, its keys computed in the kernel.
+__global__ void __launch_bounds__(NT)
+merge_round_standalone_kernel(const int* ids_g, const int* ol_g,
+                              const int* or_g, const int* wid_g,
+                              const int* rows0, const int* rows1, int* ids_o,
+                              int* ol_o, int* or_o, unsigned char* f_o,
+                              int* scratch, int R, int C, int reach,
+                              unsigned seed, unsigned mask) {
+  __shared__ int wti[32];
+  __shared__ long long wtl[32];
+  const size_t off = (size_t)blockIdx.x * C;
+  const size_t plane = (size_t)R * C;
+  int* S[N_SCRATCH];
+#pragma unroll
+  for (int k = 0; k < N_SCRATCH; ++k) S[k] = scratch + k * plane + off;
+  round_row<false>(ids_g + off, ol_g + off, or_g + off, wid_g + off, nullptr,
+                   nullptr, nullptr, rows0, rows1, ids_o + off, ol_o + off,
+                   or_o + off, f_o + off, S, C, reach, seed, mask, wti, wtl);
 }
 
 extern "C" int tt_n_scratch_merge_round() { return N_SCRATCH; }
@@ -329,5 +384,18 @@ extern "C" int tt_merge_round(void* ids, void* own_l, void* own_r, void* wid,
       (const int*)rows1, (int*)ids_o, (int*)ol_o, (int*)or_o, (unsigned char*)f_o,
       (int*)h0_o, (int*)h1_o, (int*)nid_o, (int*)scratch, R, C, reach, seed,
       mask);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tt_merge_round_standalone(void* ids, void* own_l, void* own_r,
+                                         void* wid, void* rows0, void* rows1,
+                                         void* ids_o, void* ol_o, void* or_o,
+                                         void* f_o, void* scratch, int R, int C,
+                                         int reach, unsigned seed,
+                                         unsigned mask, void* stream) {
+  merge_round_standalone_kernel<<<R, NT, 0, (cudaStream_t)stream>>>(
+      (const int*)ids, (const int*)own_l, (const int*)own_r, (const int*)wid,
+      (const int*)rows0, (const int*)rows1, (int*)ids_o, (int*)ol_o,
+      (int*)or_o, (unsigned char*)f_o, (int*)scratch, R, C, reach, seed, mask);
   return (int)cudaGetLastError();
 }

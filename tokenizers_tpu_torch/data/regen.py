@@ -4,9 +4,9 @@
 
 * `char_class.npz`: the two-stage codepoint -> class table, derived from
   the `regex` module's \\p{L} and \\p{N} (the classes Oniguruma uses).
-* `gpt2_digests.json`: per-document SHA-256 of the ids that the
-  `tokenizers` wheel gives for `smoke_data.build_docs()` on the gpt2
-  fixture.
+* `gpt2_digests.json`, `llama3_digests.json`: per-document SHA-256 of
+  the ids that the `tokenizers` wheel gives for `smoke_data.build_docs()`
+  on the gpt2 and llama3_128k fixtures.
 
 Both references are optional dependencies: they are imported by name here
 only, so the package itself never needs them.
@@ -29,7 +29,7 @@ from ..ops.unicode_tables import (
     PAGE_SIZE,
     TABLE_PATH,
 )
-from ..smoke_data import DIGESTS, GPT2_JSON, build_docs, ids_digest
+from ..smoke_data import CONFIGS, build_docs, digests_path, ids_digest
 
 # Oniguruma \s
 WS_CODEPOINTS = (
@@ -56,9 +56,9 @@ def class_tables():
     return stage1.reshape(-1).astype(np.int32), uniq.reshape(-1).astype(np.int8)
 
 
-def wheel_digests():
+def wheel_digests(config: str = "gpt2"):
     wheel = importlib.import_module("tokenizers")
-    ref = wheel.Tokenizer.from_file(GPT2_JSON)
+    ref = wheel.Tokenizer.from_file(CONFIGS[config])
     encs = ref.encode_batch_fast(build_docs(), add_special_tokens=True)
     return [ids_digest(e.ids) for e in encs]
 
@@ -66,10 +66,12 @@ def wheel_digests():
 def main():
     stage1, stage2 = class_tables()
     np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
-    with open(DIGESTS, "w") as f:
-        json.dump({"sha256": wheel_digests()}, f, indent=0)
-        f.write("\n")
-    print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes;", DIGESTS)
+    print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes")
+    for config in CONFIGS:
+        with open(digests_path(config), "w") as f:
+            json.dump({"sha256": wheel_digests(config)}, f, indent=0)
+            f.write("\n")
+        print("wrote", digests_path(config))
 
 
 if __name__ == "__main__":

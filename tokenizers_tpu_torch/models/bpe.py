@@ -2,8 +2,9 @@
 pair merging per word, with a bounded word cache.
 
 Copy of the merge of `tokenizers_tpu.models.bpe` (`_Word`, the heap loop
-and `_merge_word`) for the options this slice's loader admits: vocab,
-merges, and an unk token (with fuse_unk).  The host path encodes the
+and `_merge_word`) for the options the port's loader admits: vocab,
+merges, an unk token (with fuse_unk), and `ignore_merges`, which looks a
+whole word up in the vocab before merging it.  The host path encodes the
 inputs the device does not take: inputs with added tokens, long inputs
 with no safe seam, and rows the device program flags `row_bad`.
 """
@@ -98,10 +99,12 @@ class _Word:
 
 class BPE:
     def __init__(self, vocab: Dict[str, int], merges: List[Tuple[str, str]],
-                 unk_token: Optional[str] = None, fuse_unk: bool = False):
+                 unk_token: Optional[str] = None, fuse_unk: bool = False,
+                 ignore_merges: bool = False):
         self.vocab: Dict[str, int] = dict(vocab)
         self.unk_token = unk_token
         self.fuse_unk = fuse_unk
+        self.ignore_merges = ignore_merges
         self.cache = Cache()
         self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
         for i, (a, b) in enumerate(merges):
@@ -142,6 +145,10 @@ class BPE:
         """The ids of one pre-tokenized word."""
         if not word:
             return []
+        if self.ignore_merges:
+            tid = self.vocab.get(word)
+            if tid is not None:
+                return [tid]
         hit = self.cache.get(word)
         if hit is not None:
             return hit

@@ -278,14 +278,36 @@ def unique_buffer(ops, b, geom):
     return b_u, uhead, inb_u, wid_u, wend_f, upos_f
 
 
+def whole_word_ids(ids0, head, inb, wh1, wh2, wlen, ww_rows0, ww_rows1, ww_seed):
+    """The BPE `ignore_merges` bypass: a word whose two rolling hashes and
+    length hit the whole-word table (the vocab's entries of two or more
+    bytes, [S, 4] rows (h1, h2, length, id) of a cuckoo table) takes that
+    id at its head, and the rest of the word dies.  `wh1`, `wh2`, `wlen`
+    are read at word heads (`head`)."""
+    mask = ww_rows0.shape[0] - 1
+    w0 = ww_rows0[hash_pair(wh1, wh2, ww_seed, mask, 0).to(torch.int64)]
+    w1 = ww_rows1[hash_pair(wh1, wh2, ww_seed, mask, 1).to(torch.int64)]
+    hit0 = (w0[..., 0] == wh1) & (w0[..., 1] == wh2)
+    hit1 = (w1[..., 0] == wh1) & (w1[..., 1] == wh2)
+    stored_len = torch.where(hit0, w0[..., 2], w1[..., 2])
+    stored_id = torch.where(hit0, w0[..., 3], w1[..., 3])
+    hit = head & (hit0 | hit1) & (stored_len == wlen) & (wlen > 1)
+    (filled,), _ = _fill_last([hit.to(torch.int32)], head)
+    word_is_hit = (filled == 1) & inb
+    ids0 = torch.where(hit, stored_id, ids0)
+    return torch.where(word_is_hit & ~head, -1, ids0)
+
+
 def dedup_finish(ops, b, byte2id, rows0, rows1, seed, mclr, out_w, geom,
-                 cache_state=None, encode_fn=None, ladder_depth=2):
+                 cache_state=None, encode_fn=None, ladder_depth=2,
+                 whole_word=False, ww_rows0=None, ww_rows1=None, ww_seed=0):
     """The fast branch: encode unique words, expand to per-row output.
 
     `cache_state`: the `WordCache`, already epoch-reset by the caller;
     updated in place.  `encode_fn(b_u, uhead, inb_u, wid_u, wend_f,
     upos_f) -> (ids, wid2, bad)`: another per-unique-word encoder over the
-    unique buffer (default: the byte-level BPE merge).
+    unique buffer (default: the byte-level BPE merge).  `whole_word`: the
+    `ignore_merges` bypass over the unique buffer (`whole_word_ids`).
 
     Returns (ids[B, out_w], ntok[B], row_bad[B])."""
     nw_cap, wc, uc, uceff, ru = geom
@@ -308,6 +330,13 @@ def dedup_finish(ops, b, byte2id, rows0, rows1, seed, mclr, out_w, geom,
         # the ru/2 tier (or an untiered buffer) runs the full tail ladder.
         depth = ladder_depth if (not tiered or ru_s == ru // 2) else 0
         ids0 = torch.where(inb_u, byte2id[b_u.to(torch.int64)], -1)
+        if whole_word:
+            ids0 = whole_word_ids(
+                ids0, uhead, inb_u, word_hash_heads(b_u, uhead, inb_u, H1_MULT),
+                word_hash_heads(b_u, uhead, inb_u, H2_MULT),
+                torch.where(uhead, wend_f - upos_f, 0), ww_rows0, ww_rows1,
+                ww_seed,
+            )
         ids_u, wid_u2, bad = run_merge_phases(
             ids0[:ru_s].contiguous(), wid_u[:ru_s].contiguous(), rows0, rows1,
             seed, mclr, ladder_depth=depth,

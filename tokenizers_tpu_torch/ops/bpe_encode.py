@@ -1,16 +1,19 @@
 """Byte-level BPE batch encode on packed [B, L] byte chunks; port of
-`tokenizers_tpu.ops.bpe_encode` (the gpt2 boundary, dedup branch).
+`tokenizers_tpu.ops.bpe_encode` (the gpt2 and llama3 boundaries, dedup
+branch).
 
 Per chunk (`encode_core`):
 
-1. GPT-2 pre-split boundaries: the layout kernel (B3, `layout_kernels`)
+1. Pre-split boundaries.  gpt2: the layout kernel (B3, `layout_kernels`)
    on pure-ASCII chunks, else `gpt2_boundaries` with the UTF-8 decode.
    The split pattern `'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+|
    ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+` is not run as a regex: its match
    starts are a local function of neighboring character classes plus a
-   bounded contraction lookahead.
+   bounded contraction lookahead.  llama3: `llama3_presplit`.
 2. Word dedup (`bpe_dedup`): each distinct word not in the persistent
    word cache is merged once, in the unique buffer, by the merge kernels.
+   With `whole_word` (BPE `ignore_merges`), a word that is itself a vocab
+   entry takes that id and skips the merge (`bpe_dedup.whole_word_ids`).
 3. Expansion to left-packed per-row ids.
 
 Rows that cannot be encoded on the device (a word longer than WORD_CAP
@@ -28,9 +31,19 @@ import os
 
 import torch
 
-from .bpe_dedup import buffer_geometry, dedup_finish, dedup_layout
+from .bpe_dedup import (
+    H1_MULT,
+    H2_MULT,
+    _to_i32,
+    buffer_geometry,
+    dedup_finish,
+    dedup_layout,
+    rolling_hash,
+    whole_word_ids,
+)
 from .bpe_merge2 import WORD_CAP, _shift_next, _shift_prev, run_merge_phases
 from .layout_kernels import layout_fused, next_boundary, supported
+from .llama3_presplit import llama3_boundaries
 from .unicode_tables import CLS_END, CLS_L, CLS_N, CLS_O, CLS_SP, CLS_WS
 
 
@@ -141,7 +154,8 @@ def gpt2_boundaries(b, inb, cls_table, ascii_only=False):
     return bnd, is_start
 
 
-def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False):
+def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False,
+                boundary="gpt2", whole_word=False):
     """uint8[B, L] bytes + int32[B] lengths -> (ids int32[B, out_w],
     ntok int32[B], row_bad bool[B]), out_w = max(L // 2, 64).
 
@@ -149,7 +163,9 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False):
     `cache`: the persistent `WordCache`, updated in place; when this chunk
     could overflow its token buffer the epoch is reset first (rows zeroed,
     p = 0, no hits).  `ascii_only`: every byte < 128 (the layout kernel's
-    chunks)."""
+    chunks).  `boundary`: the pre-split rule set, "gpt2" or "llama3".
+    `whole_word`: the BPE `ignore_merges` bypass through the whole-word
+    table (`tables["ww_rows0"]`, `["ww_rows1"]`, `["ww_seed"]`)."""
     B, L = bytes_u8.shape
     dev = bytes_u8.device
     b = bytes_u8.to(torch.int32)
@@ -159,11 +175,16 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False):
     seed = tables["seed"]
 
     hashes = None
-    if ascii_only and supported(b.shape):
+    if boundary == "gpt2" and ascii_only and not whole_word and supported(b.shape):
         bnd, nxt_bnd, h1k, h2k = layout_fused(b, lengths)
         hashes = (h1k, h2k)
     else:
-        bnd, _ = gpt2_boundaries(b, inb, tables["cls_table"], ascii_only=ascii_only)
+        if boundary == "gpt2":
+            bnd, _ = gpt2_boundaries(b, inb, tables["cls_table"], ascii_only=ascii_only)
+        elif boundary == "llama3":
+            bnd, _ = llama3_boundaries(b, inb, tables["cls_table"], ascii_only=ascii_only)
+        else:
+            raise ValueError(f"unknown boundary {boundary!r}")
         nxt_bnd = next_boundary(bnd)
 
     word_id = torch.where(inb, torch.cumsum(bnd.int(), 1, dtype=torch.int32) - 1, -1)
@@ -185,11 +206,15 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False):
         cache=(cache.rows, reset) if cache is not None else None,
         hashes=hashes,
     )
+    ww = {}
+    if whole_word:
+        ww = dict(whole_word=True, ww_rows0=tables["ww_rows0"],
+                  ww_rows1=tables["ww_rows1"], ww_seed=tables["ww_seed"])
     if fits:
         ids_pk, ntok, badm = dedup_finish(
             dops, b, tables["byte2id"], tables["merge_rows0"],
             tables["merge_rows1"], seed, tables["merge_mclr"], out_w, geom,
-            cache_state=cache,
+            cache_state=cache, **ww,
         )
     elif B * L >= int(os.environ.get("TOKENIZERS_TPU_BIG_BUCKET_MIN", 1 << 20)):
         # big buckets whose unique words overflow the dedup buffer go to
@@ -198,15 +223,30 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False):
         ntok = torch.zeros((B,), dtype=torch.int32, device=dev)
         badm = torch.ones((B,), dtype=torch.bool, device=dev)
     else:
-        ids_pk, ntok, badm = _branch_full(b, inb, word_id, tables, out_w)
+        ids0 = torch.where(inb, take256(b, tables["byte2id"]), -1)
+        if whole_word:
+            ids0 = _whole_word_full(ids0, b, bnd, inb, nxt_bnd, lengths, tables)
+        ids_pk, ntok, badm = _branch_full(ids0, word_id, tables, out_w)
     return ids_pk, ntok, row_bad | badm
 
 
-def _branch_full(b, inb, word_id, tables, out_w):
+def _whole_word_full(ids0, b, bnd, inb, nxt_bnd, lengths, tables):
+    """The whole-word bypass over a [B, L] chunk: each word's two rolling
+    hashes, read at its last byte (unbounded, as the JAX program's scan)."""
+    L = b.shape[1]
+    pos = torch.arange(L, device=b.device).expand_as(b)
+    end_pos = torch.minimum(nxt_bnd, lengths[:, None]) - 1
+    end_cl = end_pos.clamp(0, L - 1).to(torch.int64)
+    wh1, wh2 = (_to_i32(rolling_hash(b, bnd, m)).gather(1, end_cl)
+                for m in (H1_MULT, H2_MULT))
+    return whole_word_ids(ids0, bnd, inb, wh1, wh2, end_pos - pos + 1,
+                          tables["ww_rows0"], tables["ww_rows1"], tables["ww_seed"])
+
+
+def _branch_full(ids0, word_id, tables, out_w):
     """Small chunks whose words do not dedup into the buffer: the merge at
     full width (plain while tail), left-packed to out_w."""
-    B = b.shape[0]
-    ids0 = torch.where(inb, take256(b, tables["byte2id"]), -1)
+    B = ids0.shape[0]
     ids, _w, bad2 = run_merge_phases(
         ids0, word_id, tables["merge_rows0"], tables["merge_rows1"],
         tables["seed"], tables["merge_mclr"], ladder_depth=0,
@@ -215,8 +255,8 @@ def _branch_full(b, inb, word_id, tables, out_w):
     k = torch.cumsum(alive.int(), 1) - 1
     ntok = torch.where(alive, k + 1, 0).max(1).values.to(torch.int32)
     put = alive & (k < out_w)
-    packed = torch.full((B, out_w), -1, dtype=torch.int32, device=b.device)
-    rows = torch.arange(B, device=b.device)[:, None].expand_as(ids)
+    packed = torch.full((B, out_w), -1, dtype=torch.int32, device=ids.device)
+    rows = torch.arange(B, device=ids.device)[:, None].expand_as(ids)
     packed[rows[put], k[put].to(torch.int64)] = ids[put]
     # the merge width (5W/8) exceeds out_w: rows with more tokens than
     # out_w are flagged here
@@ -224,14 +264,16 @@ def _branch_full(b, inb, word_id, tables, out_w):
     return packed, torch.where(over, 0, ntok), bad2 | over
 
 
-def encode_program_scan(bytes_u8, lengths, tables, cache=None, ascii_only=False):
+def encode_program_scan(bytes_u8, lengths, tables, cache=None, ascii_only=False,
+                        boundary="gpt2", whole_word=False):
     """N same-shape chunks (uint8[N, B, L], int32[N, B]) in order, carrying
     the word cache from chunk to chunk, so each distinct word of the whole
     batch is merged once.  Returns (ids int32[N, B, out_w], ntok int32[N, B],
     row_bad bool[N, B]); the cache is updated in place."""
     outs = [
         encode_core(bytes_u8[k], lengths[k], tables, cache=cache,
-                    ascii_only=ascii_only)
+                    ascii_only=ascii_only, boundary=boundary,
+                    whole_word=whole_word)
         for k in range(bytes_u8.shape[0])
     ]
     return tuple(torch.stack(x) for x in zip(*outs))

@@ -1,5 +1,12 @@
-"""ByteLevelBpeEngine: the device path of gpt2-style byte-level BPE; port
-of `tokenizers_tpu.ops.bpe_engine` (the gpt2 boundary only).
+"""ByteLevelBpeEngine: the device path of byte-level BPE; port of
+`tokenizers_tpu.ops.bpe_engine` for its two pipelines:
+
+* **gpt2**: the ByteLevel pre-tokenizer with its GPT-2 regex split and a
+  plain BPE model;
+* **llama3**: Split(the llama-3 pattern, Isolated) then ByteLevel without
+  its regex, and BPE with `ignore_merges`: a word that is itself a vocab
+  entry takes that id without merging, through a second cuckoo table of
+  the vocab's words keyed by their two rolling hashes.
 
 The engine holds its tables as tensors on its device, and the persistent
 cross-batch word cache (`bpe_dedup.WordCache`: 1M direct-mapped rows and a
@@ -16,22 +23,63 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .bpe_dedup import WordCache
+from .bpe_dedup import H1_MULT, H2_MULT, WordCache
 from .bpe_encode import encode_program_scan
 from .engine_base import DeviceEngineBase
 from .merge_table import CuckooMergeTable, consume_mins
 from .unicode_tables import char_class_flat
 
 TABLE_KEYS = ("byte2id", "cls_table", "merge_rows0", "merge_rows1", "merge_mclr")
+WW_KEYS = ("ww_rows0", "ww_rows1")
 
 
 def tables_from_numpy(d: dict, device) -> dict:
     """The engine's tables as tensors on `device` from numpy arrays keyed
     as the JAX engine's `_program_args()`: byte2id, cls_table,
-    merge_rows0/1, merge_mclr and seed (a scalar)."""
+    merge_rows0/1, merge_mclr and seed (a scalar); for the llama3 pipeline
+    also ww_rows0/1 and ww_seed (the whole-word table).  `boundary` and
+    `whole_word` default to gpt2 without the bypass."""
     out = {k: torch.from_numpy(np.array(d[k])).to(device) for k in TABLE_KEYS}
     out["seed"] = int(np.asarray(d["seed"]))
+    out["boundary"] = d.get("boundary", "gpt2")
+    out["whole_word"] = bool(d.get("whole_word", False))
+    if out["whole_word"]:
+        for k in WW_KEYS:
+            out[k] = torch.from_numpy(np.array(d[k])).to(device)
+        out["ww_seed"] = int(np.asarray(d["ww_seed"]))
     return out
+
+
+def _roll_hash(data: bytes, mult: int) -> int:
+    """The rolling word hash of `bpe_dedup.rolling_hash`, as int32."""
+    h = 0
+    for byte in data:
+        h = (h * mult + byte + 1) & 0xFFFFFFFF
+    return h - (1 << 32) if h >= (1 << 31) else h
+
+
+def whole_word_table(vocab: dict) -> Optional[CuckooMergeTable]:
+    """The cuckoo table of the vocab's entries of two or more bytes, keyed
+    (h1, h2) by their rolling hashes, valued (byte length, id); None when
+    two entries share both hashes (the host path then runs everything)."""
+    from ..pre_tokenizers.byte_level import CHAR_BYTES
+
+    entries = {}
+    for tok_str, tid in vocab.items():
+        bs = bytearray()
+        for c in tok_str:
+            bb = CHAR_BYTES.get(c)
+            if bb is None:
+                break
+            bs.append(bb)
+        else:
+            if len(bs) < 2:
+                continue
+            key = (_roll_hash(bytes(bs), H1_MULT), _roll_hash(bytes(bs), H2_MULT))
+            if key in entries:
+                return None
+            entries[key] = (len(bs), tid)
+    return CuckooMergeTable(entries)
 
 
 class ByteLevelBpeEngine(DeviceEngineBase):
@@ -47,9 +95,10 @@ class ByteLevelBpeEngine(DeviceEngineBase):
         self._wc_lock = threading.Lock()  # the cache is updated in place
 
     @staticmethod
-    def build_tables(model, device) -> Optional[dict]:
+    def build_tables(model, device, boundary="gpt2") -> Optional[dict]:
         """The engine's tables from a BPE model; None when the vocab lacks
-        a byte of the byte-level alphabet (the host path handles that)."""
+        a byte of the byte-level alphabet, or when two whole-word entries
+        collide (the host path handles those)."""
         from ..pre_tokenizers.byte_level import BYTES_CHAR
 
         byte2id = np.zeros(256, dtype=np.int32)
@@ -61,33 +110,45 @@ class ByteLevelBpeEngine(DeviceEngineBase):
         table = CuckooMergeTable(model.merges)
         n_ids = max([len(model.vocab)] + [nid + 1 for (_r, nid) in model.merges.values()])
         mclr = consume_mins(model.merges, n_ids)
-        return tables_from_numpy(
-            dict(
-                byte2id=byte2id,
-                cls_table=char_class_flat(),
-                merge_rows0=table.rows8(0, mclr),
-                merge_rows1=table.rows8(1, mclr),
-                merge_mclr=mclr,
-                seed=table.seed,
-            ),
-            device,
+        d = dict(
+            byte2id=byte2id,
+            cls_table=char_class_flat(),
+            merge_rows0=table.rows8(0, mclr),
+            merge_rows1=table.rows8(1, mclr),
+            merge_mclr=mclr,
+            seed=table.seed,
+            boundary=boundary,
+            whole_word=model.ignore_merges,
         )
+        if model.ignore_merges:
+            ww = whole_word_table(model.vocab)
+            if ww is None:
+                return None
+            d.update(ww_rows0=ww.rows(0), ww_rows1=ww.rows(1), ww_seed=ww.seed)
+        return tables_from_numpy(d, device)
 
     @staticmethod
     def try_build(tokenizer, device) -> Optional["ByteLevelBpeEngine"]:
-        """The engine for the tokenizer's gpt2-style pipeline (its loader
-        admits no other), or None when the vocab lacks a byte.  On a card
-        it builds every kernel first, all at once."""
-        tables = ByteLevelBpeEngine.build_tables(tokenizer.model, device)
+        """The engine for the tokenizer's pipeline: gpt2 for the ByteLevel
+        pre-tokenizer, llama3 for the Sequence of the llama-3 Split and
+        ByteLevel (the loader admits no other, and its Split no other
+        pattern).  None when `build_tables` gives none.  On a card it
+        builds every kernel first, all at once."""
+        from ..pre_tokenizers.split import Sequence
+
+        pt = tokenizer.pre_tokenizer
+        if isinstance(pt, Sequence):
+            boundary, add_prefix_space = "llama3", pt.byte_level.add_prefix_space
+        else:
+            boundary, add_prefix_space = "gpt2", pt.add_prefix_space
+        tables = ByteLevelBpeEngine.build_tables(tokenizer.model, device, boundary)
         if tables is None:
             return None
         if torch.device(device).type == "cuda":
             from .kernel_build import build
 
             build()
-        return ByteLevelBpeEngine(
-            tokenizer, tables, tokenizer.pre_tokenizer.add_prefix_space, device
-        )
+        return ByteLevelBpeEngine(tokenizer, tables, add_prefix_space, device)
 
     def _ensure_cache(self) -> WordCache:
         if self._wc is None:
@@ -114,6 +175,8 @@ class ByteLevelBpeEngine(DeviceEngineBase):
                 ids, ntok, bad = encode_program_scan(
                     bufs.to(self.device), lens.to(self.device), self.tables,
                     cache=cache, ascii_only=ascii_only,
+                    boundary=self.tables["boundary"],
+                    whole_word=self.tables["whole_word"],
                 )
                 for k, i in enumerate(idxs):
                     out[i] = (ids[k], ntok[k], bad[k])

@@ -6,7 +6,8 @@ position; words never cross rows.  One round merges the *safe set* of pairs
 of every word (see `merge_round`), so a word of n bytes needs far fewer
 than n rounds.  The loops run the round through the two CUDA kernels of
 `merge_kernels` (keys once per loop, then one fused round per step); their
-plain versions take over only for tensors on the CPU.
+plain versions take over only for tensors on the CPU.  `_round`, one
+standalone round, goes through the third (B4).
 
 The helpers below are the plain torch forms of the JAX package's
 shift-fills and scans, with the same bounds: `fill_next`/`fill_prev` see
@@ -224,6 +225,17 @@ def merge_round(ids, own_l, own_r, wid, seg, rows0, rows1, seed,
     return apply_round(
         ids, own_l, own_r, wid, seg, r_in, new_id, mcl_new, mcr_new, k_steps
     )
+
+
+def _round(ids, own_l, own_r, wid, rows0, rows1, seed, k_steps=FILL_K):
+    """One standalone merge round (keys recomputed, none carried out):
+    kernel B4 on the card, its plain version (`merge_round`) on the CPU.
+    Word segments derive from wid.  Returns (ids, own_l, own_r, f).  The
+    merge loops use `make_round_driver` instead, which carries the keys."""
+    from .merge_kernels import merge_round_standalone
+
+    return merge_round_standalone(ids, own_l, own_r, wid, rows0, rows1, seed,
+                                  k_steps=k_steps)
 
 
 def init_own(ids, mclr):

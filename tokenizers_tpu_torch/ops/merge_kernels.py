@@ -1,11 +1,15 @@
-"""Merge-round kernels B1 and B2 (`csrc/merge_round.cu`) and their plain
-versions; port of `tokenizers_tpu.ops.merge_pallas`.
+"""Merge-round kernels B1, B2 and B4 (`csrc/merge_round.cu`) and their
+plain versions; port of `tokenizers_tpu.ops.merge_pallas`.
 
 * `keys` (B2, replaces `keys_pallas`): each position's next alive id
   within 2^k_steps, and both cuckoo slot hashes of (id, next id).
 * `merge_round_fused` (B1, replaces `merge_round_fused`): one safe-set
   merge round from the carried keys, merge-table row reads included, then
   the next round's keys.  Returns (ids, own_l, own_r, f, h0, h1, nid).
+* `merge_round_standalone` (B4, replaces `merge_round_pallas`): one round
+  that computes its own keys and carries none out; word segments derive
+  from wid.  Returns (ids, own_l, own_r, f).  Only `bpe_merge2._round`
+  calls it: the merge loops carry keys through B2 and B1.
 
 A wrapper runs its plain version for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; there is no fallback.  Each
@@ -18,11 +22,11 @@ import ctypes
 
 import torch
 
-from .bpe_merge2 import FILL_K, _seg_of, apply_round, fill_next, select_rows
+from .bpe_merge2 import FILL_K, _seg_of, apply_round, fill_next, merge_round, select_rows
 from .kernel_build import check_cuda_int32, check_status, device_of, library
 from .merge_table import hash_pair
 
-LAUNCHES = {"keys": 0, "merge_round_fused": 0}
+LAUNCHES = {"keys": 0, "merge_round_fused": 0, "merge_round_standalone": 0}
 _SRC = "merge_round.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +40,8 @@ def _lib():
         lib.tt_keys.restype = _I
         lib.tt_merge_round.argtypes = [_P] * 17 + [_I, _I, _I, _U, _U, _P]
         lib.tt_merge_round.restype = _I
+        lib.tt_merge_round_standalone.argtypes = [_P] * 11 + [_I, _I, _I, _U, _U, _P]
+        lib.tt_merge_round_standalone.restype = _I
         lib.tt_n_scratch_merge_round.restype = _I
         lib._tt_typed = True
     return lib
@@ -126,3 +132,45 @@ def merge_round_fused(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed,
         1 << k_steps, int(seed) & 0xFFFFFFFF, mask, _stream(ids),
     ))
     return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
+
+
+def merge_round_standalone_plain(ids, own_l, own_r, wid, rows0, rows1, seed,
+                                 k_steps=FILL_K):
+    """`bpe_merge2.merge_round` with the segments derived from wid."""
+    return merge_round(ids, own_l, own_r, wid, _seg_of(wid), rows0, rows1,
+                       seed, k_steps)
+
+
+def merge_round_standalone(ids, own_l, own_r, wid, rows0, rows1, seed,
+                           k_steps=FILL_K):
+    if device_of("merge_round_standalone", ids) == "cpu":
+        return merge_round_standalone_plain(
+            ids, own_l, own_r, wid, rows0, rows1, seed, k_steps
+        )
+    R, C = ids.shape
+    check_cuda_int32(
+        "merge_round_standalone", (R, C), ids=ids, own_l=own_l, own_r=own_r,
+        wid=wid,
+    )
+    check_cuda_int32("merge_round_standalone", None, rows0=rows0, rows1=rows1)
+    mask = _mask(rows0)
+    if rows1.shape != rows0.shape or rows0.shape[1] != 8:
+        raise ValueError("merge_round_standalone: rows0/rows1 must both be [S, 8]")
+    outs = [torch.empty_like(ids) for _ in range(3)]
+    f = torch.empty((R, C), dtype=torch.bool, device=ids.device)
+    if ids.numel() == 0:
+        return outs[0], outs[1], outs[2], f
+    lib = _lib()
+    scratch = torch.empty(
+        (lib.tt_n_scratch_merge_round(), R, C), dtype=torch.int32,
+        device=ids.device,
+    )
+    LAUNCHES["merge_round_standalone"] += 1
+    check_status("merge_round_standalone", lib.tt_merge_round_standalone(
+        ids.data_ptr(), own_l.data_ptr(), own_r.data_ptr(), wid.data_ptr(),
+        rows0.data_ptr(), rows1.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr(), outs[2].data_ptr(), f.data_ptr(),
+        scratch.data_ptr(), R, C, 1 << k_steps, int(seed) & 0xFFFFFFFF, mask,
+        _stream(ids),
+    ))
+    return outs[0], outs[1], outs[2], f

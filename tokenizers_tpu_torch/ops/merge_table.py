@@ -3,7 +3,8 @@
 A copy of `tokenizers_tpu.ops.merge_table` (numpy, host side) plus the
 torch form of its pair hash.  Every key (left_id, right_id) resides in one
 of its two slots, so a lookup is two row reads: `rows0[hash(a, b, 0)]` and
-`rows1[hash(a, b, 1)]`, each an [S, 8] row (`rows8`).
+`rows1[hash(a, b, 1)]`, each an [S, 8] row (`rows8`), or an [S, 4] row
+(`rows`) for the whole-word table, keyed by a word's two rolling hashes.
 
 The torch hash (`hash_pair`) runs in int64 masked to 32 bits after every
 step: torch on the CPU has no uint32 shifts, and int64 arithmetic masked to
@@ -92,6 +93,13 @@ class CuckooMergeTable:
         self.rank = rank
         self.new_id = new_id
         return True
+
+    def rows(self, t: int) -> np.ndarray:
+        """Table t as [S, 4] rows (key_a, key_b, value0, value1): the
+        whole-word table's (h1, h2, length, id)."""
+        return np.stack(
+            [self.key_a[t], self.key_b[t], self.rank[t], self.new_id[t]], axis=-1
+        ).astype(np.int32)
 
     def rows8(self, t: int, mclr: np.ndarray) -> np.ndarray:
         """Table t as [S, 8] rows (key_a, key_b, rank, new_id,

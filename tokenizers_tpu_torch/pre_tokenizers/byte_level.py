@@ -1,6 +1,6 @@
 """ByteLevel pre-tokenizer of the host path: the GPT-2 byte -> printable
 char table (copied from `tokenizers_tpu.pre_tokenizers.byte_level`) and
-the GPT-2 split.
+the GPT-2 split, which `use_regex=False` leaves out.
 
 The split does not run the GPT-2 regex.  It takes the match starts of
 `'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|
@@ -56,23 +56,33 @@ class ByteLevel:
         self.use_regex = use_regex
 
     def pre_tokenize(self, text: str) -> List[str]:
-        """`text` -> its words, each as byte-level chars."""
+        """`text` -> its words, each as byte-level chars: the GPT-2 words,
+        or without the regex the whole text as one word."""
         if self.add_prefix_space and not text.startswith(" "):
             text = " " + text
-        return ["".join(BYTES_CHAR[b] for b in w) for w in gpt2_split(text.encode("utf-8"))]
+        data = text.encode("utf-8")
+        words = gpt2_split(data) if self.use_regex else [data] if data else []
+        return ["".join(BYTES_CHAR[b] for b in w) for w in words]
+
+
+def split_at_boundaries(data: bytes, boundaries) -> List[bytes]:
+    """The words of UTF-8 bytes, cut at the match starts that
+    `boundaries(b, inb, cls_table, ascii_only)` (a pre-split rule of the
+    device program) finds, run on the CPU over one row."""
+    if not data:
+        return []
+    b = torch.from_numpy(np.frombuffer(data, np.uint8).astype(np.int32))[None]
+    ascii_only = max(data) < 128
+    bnd, _ = boundaries(
+        b, torch.ones_like(b, dtype=torch.bool),
+        None if ascii_only else _cpu_cls_table(), ascii_only=ascii_only,
+    )
+    starts = torch.nonzero(bnd[0]).flatten().tolist()
+    return [data[s:e] for s, e in zip(starts, starts[1:] + [len(data)])]
 
 
 def gpt2_split(data: bytes) -> List[bytes]:
     """The GPT-2 words of UTF-8 bytes."""
     from ..ops.bpe_encode import gpt2_boundaries
 
-    if not data:
-        return []
-    b = torch.from_numpy(np.frombuffer(data, np.uint8).astype(np.int32))[None]
-    ascii_only = max(data) < 128
-    bnd, _ = gpt2_boundaries(
-        b, torch.ones_like(b, dtype=torch.bool),
-        None if ascii_only else _cpu_cls_table(), ascii_only=ascii_only,
-    )
-    starts = torch.nonzero(bnd[0]).flatten().tolist()
-    return [data[s:e] for s, e in zip(starts, starts[1:] + [len(data)])]
+    return split_at_boundaries(data, gpt2_boundaries)

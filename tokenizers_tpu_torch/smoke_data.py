@@ -7,10 +7,12 @@ boundary.  At the default 4 MiB target that is 512 documents: 492 pure
 ASCII, which pack into two [256, 8192] chunks, and 20 with multi-byte
 characters, which pack into one [32, 8192] chunk.
 
-`data/gpt2_digests.json` holds one SHA-256 per document of the ids the
-`tokenizers` wheel gives on `tests/fixtures/gpt2/tokenizer.json`
-(`python -m tokenizers_tpu_torch.data.regen` writes it;
-`tests/test_torch_tables.py` re-derives it).
+`data/gpt2_digests.json` and `data/llama3_digests.json` hold one SHA-256
+per document of the ids the `tokenizers` wheel gives (special tokens
+added) on `tests/fixtures/gpt2/tokenizer.json` and
+`tests/fixtures/llama3_128k/tokenizer.json`
+(`python -m tokenizers_tpu_torch.data.regen` writes them;
+`tests/test_torch_tables.py` re-derives them).
 """
 
 from __future__ import annotations
@@ -24,10 +26,12 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO, "tests", "fixtures", "corpus.txt")
-GPT2_JSON = os.path.join(REPO, "tests", "fixtures", "gpt2", "tokenizer.json")
-DIGESTS = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "data", "gpt2_digests.json"
-)
+CONFIGS = {  # config -> its tokenizer.json
+    "gpt2": os.path.join(REPO, "tests", "fixtures", "gpt2", "tokenizer.json"),
+    "llama3": os.path.join(REPO, "tests", "fixtures", "llama3_128k", "tokenizer.json"),
+}
+GPT2_JSON = CONFIGS["gpt2"]
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 DOC_BYTES = 8 * 1024
 TARGET_BYTES = 4 << 20
 
@@ -57,6 +61,10 @@ def ids_digest(ids: Sequence[int]) -> str:
     return hashlib.sha256(np.asarray(ids, dtype="<i4").tobytes()).hexdigest()
 
 
-def load_digests() -> List[str]:
-    with open(DIGESTS) as f:
+def digests_path(config: str = "gpt2") -> str:
+    return os.path.join(DATA, f"{config}_digests.json")
+
+
+def load_digests(config: str = "gpt2") -> List[str]:
+    with open(digests_path(config)) as f:
         return json.load(f)["sha256"]

@@ -1,11 +1,18 @@
-"""Tokenizer of the port: loads a `tokenizer.json` of the gpt2 shape and
-encodes batches on the card.
+"""Tokenizer of the port: loads a `tokenizer.json` of the gpt2 or the
+llama3 shape and encodes batches on the card.
 
-The loader admits exactly the components of `tests/fixtures/gpt2`: a
-plain BPE model, the ByteLevel pre-tokenizer with its regex split, the
-ByteLevel post-processor and decoder (or none), no normalizer, and plain
-special added tokens.  Anything else raises `NotImplementedError` naming
-the later slice of the port that brings it.
+The loader admits exactly two pipelines, each with no normalizer, plain
+special added tokens and the ByteLevel decoder (or none):
+
+* gpt2 (`tests/fixtures/gpt2`): a plain BPE model, the ByteLevel
+  pre-tokenizer with its regex split, the ByteLevel post-processor (or
+  none);
+* llama3 (`tests/fixtures/llama3*`): BPE with `ignore_merges`, the Sequence of the llama-3 Split and ByteLevel without
+  its regex or a prefix space, and a single-sequence TemplateProcessing
+  (or no post-processor).
+
+Anything else raises `NotImplementedError` naming the later slice of the
+port that brings it.
 
 `encode_batch_fast` runs the device engine (`ops/bpe_engine.py`) on the
 tokenizer's device and the host pipeline for what the device does not
@@ -17,12 +24,14 @@ from __future__ import annotations
 
 import json
 import re
-from typing import List, Optional, Sequence
+from typing import Iterable, List, Optional, Union
 
 from . import pick_device
 from .encoding import Encoding
 from .models.bpe import BPE
 from .pre_tokenizers.byte_level import ByteLevel
+from .pre_tokenizers.split import LLAMA3_PATTERN, Sequence, Split
+from .processors.template import TemplateProcessing
 
 _BYTE_LEVEL_KEYS = {"type", "add_prefix_space", "trim_offsets", "use_regex"}
 
@@ -31,13 +40,14 @@ def _unsupported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported yet: it waits for {slice_name}")
 
 
-def _load_model(d: dict) -> BPE:
+def _load_model(d: dict, llama3: bool) -> BPE:
     if d.get("type", "BPE") != "BPE":
         _unsupported(f"model {d.get('type')!r}", "its engine's slice of the port")
     if d.get("dropout") not in (None, 0.0):
         _unsupported("BPE dropout", "a later slice")
-    if d.get("ignore_merges"):
-        _unsupported("BPE ignore_merges", "the llama3 slice")
+    if bool(d.get("ignore_merges")) != llama3:
+        _unsupported("BPE ignore_merges outside the llama-3 pipeline" if not llama3 else
+                     "the llama-3 pipeline without BPE ignore_merges", "a later slice")
     if d.get("continuing_subword_prefix") or d.get("end_of_word_suffix"):
         _unsupported("BPE subword prefix/suffix", "the CharBPE slice")
     if d.get("byte_fallback"):
@@ -45,7 +55,8 @@ def _load_model(d: dict) -> BPE:
     merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
               for m in d.get("merges", [])]
     return BPE(d.get("vocab", {}), merges, unk_token=d.get("unk_token"),
-               fuse_unk=bool(d.get("fuse_unk", False)))
+               fuse_unk=bool(d.get("fuse_unk", False)),
+               ignore_merges=bool(d.get("ignore_merges", False)))
 
 
 def _load_byte_level(d: Optional[dict], role: str) -> Optional[ByteLevel]:
@@ -56,14 +67,43 @@ def _load_byte_level(d: Optional[dict], role: str) -> Optional[ByteLevel]:
     bl = ByteLevel(d.get("add_prefix_space", True), d.get("trim_offsets", True),
                    d.get("use_regex", True))
     if role == "pre_tokenizer" and not bl.use_regex:
-        _unsupported("ByteLevel pre-tokenizer without its regex split", "the llama3 slice")
+        _unsupported("ByteLevel pre-tokenizer without its regex split, outside the "
+                     "llama-3 Sequence", "a later slice")
     return bl
 
 
+def _load_llama3_sequence(d: dict) -> Sequence:
+    """Exactly Sequence[Split(LLAMA3_PATTERN, Isolated), ByteLevel(use_regex=False,
+    add_prefix_space=False)]."""
+    pts = d.get("pretokenizers") or []
+    if set(d) != {"type", "pretokenizers"} or len(pts) != 2:
+        _unsupported("a Sequence pre-tokenizer other than the llama-3 one", "a later slice")
+    sp, bl = pts
+    if (sp != {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+               "behavior": "Isolated", "invert": False}):
+        _unsupported("a Split other than the llama-3 pattern, Isolated", "a later slice")
+    byte_level = _load_byte_level(bl, "Sequence member")
+    if byte_level.use_regex or byte_level.add_prefix_space:
+        _unsupported("a ByteLevel after the llama-3 Split with its regex or a prefix space",
+                     "a later slice")
+    return Sequence(Split(), byte_level)
+
+
+def _load_post_processor(d: Optional[dict], llama3: bool):
+    if d is None or d.get("type") != "TemplateProcessing":
+        return _load_byte_level(d, "post_processor")
+    if not llama3:
+        _unsupported("TemplateProcessing outside the llama-3 pipeline", "a later slice")
+    pieces = [next(iter(p)) for p in d.get("single", [])]
+    if pieces.count("Sequence") != 1:
+        _unsupported("a template without exactly one sequence", "a later slice")
+    return TemplateProcessing.from_json(d)
+
+
 class Tokenizer:
-    def __init__(self, model: BPE, pre_tokenizer: ByteLevel,
-                 added_tokens: Sequence[dict] = (),
-                 post_processor: Optional[ByteLevel] = None,
+    def __init__(self, model: BPE, pre_tokenizer: Union[ByteLevel, Sequence],
+                 added_tokens: Iterable[dict] = (),
+                 post_processor: Union[ByteLevel, TemplateProcessing, None] = None,
                  decoder: Optional[ByteLevel] = None, device=None):
         self.model = model
         self.pre_tokenizer = pre_tokenizer
@@ -89,12 +129,17 @@ class Tokenizer:
         for t in added:
             if not t.get("special") or t.get("single_word") or t.get("lstrip") or t.get("rstrip"):
                 _unsupported(f"added token {t.get('content')!r} with these options", "a later slice")
-        pt = _load_byte_level(d.get("pre_tokenizer"), "pre_tokenizer")
+        pt_d = d.get("pre_tokenizer")
+        if pt_d is not None and pt_d.get("type") == "Sequence":
+            pt = _load_llama3_sequence(pt_d)
+        else:
+            pt = _load_byte_level(pt_d, "pre_tokenizer")
         if pt is None:
             _unsupported("a pipeline without the ByteLevel pre-tokenizer", "a later slice")
+        llama3 = isinstance(pt, Sequence)
         return cls(
-            _load_model(d["model"]), pt, added,
-            post_processor=_load_byte_level(d.get("post_processor"), "post_processor"),
+            _load_model(d["model"], llama3), pt, added,
+            post_processor=_load_post_processor(d.get("post_processor"), llama3),
             decoder=_load_byte_level(d.get("decoder"), "decoder"),
             device=device,
         )
@@ -106,7 +151,7 @@ class Tokenizer:
 
     # ---------------------------------------------------------------- encode
 
-    def encode_batch_fast(self, inputs: Sequence[str],
+    def encode_batch_fast(self, inputs: Iterable[str],
                           add_special_tokens: bool = True) -> List[Encoding]:
         """Ids of each input (no offsets), through the device engine."""
         inputs = list(inputs)
@@ -120,9 +165,14 @@ class Tokenizer:
     def encode_fast(self, sequence: str, add_special_tokens: bool = True) -> Encoding:
         return self.encode_batch_fast([sequence], add_special_tokens)[0]
 
+    def token_to_id(self, token: str) -> Optional[int]:
+        tid = self.added.get(token)
+        return tid if tid is not None else self.model.vocab.get(token)
+
     def _get_device_engine(self):
         """The device engine, built once; None when the vocab lacks a byte
-        of the byte-level alphabet (everything then runs on the host)."""
+        of the byte-level alphabet or two whole-word entries collide
+        (everything then runs on the host)."""
         if not self._engine_built:
             from .ops.engine import build_device_engine
 
@@ -131,8 +181,8 @@ class Tokenizer:
         return self._engine
 
     def encode_host(self, text: str, add_special_tokens: bool = True) -> Encoding:
-        """The host pipeline: added tokens split out, the GPT-2 split and
-        BPE on each piece between them."""
+        """The host pipeline: added tokens split out, the pre-tokenizer's
+        split and BPE on each piece between them."""
         ids: List[int] = []
         pos = 0
         matches = self._added_re.finditer(text) if self._added_re else ()
@@ -146,7 +196,10 @@ class Tokenizer:
         return self.post_process(Encoding(ids=ids), add_special_tokens)
 
     def post_process(self, encoding: Encoding, add_special_tokens: bool = True) -> Encoding:
-        """The ByteLevel post-processor adds no tokens; it would trim
-        offsets, which this slice does not track (they stay (0, 0))."""
+        """The template's special tokens and type ids.  The ByteLevel
+        post-processor adds no tokens; it would trim offsets, which the
+        port does not track yet (they stay (0, 0))."""
+        if isinstance(self.post_processor, TemplateProcessing):
+            return self.post_processor.process(encoding, add_special_tokens)
         encoding.set_sequence_id(0)
         return encoding
