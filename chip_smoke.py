@@ -10,8 +10,15 @@
    (B3) on a [256, 8192] corpus chunk, the keys (B2) and merge-round (B1)
    kernels on the first rounds of that chunk's real [74, 4096] unique
    buffer, then at the compacted widths 2560 and 2048 and on a
-   ladder-sized [37, 2048] slice.  Times each kernel and its plain version
-   with CUDA events.
+   ladder-sized [37, 2048] slice.  B1 has two kernels, chosen by width:
+   the row kernel (C <= 4096) runs there, and both are held on the
+   adversarial layouts of `smoke_data.adversarial_case` (the row kernel
+   at widths 64-4096, the wide one at 5120 and 8192); the wide one also on
+   the full-width branch's state, the chunk's first 8 rows at [8, 8192]
+   and at its 5/8 width (the smoke documents never take it: its launches
+   on the gpt2 path are 0, and those of that phase are reported apart).  Times each kernel and its plain version with
+   CUDA events, and the wide B1 beside the row kernel at [74, 4096] and
+   [74, 2048].
 3. Drives the gpt2 path: `Tokenizer.encode_batch_fast` on 512 8 KB corpus
    documents (two [256, 8192] ASCII chunks and one [32, 8192] chunk of the
    documents with multi-byte characters), cold and then on the warm word
@@ -41,7 +48,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -51,45 +57,25 @@ FIXTURES = os.path.join(REPO, "tests", "fixtures")
 GPT2 = os.path.join(FIXTURES, "gpt2", "tokenizer.json")
 LLAMA3 = os.path.join(FIXTURES, "llama3_128k", "tokenizer.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-SLEEP_CYCLES = 50_000_000  # 25 ms at 1.98 GHz: time for the host to queue a run
 TPU_KERNELS = {  # file:line of the `pallas_call` each kernel replaces
     "layout_fused": "tokenizers_tpu/ops/layout_pallas.py:176",
     "keys": "tokenizers_tpu/ops/merge_pallas.py:258",
     "merge_round_fused": "tokenizers_tpu/ops/merge_pallas.py:283",
+    "merge_round_fused_wide": "tokenizers_tpu/ops/merge_pallas.py:283",
     "merge_round_standalone": "tokenizers_tpu/ops/merge_pallas.py:315",
 }
 SOURCES = {
     "layout_fused": "tokenizers_tpu_torch/csrc/layout.cu",
     "keys": "tokenizers_tpu_torch/csrc/merge_round.cu",
     "merge_round_fused": "tokenizers_tpu_torch/csrc/merge_round.cu",
+    "merge_round_fused_wide": "tokenizers_tpu_torch/csrc/merge_round.cu",
     "merge_round_standalone": "tokenizers_tpu_torch/csrc/merge_round.cu",
 }
 # the compacted states of the merge loop each kernel is checked at:
 # (width, rows): full unique buffer, 5/8 and 1/2 width, a ladder rung
 STATES = ((4096, None), (2560, None), (2048, None), (2048, 37))
-
-
-def _median_ms(torch, fn, launches):
-    """Milliseconds per call: CUDA events around `launches` back-to-back
-    calls, after two warm-up calls; the median of five such runs.  Each run
-    is queued behind a sleep kernel, so the calls reach the card before it
-    starts them and the events time the card's work, not the host's
-    launches."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(5):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        e0.record()
-        for _ in range(launches):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1) / launches)
-    return statistics.median(times)
+# widths of the adversarial layouts: the row kernel's, then the wide one's
+ADVERSARIAL_WIDTHS = (64, 256, 1536, 2048, 2560, 4096, 5120, 8192)
 
 
 def _nbytes(*xs):
@@ -113,15 +99,53 @@ def _check_equal(torch, name, got, want):
     return err
 
 
-def _first_ascii_chunk(torch, eng, prepared):
-    from tokenizers_tpu_torch.ops.packing import pack_batch
+def b1_checked(torch, mk, name, args):
+    """One B1 round on args = (ids, own_l, own_r, wid, h0, h1, nid, rows0,
+    rows1, seed), held against the plain version; the kernel must be the
+    one `merge_round_fused` picks by width.  Returns (outputs, max |diff|)."""
+    wide = args[0].shape[1] > mk.ROW_MAX_C
+    before = mk.LAUNCHES["merge_round_fused_wide"]
+    got = mk.merge_round_fused(*args)
+    if mk.LAUNCHES["merge_round_fused_wide"] - before != int(wide):
+        raise SystemExit(f"{name}: B1 took the wrong kernel at width {args[0].shape[1]}")
+    return got, _check_equal(torch, name, got, mk.merge_round_fused_plain(*args))
 
-    buf, lens, _ = next(c for c in pack_batch(prepared)
-                        if c[0].shape == (256, 8192) and eng._is_ascii(c[0]))
-    b = torch.from_numpy(buf).cuda().to(torch.int32)
-    n = torch.from_numpy(lens).cuda()
-    inb = torch.arange(b.shape[1], device=b.device)[None, :] < n[:, None]
-    return b, n, inb
+
+def b1_rounds(torch, mk, name, st, wid, rows0, rows1, seed, rounds):
+    """`rounds` checked B1 rounds from the state st = (ids, own_l, own_r,
+    h0, h1, nid).  Returns (state, max |diff|)."""
+    err = 0
+    for _ in range(rounds):
+        got, e = b1_checked(torch, mk, name, (*st[:3], wid, *st[3:], rows0, rows1, seed))
+        err = max(err, e)
+        st = (got[0], got[1], got[2], got[4], got[5], got[6])
+    return st, err
+
+
+def adversarial_b1(torch, mk):
+    """Both B1 kernels on the adversarial layouts, three rounds each."""
+    from tokenizers_tpu_torch.ops.bpe_merge2 import init_own
+    from tokenizers_tpu_torch.ops.merge_table import CuckooMergeTable, consume_mins
+    from tokenizers_tpu_torch.smoke_data import adversarial_case
+
+    errs = {"merge_round_fused": 0, "merge_round_fused_wide": 0}
+    for C in ADVERSARIAL_WIDTHS:
+        merges, n_ids, ids, wid = adversarial_case(C, 12, C)
+        table = CuckooMergeTable(merges)
+        mclr = torch.from_numpy(consume_mins(merges, n_ids)).cuda()
+        rows0, rows1 = (torch.from_numpy(table.rows8(t, mclr.cpu().numpy())).cuda()
+                        for t in (0, 1))
+        ids, wid = torch.from_numpy(ids).cuda(), torch.from_numpy(wid).cuda()
+        own_l, own_r = init_own(ids, mclr)
+        st = (ids, own_l, own_r) + tuple(mk.keys(ids, rows0, table.seed))
+        k = "merge_round_fused_wide" if C > mk.ROW_MAX_C else "merge_round_fused"
+        _st, err = b1_rounds(torch, mk, f"{k} adversarial [12, {C}]", st, wid, rows0,
+                             rows1, table.seed, 3)
+        errs[k] = max(errs[k], err)
+    print(f"B1 bit-equal (tolerance 0) on the adversarial layouts at [12, C], C in "
+          f"{list(ADVERSARIAL_WIDTHS)} (row kernel to {mk.ROW_MAX_C}, wide beyond)",
+          flush=True)
+    return errs
 
 
 def drive_path(torch, tok, docs, config, counts):
@@ -205,7 +229,8 @@ def main() -> int:
     from tokenizers_tpu_torch.ops.bpe_merge2 import _round, compact, init_own, make_round_driver
     from tokenizers_tpu_torch.ops.layout_kernels import next_boundary
     from tokenizers_tpu_torch.ops.llama3_presplit import llama3_boundaries
-    from tokenizers_tpu_torch.smoke_data import build_docs
+    from tokenizers_tpu_torch.smoke_data import build_docs, first_ascii_chunk, unique_state
+    from tokenizers_tpu_torch.tools.timing import median_ms
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -227,30 +252,24 @@ def main() -> int:
     T = eng.tables
     docs = build_docs()
     prepared = [eng._prepare(d) for d in docs]
-    b, n, inb = _first_ascii_chunk(torch, eng, prepared)
+    b, n, inb = first_ascii_chunk(eng, prepared)
     stats = {}
 
     got = lk.layout_fused(b, n)
     want = lk.layout_fused_plain(b, n)
     stats["layout_fused"] = {
         "max_abs_err": _check_equal(torch, "layout_fused", got, want),
-        "ms": _median_ms(torch, lambda: lk.layout_fused(b, n), 20),
-        "plain_ms": _median_ms(torch, lambda: lk.layout_fused_plain(b, n), 2),
+        "ms": median_ms(lambda: lk.layout_fused(b, n), 20),
+        "plain_ms": median_ms(lambda: lk.layout_fused_plain(b, n), 2),
         "bound_ms": _nbytes(b, n, *got) / HBM_BYTES_PER_S * 1e3,
         "shape": list(b.shape),
     }
     print(f"B3 bit-equal (tolerance 0) at {list(b.shape)}", flush=True)
-    bnd, nxt, h1, h2 = got
-    geom = buffer_geometry(b.numel())
-    fits, ops = dedup_layout(b, bnd, inb, n, nxt, T["seed"], geom, hashes=(h1, h2))
-    if not fits:
-        raise SystemExit("the corpus chunk does not fit its dedup buffer")
-    b_u, _uh, inb_u, wid_u, _we, _up = unique_buffer(ops, b, geom)
-    ids = torch.where(inb_u, T["byte2id"][b_u.to(torch.int64)], -1)
-    own_l, own_r = init_own(ids, T["merge_mclr"])
+    bnd = got[0]
+    state0 = unique_state(eng, b, n, inb, got)
+    ids, own_l, own_r, wid = state0
     rows0, rows1, seed = T["merge_rows0"], T["merge_rows1"], T["seed"]
     errs = {"keys": 0, "merge_round_fused": 0}
-    wid = wid_u
     for width, rows in STATES:
         if ids.shape[1] != width:
             ids, wid, _bad, (own_l, own_r) = compact(ids, wid, width, (own_l, own_r))
@@ -259,51 +278,97 @@ def main() -> int:
         errs["keys"] = max(errs["keys"], _check_equal(
             torch, f"keys {list(st_ids.shape)}", k_got, mk.keys_plain(st_ids, rows0, seed)))
         st = (st_ids, st_l, st_r) + tuple(k_got)
-        for _ in range(2):
-            r_got = mk.merge_round_fused(*st[:3], st_wid, *st[3:], rows0, rows1, seed)
-            r_want = mk.merge_round_fused_plain(*st[:3], st_wid, *st[3:], rows0, rows1, seed)
-            errs["merge_round_fused"] = max(errs["merge_round_fused"], _check_equal(
-                torch, f"merge_round_fused {list(st_ids.shape)}", r_got, r_want))
-            st = (r_got[0], r_got[1], r_got[2], r_got[4], r_got[5], r_got[6])
+        if rows is None and width == 2048:
+            args_2048 = (*st[:3], st_wid, *st[3:], rows0, rows1, seed)
+        n_alive = int((st_ids >= 0).sum())
+        st, err = b1_rounds(torch, mk, f"merge_round_fused {list(st_ids.shape)}", st,
+                            st_wid, rows0, rows1, seed, 2)
+        errs["merge_round_fused"] = max(errs["merge_round_fused"], err)
         if rows is None:
             ids, own_l, own_r = st[0], st[1], st[2]
-        print(f"B1/B2 bit-equal (tolerance 0) at {list(st_ids.shape)}; merged heads "
-              f"in the last round: {int(r_got[3].sum())}", flush=True)
+        print(f"B1/B2 bit-equal (tolerance 0) at {list(st_ids.shape)}; alive tokens "
+              f"{n_alive} -> {int((st[0] >= 0).sum())} in two rounds", flush=True)
+
+    wide_errs = adversarial_b1(torch, mk)
+    errs["merge_round_fused"] = max(errs["merge_round_fused"], wide_errs["merge_round_fused"])
+    # the wide B1 at the full-width branch's state: the chunk's first 8 rows
+    inb8 = inb[:8]
+    ids_w = torch.where(inb8, T["byte2id"][b[:8].to(torch.int64)], -1)
+    wid_w = torch.where(inb8, torch.cumsum(bnd[:8].int(), 1, dtype=torch.int32) - 1, -1)
+    l_w, r_w = init_own(ids_w, T["merge_mclr"])
+    args_wide = (ids_w, l_w, r_w, wid_w, *mk.keys(ids_w, rows0, seed), rows0, rows1, seed)
+    st = args_wide[:3] + args_wide[4:7]
+    wide_before = mk.LAUNCHES["merge_round_fused_wide"]
+    for width in (8192, 5120):
+        if st[0].shape[1] != width:
+            ids_c, wid_w, _bad, (l_c, r_c) = compact(st[0], wid_w, width, st[1:3])
+            st = (ids_c, l_c, r_c) + tuple(mk.keys(ids_c, rows0, seed))
+        st, err = b1_rounds(torch, mk, f"merge_round_fused_wide {list(st[0].shape)}", st,
+                            wid_w, rows0, rows1, seed, 2)
+        wide_errs["merge_round_fused_wide"] = max(wide_errs["merge_round_fused_wide"], err)
+    wide_launches = mk.LAUNCHES["merge_round_fused_wide"] - wide_before
+    print("wide B1 bit-equal (tolerance 0) at the full-width state [8, 8192] and its 5/8 "
+          "width [8, 5120]", flush=True)
 
     # timing at the main path's unique-buffer shape [74, 4096]
-    ids, wid = torch.where(inb_u, T["byte2id"][b_u.to(torch.int64)], -1), wid_u
-    own_l, own_r = init_own(ids, T["merge_mclr"])
+    ids, own_l, own_r, wid = state0
     keys0 = mk.keys(ids, rows0, seed)
     stats["keys"] = {
         "max_abs_err": errs["keys"],
-        "ms": _median_ms(torch, lambda: mk.keys(ids, rows0, seed), 20),
-        "plain_ms": _median_ms(torch, lambda: mk.keys_plain(ids, rows0, seed), 2),
+        "ms": median_ms(lambda: mk.keys(ids, rows0, seed), 20),
+        "plain_ms": median_ms(lambda: mk.keys_plain(ids, rows0, seed), 2),
         "bound_ms": _nbytes(ids, *keys0) / HBM_BYTES_PER_S * 1e3,
         "shape": list(ids.shape),
     }
     args = (ids, own_l, own_r, wid, *keys0, rows0, rows1, seed)
     r_out = mk.merge_round_fused(*args)
+    # the row kernel and the wide one on the same inputs, in turns
+    b1_ms = {}
+    for w, a_ in ((4096, args), (2048, args_2048)):
+        for k in ("row", "wide", "wide", "row"):
+            fn = mk.merge_round_fused if k == "row" else mk.merge_round_fused_wide
+            b1_ms.setdefault(f"{k}_{w}", []).append(
+                median_ms(lambda fn=fn, a_=a_: fn(*a_), 20))
     stats["merge_round_fused"] = {
         "max_abs_err": errs["merge_round_fused"],
-        "ms": _median_ms(torch, lambda: mk.merge_round_fused(*args), 20),
-        "plain_ms": _median_ms(torch, lambda: mk.merge_round_fused_plain(*args), 2),
+        "ms": b1_ms["row_4096"][0],
+        "plain_ms": median_ms(lambda: mk.merge_round_fused_plain(*args), 2),
         "bound_ms": (_nbytes(*args[:7], *r_out) + _table_bytes(torch, *keys0[:2], rows0))
                     / HBM_BYTES_PER_S * 1e3,
         "shape": list(ids.shape),
+        "smem_bytes": mk.row_smem_bytes(ids.shape[1]),
+        "wide_kernel_ms_same_shape": b1_ms["wide_4096"][0],
+        "ms_runs": b1_ms,
     }
+    w_out = mk.merge_round_fused_wide(*args_wide)
+    stats["merge_round_fused_wide"] = {
+        "max_abs_err": wide_errs["merge_round_fused_wide"],
+        "ms": median_ms(lambda: mk.merge_round_fused_wide(*args_wide), 20),
+        "plain_ms": median_ms(lambda: mk.merge_round_fused_plain(*args_wide), 2),
+        "bound_ms": (_nbytes(*args_wide[:7], *w_out)
+                     + _table_bytes(torch, *args_wide[4:6], rows0)) / HBM_BYTES_PER_S * 1e3,
+        "shape": list(ids_w.shape),
+    }
+    print("B1 ms, row kernel against the wide one in turns (row, wide, wide, row): "
+          + json.dumps(b1_ms), flush=True)
     torch.cuda.synchronize()
 
     # ---- 3. the gpt2 path, cold then warm ---------------------------------
     counts = {"layout_fused": lk.LAUNCHES, "keys": mk.LAUNCHES,
-              "merge_round_fused": mk.LAUNCHES, "merge_round_standalone": mk.LAUNCHES}
+              "merge_round_fused": mk.LAUNCHES, "merge_round_fused_wide": mk.LAUNCHES,
+              "merge_round_standalone": mk.LAUNCHES}
     runs = drive_path(torch, tok, docs, "gpt2", counts)
     zero = [k for k in ("layout_fused", "keys", "merge_round_fused")
             if runs["cold"]["launches"][k] == 0]
     if zero:
         raise SystemExit(f"the gpt2 path never launched {zero}")
-    for k in ("layout_fused", "keys", "merge_round_fused"):
+    if runs["cold"]["launches"]["merge_round_fused_wide"] != 0:
+        raise SystemExit("the gpt2 path took the wide B1 on the smoke documents")
+    for k in ("layout_fused", "keys", "merge_round_fused", "merge_round_fused_wide"):
         stats[k]["launches"] = runs["cold"]["launches"][k]
         stats[k]["launches_from"] = "gpt2 path, cold"
+    # the wide B1's launches in its own phase (the main path launches it 0 times)
+    stats["merge_round_fused_wide"]["own_phase_launches"] = wide_launches
     numbers = {"gpt2": path_numbers(eng, docs, prepared, runs, "gpt2")}
     print("numbers " + json.dumps(numbers["gpt2"]), flush=True)
 
@@ -317,8 +382,9 @@ def main() -> int:
     print(f"llama3_128k tables {llama3_build_s:.3f} s", flush=True)
     T3 = eng3.tables
     prepared3 = [eng3._prepare(d) for d in docs]
-    b, n, inb = _first_ascii_chunk(torch, eng3, prepared3)
+    b, n, inb = first_ascii_chunk(eng3, prepared3)
     bnd, _ = llama3_boundaries(b, inb, T3["cls_table"], ascii_only=True)
+    geom = buffer_geometry(b.numel())
     fits, ops = dedup_layout(b, bnd, inb, n, next_boundary(bnd), T3["seed"], geom)
     if not fits:
         raise SystemExit("the llama3 corpus chunk does not fit its dedup buffer")
@@ -349,10 +415,9 @@ def main() -> int:
             errs["keys"] = max(errs["keys"], _check_equal(
                 torch, f"keys {list(st_wid.shape)} (llama3)", k_got,
                 mk.keys_plain(st[0], rows0, seed)))
-            chain = mk.merge_round_fused(*st, st_wid, *k_got, rows0, rows1, seed)
-            errs["merge_round_fused"] = max(errs["merge_round_fused"], _check_equal(
-                torch, f"merge_round_fused {list(st_wid.shape)} (llama3)", chain,
-                mk.merge_round_fused_plain(*st, st_wid, *k_got, rows0, rows1, seed)))
+            chain, err = b1_checked(torch, mk, f"merge_round_fused {list(st_wid.shape)} (llama3)",
+                                    (*st, st_wid, *k_got, rows0, rows1, seed))
+            errs["merge_round_fused"] = max(errs["merge_round_fused"], err)
             _check_equal(torch, f"merge_round_standalone {list(st_wid.shape)} against B2, B1",
                          got, chain[:4])
             st = got[:3]
@@ -369,8 +434,8 @@ def main() -> int:
     keys4 = mk.keys_plain(ids0, rows0, seed)
     stats["merge_round_standalone"] = {
         "max_abs_err": err4,
-        "ms": _median_ms(torch, lambda: mk.merge_round_standalone(*args4), 20),
-        "plain_ms": _median_ms(torch, lambda: mk.merge_round_standalone_plain(*args4), 2),
+        "ms": median_ms(lambda: mk.merge_round_standalone(*args4), 20),
+        "plain_ms": median_ms(lambda: mk.merge_round_standalone_plain(*args4), 2),
         "bound_ms": (_nbytes(*args4[:4], *out4) + _table_bytes(torch, *keys4[:2], rows0))
                     / HBM_BYTES_PER_S * 1e3,
         "shape": list(ids0.shape),
@@ -403,8 +468,10 @@ def main() -> int:
     # ---- 5. the llama3 path, cold then warm -------------------------------
     runs3 = drive_path(torch, tok3, docs, "llama3", counts)
     cold3 = runs3["cold"]["launches"]
-    if cold3["keys"] == 0 or cold3["merge_round_fused"] == 0 or cold3["layout_fused"] != 0:
-        raise SystemExit(f"llama3 cold launches {cold3}: want B1, B2 > 0 and B3 = 0")
+    if (cold3["keys"] == 0 or cold3["merge_round_fused"] == 0 or cold3["layout_fused"] != 0
+            or cold3["merge_round_fused_wide"] != 0):
+        raise SystemExit(f"llama3 cold launches {cold3}: want B1, B2 > 0 and B3 and "
+                         f"the wide B1 = 0")
     numbers["llama3"] = path_numbers(eng3, docs, prepared3, runs3, "llama3")
     numbers["llama3"]["tables_s"] = llama3_build_s
     numbers["llama3"]["b4_rounds_to_completion"] = rounds
@@ -413,13 +480,19 @@ def main() -> int:
         "kernel_median_ms": {k: s["ms"] for k, s in stats.items()},
         "kernel_bound_us": {k: s["bound_ms"] * 1e3 for k, s in stats.items()},
         "kernel_shapes": {k: s["shape"] for k, s in stats.items()},
+        "b1_row_and_wide_ms": stats["merge_round_fused"]["ms_runs"],
+        "b1_row_smem_bytes": stats["merge_round_fused"]["smem_bytes"],
     }), flush=True)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": TPU_KERNELS[k],
          "launches": s["launches"], "launches_from": s["launches_from"],
+         **({"own_phase_launches": s["own_phase_launches"]}
+            if "own_phase_launches" in s else {}),
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
-         "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None}
+         "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         **({"wide_kernel_ms_same_shape": s["wide_kernel_ms_same_shape"]}
+            if "wide_kernel_ms_same_shape" in s else {})}
         for k, s in stats.items()
     ]}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,10 @@
 """Merge kernels B1/B2/B4 of the torch port (plain versions on the CPU)
 against the JAX package: the lax `merge_round` + `hash_jnp` oracle and the
 Pallas kernels in interpret mode.  Bit-exact.  The CUDA kernels themselves
-are held against the same plain versions by the `gpu` tests on a card, and
-by chip_smoke.py; `run_merge_phases` is in test_torch_merge_phases.py."""
+are held against the same plain versions by the `gpu` tests on a card (B1's
+row and wide kernels on the adversarial layouts of
+`smoke_data.adversarial_case` too), and by chip_smoke.py;
+`run_merge_phases` is in test_torch_merge_phases.py."""
 
 import functools
 import random
@@ -19,6 +21,9 @@ from tokenizers_tpu.ops import merge_pallas as jp
 from tokenizers_tpu.ops.merge_table import CuckooMergeTable, consume_mins, hash_jnp
 from tokenizers_tpu_torch.ops import bpe_merge2 as tm
 from tokenizers_tpu_torch.ops import merge_kernels as tk
+from tokenizers_tpu_torch.ops.merge_table import CuckooMergeTable as PortMergeTable
+from tokenizers_tpu_torch.ops.merge_table import consume_mins as port_consume_mins
+from tokenizers_tpu_torch.smoke_data import adversarial_case
 
 # the lax oracle as one XLA program (op by op it costs ~5x more here)
 j_merge_round = jax.jit(jm.merge_round, static_argnames=("k_steps",))
@@ -156,6 +161,107 @@ def test_standalone_round_matches_jax(seed, R, C, k):
     for a, b in zip(tm._round(*t_args, k_steps=k), t_out):
         assert torch.equal(a, b)
     assert t_out[3].any()
+
+
+def adversarial_tables(seed, R, C, reach=512):
+    """`smoke_data.adversarial_case` with its table as numpy [S, 8] rows:
+    (rows0, rows1, table seed, mclr, ids, wid)."""
+    merges, n_ids, ids, wid = adversarial_case(seed, R, C, reach)
+    table = PortMergeTable(merges)
+    mclr = port_consume_mins(merges, n_ids)
+    return table.rows8(0, mclr), table.rows8(1, mclr), table.seed, mclr, ids, wid
+
+
+def test_plain_round_matches_jax_adversarial():
+    """B1's plain version against the lax `merge_round` and
+    `merge_round_fused(interpret=True)` for three rounds on the adversarial
+    layouts (every row kind of `adversarial_case`)."""
+    rows0, rows1, s, mclr, ids, wid = adversarial_tables(11, 6, 1280)
+    j_tabs = (jnp.asarray(rows0), jnp.asarray(rows1), jnp.int32(s))
+    jids, jwid = jnp.asarray(ids), jnp.asarray(wid)
+    jl, jr = jm.init_own(jids, jnp.asarray(mclr))
+    j_h0, j_h1, j_nid = jp.keys_pallas(jids, j_tabs[0], j_tabs[2], interpret=True)
+    # compiled at XLA's lowest backend optimisation level: the same program,
+    # compiled in less time on the CPU
+    fused = jax.jit(functools.partial(jp.merge_round_fused, interpret=True))
+    wid_p = jp._pad_rb(jwid, -1)
+    pst = (jp._pad_rb(jids, -1), jp._pad_rb(jl, 0), jp._pad_rb(jr, 0), j_h0, j_h1, j_nid)
+    fused = fused.lower(*pst[:3], wid_p, *pst[3:], *j_tabs).compile(
+        {"xla_backend_optimization_level": 0})
+    lax_st = (jids, jl, jr)
+    tl, trr = tm.init_own(_t(ids), _t(mclr))
+    tst = (_t(ids), tl, trr) + tuple(tk.keys(_t(ids), _t(rows0), s))
+    for x, y in zip(tst[3:], (j_h0, j_h1, j_nid)):
+        np.testing.assert_array_equal(np.asarray(y)[:6], x.numpy())
+    merged = 0
+    for _ in range(3):
+        a1, l1, r1, f1 = j_merge_round(*lax_st, jwid, jm._seg_of(jwid), *j_tabs)
+        lax_st = (a1, l1, r1)
+        p_out = fused(*pst[:3], wid_p, *pst[3:], *j_tabs)
+        pst = (p_out[0], p_out[1], p_out[2], p_out[4], p_out[5], p_out[6])
+        t_out = tk.merge_round_fused(*tst[:3], _t(wid), *tst[3:], _t(rows0), _t(rows1), s)
+        tst = (t_out[0], t_out[1], t_out[2], t_out[4], t_out[5], t_out[6])
+        np.testing.assert_array_equal(np.asarray(a1), t_out[0].numpy())
+        np.testing.assert_array_equal(np.asarray(f1), t_out[3].numpy())
+        for j in range(7):
+            np.testing.assert_array_equal(np.asarray(p_out[j])[:6], t_out[j].numpy())
+        merged += int(t_out[3].sum())
+    assert merged > 0
+
+
+def _gpu_rounds(rows0, rows1, s, mclr, ids, wid, rounds=3):
+    """B1 (through `bpe_merge2`'s round driver) against its plain version,
+    round after round, on the card."""
+    rows0, rows1 = _t(rows0).cuda(), _t(rows1).cuda()
+    wid_c = _t(wid).cuda()
+    ids_c = _t(ids).cuda()
+    ol, orr = tm.init_own(ids_c, _t(mclr).cuda())
+    init, step, _unpack = tm.make_round_driver(wid_c, rows0, rows1, s)
+    st = init(ids_c, ol, orr)
+    merged = 0
+    for _ in range(rounds):
+        ref = tk.merge_round_fused_plain(*st[:3], wid_c, *st[3:], rows0, rows1, s)
+        st2, f = step(st)
+        torch.cuda.synchronize()
+        got = st2[:3] + (f,) + st2[3:]
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert torch.equal(a, b), f"output {k} differs"
+        merged += int(f.sum())
+        st = st2
+    return merged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [64, 256, 1536, 2048, 2560, 4096, 5120, 8192])
+def test_gpu_b1_adversarial(C):
+    """Both B1 kernels on the adversarial layouts: the row kernel up to
+    ROW_MAX_C, the wide one beyond (which one ran is read from LAUNCHES)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    case = adversarial_tables(C, 12, C)
+    before = dict(tk.LAUNCHES)
+    assert _gpu_rounds(*case) > 0
+    wide = tk.LAUNCHES["merge_round_fused_wide"] - before["merge_round_fused_wide"]
+    assert tk.LAUNCHES["merge_round_fused"] - before["merge_round_fused"] == 3
+    assert wide == (3 if C > tk.ROW_MAX_C else 0)
+
+
+@pytest.mark.gpu
+def test_gpu_b1_row_and_wide_agree():
+    """The two B1 kernels are one function: at a width both take, and on
+    a row kernel width whose rows are not 16-byte multiples."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for C in (2048, 1001, 1004):
+        rows0, rows1, s, mclr, ids, wid = (
+            _t(x).cuda() if isinstance(x, np.ndarray) else x
+            for x in adversarial_tables(C + 1, 12, C)
+        )
+        ol, orr = tm.init_own(ids, mclr)
+        args = (ids, ol, orr, wid, *tk.keys(ids, rows0, s), rows0, rows1, s)
+        for a, b, c in zip(tk.merge_round_fused(*args), tk.merge_round_fused_wide(*args),
+                           tk.merge_round_fused_plain(*args)):
+            assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.gpu

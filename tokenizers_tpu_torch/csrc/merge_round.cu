@@ -4,16 +4,18 @@
 //   B2 tt_keys        <- keys_pallas (_keys_kernel): each position's next
 //                        alive id within 2^k_steps, and both cuckoo slot
 //                        hashes of (id, next id).
-//   B1 tt_merge_round <- merge_round_fused (_apply_keys_kernel, with the
-//                        merge-table row reads of _select_rows moved into
-//                        the kernel): one safe-set merge round, then the
-//                        next round's keys.
+//   B1 <- merge_round_fused (_apply_keys_kernel, with the merge-table row
+//         reads of _select_rows moved into the kernel): one safe-set merge
+//         round, then the next round's keys.  Two kernels, chosen by row
+//         width: tt_merge_round_row for C <= ROW_MAX_C = 4096 (every launch
+//         of the dedup branch, the whole main path), tt_merge_round (the
+//         "wide" one) for wider rows (the full-width branch).
 //   B4 tt_merge_round_standalone
-//                     <- merge_round_pallas (_keys_kernel, the row reads
-//                        of _select_rows, then _apply_kernel): one round
-//                        that computes its own keys and carries none out.
+//      <- merge_round_pallas (_keys_kernel, the row reads of _select_rows,
+//         then _apply_kernel): one round that computes its own keys and
+//         carries none out.
 // Plain versions: ops/merge_kernels.py (keys_plain, merge_round_fused_plain,
-// merge_round_standalone_plain).  B1 and B4 share the round body
+// merge_round_standalone_plain).  The wide B1 and B4 share a round body
 // (round_row); B4 computes the keys in its first pass and stops after the
 // apply.
 //
@@ -21,18 +23,34 @@
 // per position (4.9 MB, 1.4 us at the main path's unique buffer
 // [74, 4096]); B1 reads ids, own_l, own_r, wid, h0, h1, nid and writes ids,
 // own_l, own_r, h0, h1, nid and the bool f, 53 B per position (16 MB at
-// [74, 4096]), plus each distinct merge-table row its keys hit, 32 B each.
-// B4 reads ids, own_l, own_r, wid and writes ids, own_l, own_r and f, 29 B
-// per position, plus the table rows as B1.  All are bound by bytes.  The
-// two 32 B table-row reads per position hit the 50 MB L2.
+// [74, 4096]), plus each distinct merge-table row its keys hit, 32 B each
+// (4.9 us there on gpt2's tables).  B4 reads ids, own_l, own_r, wid and
+// writes ids, own_l, own_r and f, 29 B per position, plus the table rows as
+// B1.  All are bound by bytes.  The table-row reads mostly hit L1 and L2.
 //
-// First design: one block of 1024 threads per row (words never cross rows,
-// so rows are independent); the row is walked in 1024-wide tiles by a
-// dozen passes, and every intermediate (neighbor indices, ranks, flags,
-// scans) goes through a global scratch buffer the wrapper allocates, where
-// it mostly stays in L2.  So the kernel moves several times its bound and
-// [74, 4096] fills 74 of the 132 SMs; keeping the row in shared memory
-// and splitting long rows over several blocks is later work.
+// The wide B1 (and B4, B2): one block of 1024 threads per row (words never
+// cross rows, so rows are independent) walks the row in 1024-wide tiles,
+// a dozen passes, every intermediate in 17 global scratch planes the
+// wrapper allocates.  Each scan of a tile is a block_scan with three
+// __syncthreads; at C = 4096 the wide B1 runs 36 of them one after another
+// (9 per tile).  Measured on an H100, the merge kernels take about 1.3 us
+// per such scan (B1 48.9 us for 36, B4 41.6 for 32, B2 5.9 for 4), ten
+// times B1's 4.9 us bound: barriers, not bytes, set its time.
+//
+// The row B1 (tt_merge_round_row, below) keeps the row on the SM: thread t
+// owns ROW_K = 4 contiguous positions in registers, what neighbors read
+// lives in shared memory, and the round's scans are three fused scan rounds
+// (a sequential walk over the thread's positions, a warp-shuffle scan, one
+// cross-warp step) with six __syncthreads in all; no global scratch.  1024
+// threads at C = 4096, 56 registers, no spills (ptxas); dynamic shared
+// memory row_smem_bytes(C) = 184,344 B at C = 4096, plus 1,152 B static, so
+// one block per SM (74 rows fill 74 of 132 SMs).  Measured on an H100 at
+// [74, 4096]: about 0.022 ms against the wide kernel's 0.049, 4.5x the
+// bound.  What holds it there is the one SM a row runs on: its L2 traffic
+// (about one 32 B sector a cycle: the arrays, the table rows of every
+// alive position, the stores) and its instruction issue; the phase times
+// come from tools/b1_phases.py (built with -DTT_ROW_PHASES).  Spreading a
+// row over a cluster of SMs is the next step.
 //
 // Semantics that must stay bit-equal to the JAX package:
 //   * next/prev alive is searched only 2^k_steps positions away; beyond,
@@ -361,7 +379,449 @@ merge_round_standalone_kernel(const int* ids_g, const int* ol_g,
                    or_o + off, f_o + off, S, C, reach, seed, mask, wti, wtl);
 }
 
+// ---- B1 for rows of up to ROW_MAX_C positions: the row stays on the SM --
+//
+// Thread t owns positions [t*ROW_K, t*ROW_K + ROW_K).  Its ids, neighbor
+// indices and flags stay in registers; what other positions read goes to
+// shared memory.  Arrays indexed by position use the padded index sp(i),
+// so the k-th positions of a warp's threads fall in 32 distinct banks;
+// arrays only the owner reads are striped (k * blockDim.x + t).  Three
+// fused scan rounds: (a) last alive <= i and first alive >= i; (b) the
+// segmented candidate count, segment min and last run start forward, with
+// the first tail and first segment end in reverse; (c) first alive >= i
+// after the merges.  Six __syncthreads in all.
+
+#define ROW_K 4  // positions a thread owns
+#define ROW_MAX_C 4096
+#define ROW_THREADS (ROW_MAX_C / ROW_K)
+
+#ifdef TT_ROW_PHASES
+// Phase-timing build (tools/b1_phases.py): thread 0 of each of the first
+// ROW_TIMED blocks stamps the SM clock at the start, after each barrier and
+// at the end.
+#define ROW_TIMED 256
+#define ROW_STAMPS 8
+__device__ long long tt_row_stamps[ROW_TIMED * ROW_STAMPS];
+#define ROW_STAMP(n)                                                  \
+  do {                                                                \
+    if (threadIdx.x == 0 && blockIdx.x < ROW_TIMED)                   \
+      tt_row_stamps[blockIdx.x * ROW_STAMPS + (n)] = clock64();       \
+  } while (0)
+extern "C" int tt_row_stamps_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, tt_row_stamps, sizeof(tt_row_stamps));
+}
+#else
+#define ROW_STAMP(n) \
+  do {               \
+  } while (0)
+#endif
+
+enum { R_VALID = 1, R_CAND = 2, R_SEG = 4, R_SEND = 8, R_RUNSTART = 16,
+       R_TAIL = 32, R_F = 64 };
+
+struct SegRun {  // forward scan of round (b)
+  int seg;  // 1 if the span holds a segment start
+  int cnt;  // candidates since the span's last segment start (all, if none)
+  int mn;   // min rank since then
+  int rs;   // last run start of the span, or -1
+  __device__ static SegRun id() { return {0, 0, INF_RANK, -1}; }
+  __device__ static SegRun op(SegRun a, SegRun b) {
+    return {a.seg | b.seg, b.seg ? b.cnt : a.cnt + b.cnt,
+            b.seg ? b.mn : (a.mn < b.mn ? a.mn : b.mn), a.rs > b.rs ? a.rs : b.rs};
+  }
+  template <class G>
+  __device__ SegRun xfer(G g) const { return {g(seg), g(cnt), g(mn), g(rs)}; }
+};
+
+struct TailEnd {  // reverse scan of round (b): first tail, first segment end
+  int tail, end;
+  __device__ static TailEnd id() { return {BIG_POS, BIG_POS}; }
+  __device__ static TailEnd op(TailEnd a, TailEnd b) {
+    return {a.tail < b.tail ? a.tail : b.tail, a.end < b.end ? a.end : b.end};
+  }
+  template <class G>
+  __device__ TailEnd xfer(G g) const { return {g(tail), g(end)}; }
+};
+
+__device__ __forceinline__ int sp(int i) { return i + i / ROW_K; }
+
+// prev (low 16 bits) and next (high) alive position within reach, -1 if none
+__device__ __forceinline__ int pack_pj(int p, int j) {
+  return (int)(((unsigned)j << 16) | ((unsigned)p & 0xffffu));
+}
+__device__ __forceinline__ int prev_of(int pj) { return (int)(short)(pj & 0xffff); }
+__device__ __forceinline__ int next_of(int pj) { return pj >> 16; }
+
+// this thread's ROW_K positions of one row; `vec`: C % 8 == 0 and the row
+// is 16-byte aligned, so a thread's run is ROW_K / 4 aligned int4
+__device__ __forceinline__ void load_run(const int* __restrict__ g, int i0, int C,
+                                         bool vec, int (&x)[ROW_K], int fill) {
+  if (vec && i0 < C) {
+#pragma unroll
+    for (int v = 0; v < ROW_K / 4; ++v) {
+      const int4 u = __ldg(reinterpret_cast<const int4*>(g + i0 + 4 * v));
+      x[4 * v] = u.x; x[4 * v + 1] = u.y; x[4 * v + 2] = u.z; x[4 * v + 3] = u.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k) x[k] = i0 + k < C ? __ldg(g + i0 + k) : fill;
+  }
+}
+
+__device__ __forceinline__ void store_run(int* g, int i0, int C, bool vec,
+                                          const int (&x)[ROW_K]) {
+  if (vec && i0 < C) {
+#pragma unroll
+    for (int v = 0; v < ROW_K / 4; ++v)
+      *reinterpret_cast<int4*>(g + i0 + 4 * v) =
+          make_int4(x[4 * v], x[4 * v + 1], x[4 * v + 2], x[4 * v + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k)
+      if (i0 + k < C) g[i0 + k] = x[k];
+  }
+}
+
+// fields 0-5 of a merge-table row (key a, key b, rank, new id, MCL, MCR)
+__device__ __forceinline__ void read_row(const int* __restrict__ r, bool vec,
+                                         int4& p, int2& q) {
+  if (vec) {
+    p = __ldg(reinterpret_cast<const int4*>(r));
+    q = __ldg(reinterpret_cast<const int2*>(r + 4));
+  } else {
+    p = make_int4(__ldg(r), __ldg(r + 1), __ldg(r + 2), __ldg(r + 3));
+    q = make_int2(__ldg(r + 4), __ldg(r + 5));
+  }
+}
+
+// bytes of dynamic shared memory for a row of C positions and nth threads:
+// six padded int arrays, three striped ones and three byte arrays
+__host__ __device__ __forceinline__ size_t row_smem_bytes(int C, int nth) {
+  const size_t cp = (size_t)C + C / ROW_K + 1;
+  return (6 * cp + 3 * (size_t)nth * ROW_K) * 4 + 3 * (size_t)C;
+}
+
+__host__ __device__ __forceinline__ int row_threads(int C) {
+  return ((C + ROW_K - 1) / ROW_K + 31) / 32 * 32;
+}
+
+__global__ void __launch_bounds__(ROW_THREADS, 1)
+merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
+                       const int* __restrict__ or_g, const int* __restrict__ wid_g,
+                       const int* __restrict__ h0_g, const int* __restrict__ h1_g,
+                       const int* __restrict__ nid_g, const int* __restrict__ rows0,
+                       const int* __restrict__ rows1, int* ids_o, int* ol_o,
+                       int* or_o, unsigned char* f_o, int* h0_o, int* h1_o,
+                       int* nid_o, int C, int reach, unsigned seed,
+                       unsigned mask, int vec_flags) {
+  extern __shared__ __align__(16) int smem[];
+  const int cp = C + C / ROW_K + 1;
+  const int nth = blockDim.x;
+  int* s_wid = smem;               // wid; the ids after the round from (c)
+  int* s_ol = s_wid + cp;          // own_l
+  int* s_or = s_ol + cp;           // own_r
+  int* s_r = s_or + cp;            // looked-up rank, then INF where not valid
+  int* s_nmcr = s_r + cp;          // MCR of the next alive; segment-min prefix from (b)
+  int* s_q = s_nmcr + cp;          // segmented candidate count
+  int* s_newid = s_q + cp;         // striped: the hit row's new id, MCL, MCR
+  int* s_mcln = s_newid + nth * ROW_K;
+  int* s_mcrn = s_mcln + nth * ROW_K;
+  unsigned char* s_valid = reinterpret_cast<unsigned char*>(s_mcrn + nth * ROW_K);
+  unsigned char* s_ht = s_valid + C;  // bit 0 head_ok, bit 1 tail_ok
+  unsigned char* s_f = s_ht + C;
+  int* s_smin = s_nmcr;
+  int* s_ids2 = s_wid;
+  __shared__ LastPos wa_f[32];
+  __shared__ FirstPos wa_b[32];
+  __shared__ SegRun wb_f[32];
+  __shared__ TailEnd wb_b[32];
+  __shared__ NoScan wc_f[32];
+  __shared__ FirstPos wc_b[32];
+
+  ROW_STAMP(0);
+  const bool vec = vec_flags & 1;
+  const bool tvec = vec_flags & 2;
+  const size_t off = (size_t)blockIdx.x * C;
+  const int t = threadIdx.x;
+  const int i0 = t * ROW_K;
+
+  // ---- load; the merge-table rows at the carried keys ------------------
+  int a[ROW_K];
+  {
+    int x[ROW_K];
+    load_run(wid_g + off, i0, C, vec, x, -1);
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k)
+      if (i0 + k < C) s_wid[sp(i0 + k)] = x[k];
+    load_run(ol_g + off, i0, C, vec, x, 0);
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k)
+      if (i0 + k < C) s_ol[sp(i0 + k)] = x[k];
+    load_run(or_g + off, i0, C, vec, x, 0);
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k)
+      if (i0 + k < C) s_or[sp(i0 + k)] = x[k];
+  }
+  load_run(ids_g + off, i0, C, vec, a, -1);
+  {
+    int h0[ROW_K], h1[ROW_K], nid[ROW_K];
+    load_run(h0_g + off, i0, C, vec, h0, 0);
+    load_run(h1_g + off, i0, C, vec, h1, 0);
+    load_run(nid_g + off, i0, C, vec, nid, 0);
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k) {
+      const int i = i0 + k;
+      if (i >= C) continue;
+      int r = INF_RANK;
+      if (a[k] >= 0) {  // a dead position's pair is never valid
+        int4 p0, p1;
+        int2 q0, q1;
+        read_row(rows0 + 8 * (size_t)h0[k], tvec, p0, q0);
+        read_row(rows1 + 8 * (size_t)h1[k], tvec, p1, q1);
+        const bool hit0 = p0.x == a[k] && p0.y == nid[k];
+        const bool hit1 = p1.x == a[k] && p1.y == nid[k];
+        r = hit0 ? p0.z : (hit1 ? p1.z : INF_RANK);
+        s_newid[k * nth + t] = hit0 ? p0.w : p1.w;
+        s_mcln[k * nth + t] = hit0 ? q0.x : q1.x;
+        s_mcrn[k * nth + t] = hit0 ? q0.y : q1.y;
+      }
+      s_r[sp(i)] = r;
+    }
+  }
+
+  // ---- round (a): prev and next alive within reach ---------------------
+  int pj[ROW_K];
+  {
+    LastPos fa = LastPos::id();
+    FirstPos ba = FirstPos::id();
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k)
+      if (a[k] >= 0) {
+        fa.p = i0 + k;
+        if (ba.p == BIG_POS) ba.p = i0 + k;
+      }
+    row_scan_exclusive(fa, ba, wa_f, wa_b);  // barrier 1
+    ROW_STAMP(1);
+    int carry = fa.p;
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k) {
+      const int i = i0 + k;
+      pj[k] = (carry >= 0 && i - carry <= reach) ? carry : -1;
+      if (a[k] >= 0) carry = i;
+    }
+    carry = ba.p;
+#pragma unroll
+    for (int k = ROW_K - 1; k >= 0; --k) {
+      const int i = i0 + k;
+      const int j = (carry < C && carry - i <= reach) ? carry : -1;
+      pj[k] = pack_pj(pj[k], j);
+      if (a[k] >= 0) carry = i;
+    }
+  }
+
+  // ---- pair validity and rank; MCR of the next alive -------------------
+  int fl[ROW_K];
+#pragma unroll
+  for (int k = 0; k < ROW_K; ++k) {
+    const int i = i0 + k;
+    fl[k] = 0;
+    if (i >= C) continue;
+    const int j = next_of(pj[k]);
+    const bool valid = a[k] >= 0 && j >= 0 && s_wid[sp(j)] == s_wid[sp(i)];
+    const int r = valid ? s_r[sp(i)] : INF_RANK;
+    s_r[sp(i)] = r;
+    s_nmcr[sp(i)] = j >= 0 ? s_or[sp(j)] : 0;
+    s_valid[i] = valid;
+    fl[k] = (valid ? R_VALID : 0) | ((valid && r < INF_RANK) ? R_CAND : 0);
+  }
+  __syncthreads();  // barrier 2
+  ROW_STAMP(2);
+
+  // ---- run structure, head/tail safety, segment edges ------------------
+  int rk[ROW_K];
+#pragma unroll
+  for (int k = 0; k < ROW_K; ++k) {
+    const int i = i0 + k;
+    rk[k] = INF_RANK;
+    if (i >= C) continue;
+    const int r = s_r[sp(i)];
+    const int wi = s_wid[sp(i)];
+    const bool valid = fl[k] & R_VALID;
+    const bool cand = fl[k] & R_CAND;
+    const int j = next_of(pj[k]);
+    const int p = prev_of(pj[k]);
+    const int nr = j >= 0 ? s_r[sp(j)] : 0;
+    const bool nvalid = j >= 0 && s_valid[j];
+    const int nnmcr = j >= 0 ? s_nmcr[sp(j)] : 0;
+    const bool pfound = p >= 0;
+    const int pr = pfound ? s_r[sp(p)] : 0;
+    const int pmcl = pfound ? s_ol[sp(p)] : 0;
+    const bool prev_in_word = pfound && s_wid[sp(p)] == wi;
+    const bool same_run_prev = cand && prev_in_word && pr == r;
+    const bool run_start = cand && !same_run_prev;
+    const bool has_next_pair = valid && j >= 0 && nvalid;
+    const bool same_run_next = cand && has_next_pair && nr == r;
+    const bool tail = cand && !same_run_next;
+    const bool head_ok = run_start && (!prev_in_word || (r < pr && r <= pmcl));
+    const int nn = nnmcr < BIG_MCR ? nnmcr : BIG_MCR;
+    const bool tail_ok = tail && r < nr && (!has_next_pair || r <= nn + 1);
+    s_ht[i] = (head_ok ? 1 : 0) | (tail_ok ? 2 : 0);
+    const bool seg = i == 0 || s_wid[sp(i - 1)] != wi;
+    const bool send = i == C - 1 || s_wid[sp(i + 1)] != wi;
+    fl[k] |= (seg ? R_SEG : 0) | (send ? R_SEND : 0) |
+             (run_start ? R_RUNSTART : 0) | (tail ? R_TAIL : 0);
+    rk[k] = r;
+  }
+
+  // ---- round (b): segmented count and min, run start; first tail and
+  //      first segment end ---------------------------------------------
+  int rs[ROW_K], te[ROW_K];  // te: first tail (low 16 bits), segment end
+  {
+    SegRun fb = SegRun::id();
+    TailEnd bb = TailEnd::id();
+#define SEGRUN_AT(k)                                                        \
+  SegRun{(fl[k] & R_SEG) ? 1 : 0, (fl[k] & R_CAND) ? 1 : 0, rk[k],          \
+         (fl[k] & R_RUNSTART) ? i0 + (k) : -1}
+#define TAILEND_AT(k)                                                       \
+  TailEnd{(fl[k] & R_TAIL) ? i0 + (k) : BIG_POS,                            \
+          (fl[k] & R_SEND) ? i0 + (k) : BIG_POS}
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k)
+      if (i0 + k < C) fb = SegRun::op(fb, SEGRUN_AT(k));
+#pragma unroll
+    for (int k = ROW_K - 1; k >= 0; --k)
+      if (i0 + k < C) bb = TailEnd::op(bb, TAILEND_AT(k));
+    row_scan_exclusive(fb, bb, wb_f, wb_b);  // barrier 3
+    ROW_STAMP(3);
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k) {
+      const int i = i0 + k;
+      rs[k] = -1;
+      if (i >= C) continue;
+      fb = SegRun::op(fb, SEGRUN_AT(k));
+      s_q[sp(i)] = fb.cnt;
+      s_smin[sp(i)] = fb.mn;
+      rs[k] = fb.rs;
+    }
+#pragma unroll
+    for (int k = ROW_K - 1; k >= 0; --k) {
+      const int i = i0 + k;
+      te[k] = 0;
+      if (i >= C) continue;
+      bb = TailEnd::op(bb, TAILEND_AT(k));
+      te[k] = (bb.tail < C ? bb.tail : 0xffff) | (bb.end << 16);
+    }
+#undef SEGRUN_AT
+#undef TAILEND_AT
+  }
+  __syncthreads();  // barrier 4
+  ROW_STAMP(4);
+
+  // ---- parity, word min: the merge set ---------------------------------
+#pragma unroll
+  for (int k = 0; k < ROW_K; ++k) {
+    const int i = i0 + k;
+    if (i >= C) continue;
+    if (fl[k] & R_CAND) {
+      const int q = s_q[sp(i)];
+      int q_head = 0, hl = 0;
+      if (rs[k] >= 0) {
+        q_head = s_q[sp(rs[k])];
+        hl = s_ht[rs[k]] & 1;
+      }
+      const int tp = te[k] & 0xffff;
+      const int tl = tp < C ? (s_ht[tp] >> 1) & 1 : 0;
+      const int wmin = s_smin[sp(te[k] >> 16)];
+      const bool parity_odd = ((q - q_head) & 1) == 0;
+      if (parity_odd && (rk[k] == wmin || (hl == 1 && tl == 1))) fl[k] |= R_F;
+    }
+    s_f[i] = (fl[k] & R_F) ? 1 : 0;
+  }
+  __syncthreads();  // barrier 5
+  ROW_STAMP(5);
+
+  // ---- apply: the left member takes the merge, the right member dies ---
+  {
+    int ol2[ROW_K], or2[ROW_K];
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k) {
+      const int i = i0 + k;
+      ol2[k] = or2[k] = 0;
+      if (i >= C) continue;
+      const bool f = fl[k] & R_F;
+      const int p = prev_of(pj[k]);
+      const bool kill = a[k] >= 0 && p >= 0 && s_f[p];
+      a[k] = kill ? -1 : (f ? s_newid[k * nth + t] : a[k]);
+      ol2[k] = f ? s_mcln[k * nth + t] : s_ol[sp(i)];
+      or2[k] = f ? s_mcrn[k * nth + t] : s_or[sp(i)];
+      s_ids2[sp(i)] = a[k];
+    }
+    store_run(ids_o + off, i0, C, vec, a);
+    store_run(ol_o + off, i0, C, vec, ol2);
+    store_run(or_o + off, i0, C, vec, or2);
+    if (vec && i0 < C) {
+#pragma unroll
+      for (int v = 0; v < ROW_K / 4; ++v) {
+        unsigned w = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w |= (unsigned)((fl[4 * v + k] & R_F) ? 1 : 0) << (8 * k);
+        reinterpret_cast<unsigned*>(f_o + off + i0)[v] = w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < ROW_K; ++k)
+        if (i0 + k < C) f_o[off + i0 + k] = (fl[k] & R_F) ? 1 : 0;
+    }
+  }
+
+  // ---- round (c): the next round's keys --------------------------------
+  {
+    NoScan fc;
+    FirstPos bc = FirstPos::id();
+#pragma unroll
+    for (int k = ROW_K - 1; k >= 0; --k)
+      if (a[k] >= 0) bc.p = i0 + k;
+    row_scan_exclusive(fc, bc, wc_f, wc_b);  // barrier 6
+    ROW_STAMP(6);
+    int n[ROW_K];
+    int carry = bc.p;
+#pragma unroll
+    for (int k = ROW_K - 1; k >= 0; --k) {
+      const int i = i0 + k;
+      const int j = (carry < C && carry - i <= reach) ? carry : -1;
+      n[k] = j >= 0 ? s_ids2[sp(j)] : 0;
+      if (a[k] >= 0) carry = i;
+    }
+    int h[ROW_K];
+    store_run(nid_o + off, i0, C, vec, n);
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k) h[k] = pair_hash(a[k], n[k], seed, mask, 0);
+    store_run(h0_o + off, i0, C, vec, h);
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k) h[k] = pair_hash(a[k], n[k], seed, mask, 1);
+    store_run(h1_o + off, i0, C, vec, h);
+  }
+#ifdef TT_ROW_PHASES
+  __syncthreads();
+  ROW_STAMP(7);
+#endif
+}
+
 extern "C" int tt_n_scratch_merge_round() { return N_SCRATCH; }
+
+extern "C" int tt_merge_round_row_max_c() { return ROW_MAX_C; }
+
+extern "C" long long tt_merge_round_row_smem(int C) {
+  return (long long)row_smem_bytes(C, row_threads(C));
+}
+
+// Allow the row kernel its dynamic shared memory at ROW_MAX_C on the
+// current device; needed once per device before the first launch.
+extern "C" int tt_merge_round_row_init() {
+  return (int)cudaFuncSetAttribute(
+      merge_round_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)row_smem_bytes(ROW_MAX_C, ROW_THREADS));
+}
 
 extern "C" int tt_keys(void* ids, void* h0, void* h1, void* nid,
                        void* scratch, int R, int C, int reach, unsigned seed,
@@ -384,6 +844,25 @@ extern "C" int tt_merge_round(void* ids, void* own_l, void* own_r, void* wid,
       (const int*)rows1, (int*)ids_o, (int*)ol_o, (int*)or_o, (unsigned char*)f_o,
       (int*)h0_o, (int*)h1_o, (int*)nid_o, (int*)scratch, R, C, reach, seed,
       mask);
+  return (int)cudaGetLastError();
+}
+
+// vec_flags: bit 0, C % 8 == 0 and the row arrays 16-byte aligned (f_o
+// 8-byte); bit 1, the tables 16-byte aligned.
+extern "C" int tt_merge_round_row(void* ids, void* own_l, void* own_r, void* wid,
+                                  void* h0, void* h1, void* nid, void* rows0,
+                                  void* rows1, void* ids_o, void* ol_o,
+                                  void* or_o, void* f_o, void* h0_o, void* h1_o,
+                                  void* nid_o, int R, int C, int reach,
+                                  unsigned seed, unsigned mask, int vec_flags,
+                                  void* stream) {
+  if (C < 1 || C > ROW_MAX_C) return (int)cudaErrorInvalidValue;
+  const int nth = row_threads(C);
+  merge_round_row_kernel<<<R, nth, row_smem_bytes(C, nth), (cudaStream_t)stream>>>(
+      (const int*)ids, (const int*)own_l, (const int*)own_r, (const int*)wid,
+      (const int*)h0, (const int*)h1, (const int*)nid, (const int*)rows0,
+      (const int*)rows1, (int*)ids_o, (int*)ol_o, (int*)or_o, (unsigned char*)f_o,
+      (int*)h0_o, (int*)h1_o, (int*)nid_o, C, reach, seed, mask, vec_flags);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,9 @@ with `ctypes`.  Libraries are named by a hash of their sources and flags
 and kept in `_build/` beside this package (git-ignored;
 `TOKENIZERS_TPU_TORCH_BUILD` overrides the directory), so an edited source
 is rebuilt and an unchanged one is reused.  `build()` compiles every
-missing library at once, one `nvcc` process per source.
+missing library at once, one `nvcc` process per source.  `defines` builds
+a variant of a source with preprocessor macros set (`-D`), kept beside the
+plain build under a name that includes them.
 
 A failed build raises with the compiler's output: there is no fallback.
 """
@@ -18,7 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
@@ -28,8 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_libs: Dict[str, ctypes.CDLL] = {}
-LOGS: Dict[str, str] = {}  # nvcc/ptxas output per source, from this process
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}  # nvcc/ptxas output per source (and -D flags), from this process
 
 
 def build_dir() -> str:
@@ -46,34 +48,38 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _lib_path(src: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(src: str, defines: Tuple[str, ...] = ()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _d_flags(defines)).encode())
     for name in sorted(os.listdir(CSRC)):
         if name == src or name.endswith(".cuh"):
             with open(os.path.join(CSRC, name), "rb") as f:
                 h.update(name.encode() + f.read())
-    stem = os.path.splitext(src)[0]
+    stem = os.path.splitext(src)[0] + "".join(f"-{d}" for d in defines)
     return os.path.join(build_dir(), f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile the libraries that are missing, all in parallel.
-    Returns {source: library path}."""
+def _d_flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return tuple(f"-D{d}" for d in defines)
+
+
+def build(sources: Iterable[str] = SOURCES, defines: Tuple[str, ...] = ()) -> Dict[str, str]:
+    """Compile the libraries that are missing, all in parallel, each with
+    the macros `defines`.  Returns {source: library path}."""
     os.makedirs(build_dir(), exist_ok=True)
-    paths = {s: _lib_path(s) for s in sources}
+    paths = {s: _lib_path(s, defines) for s in sources}
     procs = {}
     for src, path in paths.items():
         if os.path.exists(path):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *_d_flags(defines), "-o", tmp, os.path.join(CSRC, src)]
         procs[src] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
     errors = []
     for src, (tmp, p) in procs.items():
         out, _ = p.communicate()
-        LOGS[src] = out
+        LOGS[" ".join((src,) + _d_flags(defines))] = out
         if p.returncode != 0:
             errors.append(f"nvcc failed on {src} (exit {p.returncode}):\n{out}")
         else:
@@ -83,12 +89,13 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
     return paths
 
 
-def library(src: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first if needed."""
-    lib = _libs.get(src)
+def library(src: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of one source (with the macros `defines`), built
+    first if needed."""
+    lib = _libs.get((src, defines))
     if lib is None:
-        lib = ctypes.CDLL(build([src])[src])
-        _libs[src] = lib
+        lib = ctypes.CDLL(build([src], defines)[src])
+        _libs[(src, defines)] = lib
     return lib
 
 

@@ -6,6 +6,10 @@ plain versions; port of `tokenizers_tpu.ops.merge_pallas`.
 * `merge_round_fused` (B1, replaces `merge_round_fused`): one safe-set
   merge round from the carried keys, merge-table row reads included, then
   the next round's keys.  Returns (ids, own_l, own_r, f, h0, h1, nid).
+  Two kernels, chosen by row width: the row kernel for C <= ROW_MAX_C
+  (the row held in shared memory; every launch of the dedup branch) and
+  the wide one (`merge_round_fused_wide`, tiles through global scratch)
+  for wider rows.
 * `merge_round_standalone` (B4, replaces `merge_round_pallas`): one round
   that computes its own keys and carries none out; word segments derive
   from wid.  Returns (ids, own_l, own_r, f).  Only `bpe_merge2._round`
@@ -26,20 +30,35 @@ from .bpe_merge2 import FILL_K, _seg_of, apply_round, fill_next, merge_round, se
 from .kernel_build import check_cuda_int32, check_status, device_of, library
 from .merge_table import hash_pair
 
-LAUNCHES = {"keys": 0, "merge_round_fused": 0, "merge_round_standalone": 0}
+# every B1 launch counts in "merge_round_fused", the wide kernel's also in
+# "merge_round_fused_wide"
+LAUNCHES = {"keys": 0, "merge_round_fused": 0, "merge_round_fused_wide": 0,
+            "merge_round_standalone": 0}
+ROW_MAX_C = 4096  # widest row of B1's row kernel (csrc: ROW_MAX_C)
 _SRC = "merge_round.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_ROW_READY = set()  # (library, device) where the row kernel's shared memory is allowed
 
 
-def _lib():
-    lib = library(_SRC)
+def load(defines=()):
+    """The typed library of merge_round.cu, built with the macros `defines`
+    (() is the shipped build)."""
+    lib = library(_SRC, tuple(defines))
     if not getattr(lib, "_tt_typed", False):
         lib.tt_keys.argtypes = [_P] * 5 + [_I, _I, _I, _U, _U, _P]
         lib.tt_keys.restype = _I
         lib.tt_merge_round.argtypes = [_P] * 17 + [_I, _I, _I, _U, _U, _P]
         lib.tt_merge_round.restype = _I
+        lib.tt_merge_round_row.argtypes = [_P] * 16 + [_I, _I, _I, _U, _U, _I, _P]
+        lib.tt_merge_round_row.restype = _I
+        lib.tt_merge_round_row_init.restype = _I
+        lib.tt_merge_round_row_smem.argtypes = [_I]
+        lib.tt_merge_round_row_smem.restype = ctypes.c_longlong
+        lib.tt_merge_round_row_max_c.restype = _I
+        if lib.tt_merge_round_row_max_c() != ROW_MAX_C:
+            raise RuntimeError("merge_round.cu and merge_kernels.py disagree on ROW_MAX_C")
         lib.tt_merge_round_standalone.argtypes = [_P] * 11 + [_I, _I, _I, _U, _U, _P]
         lib.tt_merge_round_standalone.restype = _I
         lib.tt_n_scratch_merge_round.restype = _I
@@ -88,7 +107,7 @@ def keys(ids, rows0, seed, k_steps=FILL_K):
     if ids.numel() == 0:
         return h0, h1, nid
     scratch = torch.empty_like(ids)
-    lib = _lib()
+    lib = load()
     LAUNCHES["keys"] += 1
     check_status("keys", lib.tt_keys(
         ids.data_ptr(), h0.data_ptr(), h1.data_ptr(), nid.data_ptr(),
@@ -98,32 +117,105 @@ def keys(ids, rows0, seed, k_steps=FILL_K):
     return h0, h1, nid
 
 
+def _fused_outputs(name, ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1):
+    """Check B1's inputs on the card; returns (mask, six int32 outputs, f)."""
+    R, C = ids.shape
+    check_cuda_int32(
+        name, (R, C), ids=ids, own_l=own_l, own_r=own_r, wid=wid, h0=h0,
+        h1=h1, nid=nid,
+    )
+    check_cuda_int32(name, None, rows0=rows0, rows1=rows1)
+    mask = _mask(rows0)
+    if rows1.shape != rows0.shape or rows0.shape[1] != 8:
+        raise ValueError(f"{name}: rows0/rows1 must both be [S, 8]")
+    outs = [torch.empty_like(ids) for _ in range(6)]
+    f = torch.empty((R, C), dtype=torch.bool, device=ids.device)
+    return mask, outs, f
+
+
+def _row_init(lib, dev):
+    """Allow the row kernel its dynamic shared memory, once per library and
+    device."""
+    if (lib._name, dev.index) in _ROW_READY:
+        return
+    with torch.cuda.device(dev):
+        st = lib.tt_merge_round_row_init()
+    if st != 0:
+        raise RuntimeError(
+            "merge_round_fused: cudaFuncSetAttribute(MaxDynamicSharedMemorySize, "
+            f"{row_smem_bytes(ROW_MAX_C)}) failed with cudaError {st}"
+        )
+    _ROW_READY.add((lib._name, dev.index))
+
+
+def row_vec_flags(rows, f, rows0, rows1):
+    """The row kernel's `vec_flags`: bit 0 when C % 8 == 0 and the [R, C]
+    int32 arrays are 16-byte aligned (f 8-byte), bit 1 when the tables are."""
+    row_vec = (f.shape[1] % 8 == 0 and f.data_ptr() % 8 == 0
+               and all(t.data_ptr() % 16 == 0 for t in rows))
+    table_vec = rows0.data_ptr() % 16 == 0 and rows1.data_ptr() % 16 == 0
+    return int(row_vec) | 2 * int(table_vec)
+
+
+def row_smem_bytes(C):
+    """Dynamic shared memory of the row kernel at width C (bytes)."""
+    return load().tt_merge_round_row_smem(C)
+
+
 def merge_round_fused(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed,
-                      k_steps=FILL_K):
+                      k_steps=FILL_K, lib=None):
+    """`lib`: the build whose row kernel runs, from `load` (None: the
+    shipped one); `tools/b1_phases.py` passes its timing build."""
     if device_of("merge_round_fused", ids) == "cpu":
         return merge_round_fused_plain(
             ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps
         )
     R, C = ids.shape
-    check_cuda_int32(
-        "merge_round_fused", (R, C), ids=ids, own_l=own_l, own_r=own_r,
-        wid=wid, h0=h0, h1=h1, nid=nid,
-    )
-    check_cuda_int32("merge_round_fused", None, rows0=rows0, rows1=rows1)
-    mask = _mask(rows0)
-    if rows1.shape != rows0.shape or rows0.shape[1] != 8:
-        raise ValueError("merge_round_fused: rows0/rows1 must both be [S, 8]")
-    outs = [torch.empty_like(ids) for _ in range(6)]
-    f = torch.empty((R, C), dtype=torch.bool, device=ids.device)
+    if C > ROW_MAX_C:
+        return merge_round_fused_wide(
+            ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps
+        )
+    ins = (ids, own_l, own_r, wid, h0, h1, nid)
+    mask, outs, f = _fused_outputs("merge_round_fused", *ins, rows0, rows1)
     if ids.numel() == 0:
         return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
-    lib = _lib()
+    if lib is None:
+        lib = load()
+    _row_init(lib, ids.device)
+    LAUNCHES["merge_round_fused"] += 1
+    check_status("merge_round_fused", lib.tt_merge_round_row(
+        *(t.data_ptr() for t in ins), rows0.data_ptr(), rows1.data_ptr(),
+        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+        f.data_ptr(), outs[3].data_ptr(), outs[4].data_ptr(),
+        outs[5].data_ptr(), R, C, 1 << k_steps, int(seed) & 0xFFFFFFFF, mask,
+        row_vec_flags(ins + tuple(outs), f, rows0, rows1), _stream(ids),
+    ))
+    return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
+
+
+def merge_round_fused_wide(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1,
+                           seed, k_steps=FILL_K):
+    """B1 through the wide kernel, at any width.  `merge_round_fused` takes
+    it for rows wider than ROW_MAX_C; chip_smoke.py also times it at the
+    row kernel's widths."""
+    if device_of("merge_round_fused_wide", ids) == "cpu":
+        return merge_round_fused_plain(
+            ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps
+        )
+    R, C = ids.shape
+    mask, outs, f = _fused_outputs(
+        "merge_round_fused_wide", ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1
+    )
+    if ids.numel() == 0:
+        return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
+    lib = load()
     scratch = torch.empty(
         (lib.tt_n_scratch_merge_round(), R, C), dtype=torch.int32,
         device=ids.device,
     )
     LAUNCHES["merge_round_fused"] += 1
-    check_status("merge_round_fused", lib.tt_merge_round(
+    LAUNCHES["merge_round_fused_wide"] += 1
+    check_status("merge_round_fused_wide", lib.tt_merge_round(
         ids.data_ptr(), own_l.data_ptr(), own_r.data_ptr(), wid.data_ptr(),
         h0.data_ptr(), h1.data_ptr(), nid.data_ptr(), rows0.data_ptr(),
         rows1.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
@@ -160,7 +252,7 @@ def merge_round_standalone(ids, own_l, own_r, wid, rows0, rows1, seed,
     f = torch.empty((R, C), dtype=torch.bool, device=ids.device)
     if ids.numel() == 0:
         return outs[0], outs[1], outs[2], f
-    lib = _lib()
+    lib = load()
     scratch = torch.empty(
         (lib.tt_n_scratch_merge_round(), R, C), dtype=torch.int32,
         device=ids.device,
