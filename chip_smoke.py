@@ -7,18 +7,25 @@
    (one process per source, all at once) and prints what ptxas reports.
 2. Holds each kernel of the gpt2 path bit for bit against its plain
    PyTorch version on the card, at that path's shapes: the layout kernel
-   (B3) on a [256, 8192] corpus chunk, the keys (B2) and merge-round (B1)
+   (B3) on a [256, 8192] corpus chunk, and on the adversarial rows of
+   `smoke_data.adversarial_layout_case` at widths 256-8192 (its row
+   kernel) and 16384 (its tiled kernel, which the main path never takes:
+   its launches there are 0, and those of that phase are reported apart);
+   the keys (B2) and merge-round (B1)
    kernels on the first rounds of that chunk's real [74, 4096] unique
    buffer, then at the compacted widths 2560 and 2048 and on a
-   ladder-sized [37, 2048] slice.  B1 has two kernels, chosen by width:
+   ladder-sized [37, 2048] slice, B2 also on every adversarial layout
+   of B1's below.  B1 has two kernels, chosen by width:
    the row kernel (C <= 4096) runs there, and both are held on the
    adversarial layouts of `smoke_data.adversarial_case` (the row kernel
    at widths 64-4096, the wide one at 5120 and 8192); the wide one also on
    the full-width branch's state, the chunk's first 8 rows at [8, 8192]
    and at its 5/8 width (the smoke documents never take it: its launches
-   on the gpt2 path are 0, and those of that phase are reported apart).  Times each kernel and its plain version with
-   CUDA events, and the wide B1 beside the row kernel at [74, 4096] and
-   [74, 2048].
+   on the gpt2 path are 0, and those of that phase are reported apart).
+   Times each kernel and its plain version with CUDA events, the two B3
+   kernels in turns at [256, 8192] and the two B1 kernels at [74, 4096]
+   and [74, 2048], and B2 on one 1024-position tile beside an empty
+   kernel (its launch and ramp).
 3. Drives the gpt2 path: `Tokenizer.encode_batch_fast` on 512 8 KB corpus
    documents (two [256, 8192] ASCII chunks and one [32, 8192] chunk of the
    documents with multi-byte characters), cold and then on the warm word
@@ -59,6 +66,7 @@ LLAMA3 = os.path.join(FIXTURES, "llama3_128k", "tokenizer.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 TPU_KERNELS = {  # file:line of the `pallas_call` each kernel replaces
     "layout_fused": "tokenizers_tpu/ops/layout_pallas.py:176",
+    "layout_fused_wide": "tokenizers_tpu/ops/layout_pallas.py:176",
     "keys": "tokenizers_tpu/ops/merge_pallas.py:258",
     "merge_round_fused": "tokenizers_tpu/ops/merge_pallas.py:283",
     "merge_round_fused_wide": "tokenizers_tpu/ops/merge_pallas.py:283",
@@ -66,6 +74,7 @@ TPU_KERNELS = {  # file:line of the `pallas_call` each kernel replaces
 }
 SOURCES = {
     "layout_fused": "tokenizers_tpu_torch/csrc/layout.cu",
+    "layout_fused_wide": "tokenizers_tpu_torch/csrc/layout.cu",
     "keys": "tokenizers_tpu_torch/csrc/merge_round.cu",
     "merge_round_fused": "tokenizers_tpu_torch/csrc/merge_round.cu",
     "merge_round_fused_wide": "tokenizers_tpu_torch/csrc/merge_round.cu",
@@ -76,6 +85,7 @@ SOURCES = {
 STATES = ((4096, None), (2560, None), (2048, None), (2048, 37))
 # widths of the adversarial layouts: the row kernel's, then the wide one's
 ADVERSARIAL_WIDTHS = (64, 256, 1536, 2048, 2560, 4096, 5120, 8192)
+LAYOUT_WIDTHS = (256, 1024, 4096, 8192, 16384)  # B3's: row kernel to 8192, then tiled
 
 
 def _nbytes(*xs):
@@ -122,13 +132,38 @@ def b1_rounds(torch, mk, name, st, wid, rows0, rows1, seed, rounds):
     return st, err
 
 
+def adversarial_b3(torch, lk):
+    """Both B3 kernels against the plain version on the adversarial rows,
+    the kernel each width takes read from the launch counts.  Returns
+    ({kernel: max |diff|}, launches of the tiled kernel)."""
+    from tokenizers_tpu_torch.smoke_data import adversarial_layout_case
+
+    errs = {"layout_fused": 0, "layout_fused_wide": 0}
+    wide0 = lk.LAUNCHES["layout_fused_wide"]
+    for L in LAYOUT_WIDTHS:
+        buf, lens = adversarial_layout_case(L, 30, L)
+        b, n = torch.from_numpy(buf).cuda(), torch.from_numpy(lens).cuda()
+        wide = L > lk.ROW_MAX_L
+        before = lk.LAUNCHES["layout_fused_wide"]
+        got = lk.layout_fused(b, n)
+        if lk.LAUNCHES["layout_fused_wide"] - before != int(wide):
+            raise SystemExit(f"layout_fused took the wrong kernel at width {L}")
+        k = "layout_fused_wide" if wide else "layout_fused"
+        errs[k] = max(errs[k], _check_equal(torch, f"{k} adversarial [30, {L}]", got,
+                                            lk.layout_fused_plain(b, n)))
+    print(f"B3 bit-equal (tolerance 0) on the adversarial rows at [30, L], L in "
+          f"{list(LAYOUT_WIDTHS)} (row kernel to {lk.ROW_MAX_L}, tiled beyond)", flush=True)
+    return errs, lk.LAUNCHES["layout_fused_wide"] - wide0
+
+
 def adversarial_b1(torch, mk):
-    """Both B1 kernels on the adversarial layouts, three rounds each."""
+    """B2, then both B1 kernels (three rounds each), on the adversarial
+    layouts, each against its plain version."""
     from tokenizers_tpu_torch.ops.bpe_merge2 import init_own
     from tokenizers_tpu_torch.ops.merge_table import CuckooMergeTable, consume_mins
     from tokenizers_tpu_torch.smoke_data import adversarial_case
 
-    errs = {"merge_round_fused": 0, "merge_round_fused_wide": 0}
+    errs = {"keys": 0, "merge_round_fused": 0, "merge_round_fused_wide": 0}
     for C in ADVERSARIAL_WIDTHS:
         merges, n_ids, ids, wid = adversarial_case(C, 12, C)
         table = CuckooMergeTable(merges)
@@ -137,13 +172,16 @@ def adversarial_b1(torch, mk):
                         for t in (0, 1))
         ids, wid = torch.from_numpy(ids).cuda(), torch.from_numpy(wid).cuda()
         own_l, own_r = init_own(ids, mclr)
-        st = (ids, own_l, own_r) + tuple(mk.keys(ids, rows0, table.seed))
+        k_got = mk.keys(ids, rows0, table.seed)
+        errs["keys"] = max(errs["keys"], _check_equal(
+            torch, f"keys adversarial [12, {C}]", k_got, mk.keys_plain(ids, rows0, table.seed)))
+        st = (ids, own_l, own_r) + tuple(k_got)
         k = "merge_round_fused_wide" if C > mk.ROW_MAX_C else "merge_round_fused"
         _st, err = b1_rounds(torch, mk, f"{k} adversarial [12, {C}]", st, wid, rows0,
                              rows1, table.seed, 3)
         errs[k] = max(errs[k], err)
-    print(f"B1 bit-equal (tolerance 0) on the adversarial layouts at [12, C], C in "
-          f"{list(ADVERSARIAL_WIDTHS)} (row kernel to {mk.ROW_MAX_C}, wide beyond)",
+    print(f"B2 and B1 bit-equal (tolerance 0) on the adversarial layouts at [12, C], C in "
+          f"{list(ADVERSARIAL_WIDTHS)} (B1's row kernel to {mk.ROW_MAX_C}, wide beyond)",
           flush=True)
     return errs
 
@@ -257,14 +295,29 @@ def main() -> int:
 
     got = lk.layout_fused(b, n)
     want = lk.layout_fused_plain(b, n)
-    stats["layout_fused"] = {
-        "max_abs_err": _check_equal(torch, "layout_fused", got, want),
-        "ms": median_ms(lambda: lk.layout_fused(b, n), 20),
-        "plain_ms": median_ms(lambda: lk.layout_fused_plain(b, n), 2),
-        "bound_ms": _nbytes(b, n, *got) / HBM_BYTES_PER_S * 1e3,
-        "shape": list(b.shape),
-    }
-    print(f"B3 bit-equal (tolerance 0) at {list(b.shape)}", flush=True)
+    b3_errs, b3_wide_launches = adversarial_b3(torch, lk)
+    b3_errs["layout_fused"] = max(b3_errs["layout_fused"],
+                                  _check_equal(torch, "layout_fused", got, want))
+    b3_errs["layout_fused_wide"] = max(b3_errs["layout_fused_wide"], _check_equal(
+        torch, "layout_fused_wide", lk.layout_fused_wide(b, n), want))
+    # the row kernel and the tiled one on the main path's chunk, in turns
+    b3_ms = {}
+    for k in ("row", "wide", "wide", "row"):
+        fn = lk.layout_fused if k == "row" else lk.layout_fused_wide
+        b3_ms.setdefault(k, []).append(median_ms(lambda fn=fn: fn(b, n), 20))
+    b3_plain_ms = median_ms(lambda: lk.layout_fused_plain(b, n), 2)
+    b3_smem, b3_blocks = lk.row_residency(b.shape[1])
+    for k, ms in (("layout_fused", b3_ms["row"][0]), ("layout_fused_wide", b3_ms["wide"][0])):
+        stats[k] = {
+            "max_abs_err": b3_errs[k], "ms": ms, "plain_ms": b3_plain_ms,
+            "bound_ms": _nbytes(b, n, *got) / HBM_BYTES_PER_S * 1e3,
+            "shape": list(b.shape),
+        }
+    stats["layout_fused"].update(smem_bytes=b3_smem, blocks_per_sm=b3_blocks,
+                                 wide_kernel_ms_same_shape=b3_ms["wide"][0], ms_runs=b3_ms)
+    print(f"B3 bit-equal (tolerance 0) at {list(b.shape)}, both kernels; ms in turns "
+          f"(row, wide, wide, row): {json.dumps(b3_ms)}; row kernel {b3_smem} B of dynamic "
+          f"shared memory, {b3_blocks} blocks per SM", flush=True)
     bnd = got[0]
     state0 = unique_state(eng, b, n, inb, got)
     ids, own_l, own_r, wid = state0
@@ -290,7 +343,8 @@ def main() -> int:
               f"{n_alive} -> {int((st[0] >= 0).sum())} in two rounds", flush=True)
 
     wide_errs = adversarial_b1(torch, mk)
-    errs["merge_round_fused"] = max(errs["merge_round_fused"], wide_errs["merge_round_fused"])
+    for k in ("keys", "merge_round_fused"):
+        errs[k] = max(errs[k], wide_errs[k])
     # the wide B1 at the full-width branch's state: the chunk's first 8 rows
     inb8 = inb[:8]
     ids_w = torch.where(inb8, T["byte2id"][b[:8].to(torch.int64)], -1)
@@ -313,9 +367,13 @@ def main() -> int:
     # timing at the main path's unique-buffer shape [74, 4096]
     ids, own_l, own_r, wid = state0
     keys0 = mk.keys(ids, rows0, seed)
+    # the floor of a launch among back-to-back ones: an empty kernel
+    empty_ms = median_ms(lambda: torch.cuda._sleep(0), 20)
+    ids_tile = ids[:1, :1024].contiguous()  # one block: the launch and ramp
     stats["keys"] = {
         "max_abs_err": errs["keys"],
         "ms": median_ms(lambda: mk.keys(ids, rows0, seed), 20),
+        "one_tile_ms": median_ms(lambda: mk.keys(ids_tile, rows0, seed), 20),
         "plain_ms": median_ms(lambda: mk.keys_plain(ids, rows0, seed), 2),
         "bound_ms": _nbytes(ids, *keys0) / HBM_BYTES_PER_S * 1e3,
         "shape": list(ids.shape),
@@ -354,7 +412,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 3. the gpt2 path, cold then warm ---------------------------------
-    counts = {"layout_fused": lk.LAUNCHES, "keys": mk.LAUNCHES,
+    counts = {"layout_fused": lk.LAUNCHES, "layout_fused_wide": lk.LAUNCHES,
+              "keys": mk.LAUNCHES,
               "merge_round_fused": mk.LAUNCHES, "merge_round_fused_wide": mk.LAUNCHES,
               "merge_round_standalone": mk.LAUNCHES}
     runs = drive_path(torch, tok, docs, "gpt2", counts)
@@ -362,13 +421,16 @@ def main() -> int:
             if runs["cold"]["launches"][k] == 0]
     if zero:
         raise SystemExit(f"the gpt2 path never launched {zero}")
-    if runs["cold"]["launches"]["merge_round_fused_wide"] != 0:
-        raise SystemExit("the gpt2 path took the wide B1 on the smoke documents")
-    for k in ("layout_fused", "keys", "merge_round_fused", "merge_round_fused_wide"):
+    for k in ("merge_round_fused_wide", "layout_fused_wide"):
+        if runs["cold"]["launches"][k] != 0:
+            raise SystemExit(f"the gpt2 path took {k} on the smoke documents")
+    for k in ("layout_fused", "layout_fused_wide", "keys", "merge_round_fused",
+              "merge_round_fused_wide"):
         stats[k]["launches"] = runs["cold"]["launches"][k]
         stats[k]["launches_from"] = "gpt2 path, cold"
-    # the wide B1's launches in its own phase (the main path launches it 0 times)
+    # the wide kernels' launches in their own phases (the main path launches them 0 times)
     stats["merge_round_fused_wide"]["own_phase_launches"] = wide_launches
+    stats["layout_fused_wide"]["own_phase_launches"] = b3_wide_launches
     numbers = {"gpt2": path_numbers(eng, docs, prepared, runs, "gpt2")}
     print("numbers " + json.dumps(numbers["gpt2"]), flush=True)
 
@@ -469,7 +531,7 @@ def main() -> int:
     runs3 = drive_path(torch, tok3, docs, "llama3", counts)
     cold3 = runs3["cold"]["launches"]
     if (cold3["keys"] == 0 or cold3["merge_round_fused"] == 0 or cold3["layout_fused"] != 0
-            or cold3["merge_round_fused_wide"] != 0):
+            or cold3["merge_round_fused_wide"] != 0 or cold3["layout_fused_wide"] != 0):
         raise SystemExit(f"llama3 cold launches {cold3}: want B1, B2 > 0 and B3 and "
                          f"the wide B1 = 0")
     numbers["llama3"] = path_numbers(eng3, docs, prepared3, runs3, "llama3")
@@ -482,6 +544,11 @@ def main() -> int:
         "kernel_shapes": {k: s["shape"] for k, s in stats.items()},
         "b1_row_and_wide_ms": stats["merge_round_fused"]["ms_runs"],
         "b1_row_smem_bytes": stats["merge_round_fused"]["smem_bytes"],
+        "b3_row_and_wide_ms": stats["layout_fused"]["ms_runs"],
+        "b3_row_smem_bytes": stats["layout_fused"]["smem_bytes"],
+        "b3_row_blocks_per_sm": stats["layout_fused"]["blocks_per_sm"],
+        "b2_one_tile_ms": stats["keys"]["one_tile_ms"],
+        "empty_kernel_ms": empty_ms,
     }), flush=True)
 
     print(json.dumps({"kernels": [

@@ -1,9 +1,12 @@
 """Kernel B3's plain version (`tokenizers_tpu_torch.ops.layout_kernels.
 layout_fused_plain`) against the JAX package: the Pallas kernel in
 interpret mode and its lax oracles (`gpt2_boundaries` + `word_hash_heads`),
-on the texts of tests/test_layout_pallas.py, the 600-byte word included.
+on the texts of tests/test_layout_pallas.py, the 600-byte word included,
+and against the lax oracle on `smoke_data.adversarial_layout_case` rows.
 The UTF-8 branch of the port's `gpt2_boundaries` is held against JAX's on
-multi-byte text.  Bit-exact."""
+multi-byte text.  Bit-exact.  The `gpu` tests hold both CUDA kernels (the
+row kernel up to ROW_MAX_L, the tiled one beyond) against the plain
+version."""
 
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from tokenizers_tpu.ops import bpe_encode as je
 from tokenizers_tpu.ops.unicode_tables import char_class_flat
 from tokenizers_tpu_torch.ops import bpe_encode as te
 from tokenizers_tpu_torch.ops import layout_kernels as tl
+from tokenizers_tpu_torch.smoke_data import adversarial_layout_case
 
 L = 2048
 
@@ -49,7 +53,7 @@ def _pack(texts):
 
 @jax.jit
 def _lax_layout(b, lens, cls_table):
-    B = b.shape[0]
+    B, L = b.shape
     pos = jax.lax.broadcasted_iota(jnp.int32, (B, L), 1)
     inb = pos < lens[:, None]
     bnd, _ = je.gpt2_boundaries(b, inb, cls_table, ascii_only=True)
@@ -73,6 +77,19 @@ def test_layout_plain_matches_jax():
     via = tl.layout_fused(torch.from_numpy(buf), torch.from_numpy(lens))
     for g, v in zip(got, via):
         assert torch.equal(g, v)
+
+
+@pytest.mark.parametrize("width", [256, 1024])
+def test_layout_plain_matches_jax_adversarial(width):
+    """Every row kind and length case of `adversarial_layout_case`:
+    contractions and whitespace runs across thread, warp and tile edges,
+    words of 511-513 bytes and of more than half the row."""
+    buf, lens = adversarial_layout_case(width, 30, width)
+    got = tl.layout_fused_plain(torch.from_numpy(buf), torch.from_numpy(lens))
+    oracle = _lax_layout(jnp.asarray(buf), jnp.asarray(lens), jnp.zeros((1,), jnp.int8))
+    for name, g, o in zip(("bnd", "nxt", "h1", "h2"), got, oracle):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(o), err_msg=name)
+    assert got[0].sum() > width // 4 and (got[2] == 0).any() and (got[2] != 0).any()
 
 
 def test_gpt2_boundaries_utf8_matches_jax():
@@ -109,3 +126,28 @@ def test_gpu_layout_kernel_matches_plain():
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [256, 1024, 4096, 8192, 16384])
+def test_gpu_layout_adversarial(width):
+    """Both B3 kernels on the adversarial rows: the row kernel up to
+    ROW_MAX_L, the tiled one beyond (which one ran is read from LAUNCHES);
+    bytes past a row's length must not matter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    buf, lens = adversarial_layout_case(width, 30, width)
+    junk = buf.copy()
+    cols = np.arange(width)[None, :] >= lens[:, None]
+    junk[cols] = np.random.default_rng(width).integers(0, 128, int(cols.sum()))
+    n = torch.from_numpy(lens).cuda()
+    want = tl.layout_fused_plain(torch.from_numpy(buf).cuda(), n)
+    for rows in (buf, junk):
+        before = dict(tl.LAUNCHES)
+        got = tl.layout_fused(torch.from_numpy(rows).cuda(), n)
+        torch.cuda.synchronize()
+        assert tl.LAUNCHES["layout_fused"] == before["layout_fused"] + 1
+        wide = tl.LAUNCHES["layout_fused_wide"] - before["layout_fused_wide"]
+        assert wide == int(width > tl.ROW_MAX_L)
+        for name, g, w in zip(("bnd", "nxt", "h1", "h2"), got, want):
+            assert torch.equal(g, w), name

@@ -2,7 +2,7 @@
 against the JAX package: the lax `merge_round` + `hash_jnp` oracle and the
 Pallas kernels in interpret mode.  Bit-exact.  The CUDA kernels themselves
 are held against the same plain versions by the `gpu` tests on a card (B1's
-row and wide kernels on the adversarial layouts of
+row and wide kernels and B2 on the adversarial layouts of
 `smoke_data.adversarial_case` too), and by chip_smoke.py;
 `run_merge_phases` is in test_torch_merge_phases.py."""
 
@@ -244,6 +244,28 @@ def test_gpu_b1_adversarial(C):
     wide = tk.LAUNCHES["merge_round_fused_wide"] - before["merge_round_fused_wide"]
     assert tk.LAUNCHES["merge_round_fused"] - before["merge_round_fused"] == 3
     assert wide == (3 if C > tk.ROW_MAX_C else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1001, 2560, 4096])
+def test_gpu_keys_adversarial(C):
+    """B2 on the adversarial layouts (dead runs of reach - 1, reach and
+    reach + 1 across its 1024-wide tiles), at widths that are and are not
+    multiples of its tile and of 4, and at a shorter reach; a reach above
+    its 512-position halo is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rows0, _rows1, s, _mclr, ids, _wid = adversarial_tables(C + 7, 12, C)
+    rows0, ids = _t(rows0).cuda(), _t(ids).cuda()
+    for k in (9, 4):
+        before = tk.LAUNCHES["keys"]
+        got = tk.keys(ids, rows0, s, k)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["keys"] == before + 1
+        for name, a, b in zip(("h0", "h1", "nid"), got, tk.keys_plain(ids, rows0, s, k)):
+            assert torch.equal(a, b), name
+    with pytest.raises(RuntimeError):
+        tk.keys(ids, rows0, s, 10)
 
 
 @pytest.mark.gpu

@@ -15,14 +15,41 @@
 // writes 13 B (bnd as bool; nxt, h1, h2 as int32) per position: a
 // [256, 8192] chunk must move 36 MB, 10.6 us.  It is bound by bytes.
 //
-// First design: one block of 1024 threads per row, walking the row in
-// 1024-wide tiles: a forward pass computes boundaries (each thread reads
-// the few neighbor bytes it needs) and scans both hashes as one affine
-// scan; a reverse pass scans next-boundary and next-word-end positions;
-// a last pass delivers the hashes.  The raw hashes and word-end positions
-// go through a global scratch buffer, so it moves about twice its bound
-// in bytes; the eight sequential tiles per row, each with block-wide
-// barriers, keep it well above that in time (PERF.md has the numbers).
+// Two kernels, chosen by row width in the wrapper:
+//
+// tt_layout_row (rows of up to LROW_MAX_L = 8192 positions, the whole main
+// path) keeps the row on the SM.  The bytes are read once with int4 loads
+// and kept in shared memory as uint8; thread t owns LROW_K = 16 contiguous
+// positions.  From a 24-byte window of shared memory held in registers it
+// computes the byte classes four bytes at a time as bit masks, the
+// contractions only at apostrophes, and the boundary rule for all its
+// positions at once in bitwise operations on those masks.  One fused scan
+// round (scan.cuh's row_scan_exclusive, one __syncthreads) carries forward
+// the two hashes as affine maps and in reverse the next boundary and the
+// nearest word end together with the maps from a position up to that end,
+// so each word's hash reaches every position of the word through the scan
+// itself: no raw-hash or word-end plane exists, in global or shared memory.
+// The only per-position scratch is thread-private: the local hash at each
+// of the thread's own word ends (striped in shared memory, so a thread's
+// reads at run-time indices stay conflict-free).  Outputs are stored as
+// int4 (bnd as one 16-byte store a thread).  512 threads at L = 8192 with
+// __launch_bounds__(512, 2), so two rows share an SM and 256 rows take one
+// wave of 132 SMs; dynamic shared memory lrow_smem_bytes(L) = 73,744 B at
+// L = 8192.  Measured on an H100 at [256, 8192]: about 0.027 ms against
+// 0.103 for the tiled kernel, 2.6x the bound.  What holds it is one SM's
+// work on two rows: the blocks start together, the second on an SM
+// finishes about 9 us after the first, and the store phase alone runs at
+// the card's write rate (phase stamps: tools/b3_phases.py, built with
+// -DTT_LAYOUT_PHASES).
+//
+// layout_wide_kernel (wider rows; PR 1's design): one block of 1024
+// threads per row walks the row in 1024-wide tiles: a forward pass computes
+// boundaries and scans both hashes as one affine scan; a reverse pass scans
+// next-boundary and next-word-end positions; a last pass delivers the
+// hashes.  The raw hashes and word-end positions go through a global
+// scratch buffer, so it moves about twice its bound in bytes; the
+// sequential tiles per row, each with block-wide barriers, keep it well
+// above that in time (PERF.md has the numbers).
 #include "scan.cuh"
 
 enum { CLS_O = 0, CLS_L = 1, CLS_N = 2, CLS_SP = 3, CLS_WS = 4, CLS_END = 5 };
@@ -88,7 +115,7 @@ struct Row {
 };
 
 __global__ void __launch_bounds__(NT)
-layout_kernel(const int* bytes, const int* lengths, unsigned char* bnd_o, int* nxt_o,
+layout_wide_kernel(const int* bytes, const int* lengths, unsigned char* bnd_o, int* nxt_o,
               int* h1_o, int* h2_o, int* scratch, int B, int L) {
   __shared__ int wti[32];
   __shared__ Aff2 wta[32];
@@ -156,12 +183,362 @@ layout_kernel(const int* bytes, const int* lengths, unsigned char* bnd_o, int* n
   }
 }
 
-extern "C" int tt_n_scratch_layout() { return 3; }
+// ---- B3 for rows of up to LROW_MAX_L positions: the row stays on the SM --
 
-extern "C" int tt_layout(void* bytes, void* lengths, void* bnd, void* nxt,
-                         void* h1, void* h2, void* scratch, int B, int L,
-                         void* stream) {
-  layout_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
+#define LROW_K 16         // positions a thread owns
+#define LROW_MAX_L 8192
+#define LROW_THREADS (LROW_MAX_L / LROW_K)
+#define LROW_FRONT 4      // zero bytes before the row in shared memory
+#define LROW_BACK 12      // and after it
+
+#ifdef TT_LAYOUT_PHASES
+// Phase-timing build (tools/b3_phases.py): thread 0 of each of the first
+// LROW_TIMED blocks stamps the SM clock at the start, after the load's
+// barrier, before and after the scan's, and at the end, and the global
+// timer at the start and the end.
+#define LROW_TIMED 256
+#define LROW_STAMPS 5
+// per block: the SM clock at each stamp, then the global timer (ns) at the
+// first and the last
+__device__ long long tt_layout_stamps[LROW_TIMED * (LROW_STAMPS + 2)];
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define LROW_STAMP(n)                                                             \
+  do {                                                                            \
+    if (threadIdx.x == 0 && blockIdx.x < LROW_TIMED) {                            \
+      long long* st = tt_layout_stamps + blockIdx.x * (LROW_STAMPS + 2);          \
+      st[n] = clock64();                                                          \
+      if ((n) == 0 || (n) == LROW_STAMPS - 1)                                     \
+        st[LROW_STAMPS + ((n) != 0)] = global_ns();                               \
+    }                                                                             \
+  } while (0)
+extern "C" int tt_layout_stamps_read(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, tt_layout_stamps, sizeof(tt_layout_stamps));
+}
+#else
+#define LROW_STAMP(n) \
+  do {                \
+  } while (0)
+#endif
+
+__host__ __device__ __forceinline__ int lrow_threads(int L) {
+  return ((L + LROW_K - 1) / LROW_K + 31) / 32 * 32;
+}
+
+// the striped local hashes (two uint32 per owned position), then the bytes
+__host__ __device__ __forceinline__ size_t lrow_smem_bytes(int L, int nth) {
+  return 2 * sizeof(unsigned) * (size_t)nth * LROW_K + LROW_FRONT + (size_t)L +
+         LROW_BACK;
+}
+
+__host__ __device__ constexpr unsigned mpow(unsigned m, int k) {  // m^k mod 2^32
+  unsigned r = 1u;
+  for (; k; k >>= 1, m *= m)
+    if (k & 1) r *= m;
+  return r;
+}
+
+// Bytes four at a time: a flag is 0x80 in its byte.  x: bytes of 0..127.
+__device__ __forceinline__ unsigned rep4(unsigned v) { return v * 0x01010101u; }
+__device__ __forceinline__ unsigned ge4(unsigned x, unsigned lo) {  // byte >= lo
+  return (x + rep4(0x80u - lo)) & 0x80808080u;
+}
+__device__ __forceinline__ unsigned gt4(unsigned x, unsigned hi) {  // byte > hi
+  return (x + rep4(0x7fu - hi)) & 0x80808080u;
+}
+__device__ __forceinline__ unsigned eq4(unsigned w, unsigned v) {  // byte == v
+  const unsigned t = w ^ rep4(v);
+  return ~(((t & 0x7f7f7f7fu) + 0x7f7f7f7fu) | t) & 0x80808080u;
+}
+__device__ __forceinline__ unsigned nib4(unsigned f) {  // four flags to four bits
+  return (f * 0x00204081u) >> 28;
+}
+
+struct HashMaps {  // both rolling hashes as affine maps x -> a * x + c
+  unsigned a1, c1, a2, c2;
+  __device__ static HashMaps id() { return {1u, 0u, 1u, 0u}; }
+  __device__ static HashMaps op(HashMaps p, HashMaps q) {  // p, then q
+    return {p.a1 * q.a1, p.c1 * q.a1 + q.c1, p.a2 * q.a2, p.c2 * q.a2 + q.c2};
+  }
+  template <class G>
+  __device__ HashMaps xfer(G g) const {
+    return {(unsigned)g((int)a1), (unsigned)g((int)c1), (unsigned)g((int)a2),
+            (unsigned)g((int)c2)};
+  }
+};
+
+struct NextEnd {  // reverse scan: first boundary, first word end, and the
+  int nb;         // hash maps from the span's first position up to that end
+  int end;        // (over the whole span if it holds no end)
+  HashMaps f;
+  __device__ static NextEnd id() { return {BIG_POS, BIG_POS, HashMaps::id()}; }
+  __device__ static NextEnd op(NextEnd a, NextEnd b) {  // a: the later span
+    const bool closed = b.end != BIG_POS;
+    return {a.nb < b.nb ? a.nb : b.nb, closed ? b.end : a.end,
+            closed ? b.f : HashMaps::op(b.f, a.f)};
+  }
+  template <class G>
+  __device__ NextEnd xfer(G g) const {
+    return {g(nb), g(end), f.xfer(g)};
+  }
+};
+
+// vec: the byte rows and the int32 outputs are 16-byte aligned
+__global__ void __launch_bounds__(LROW_THREADS, 2)
+layout_row_kernel(const int* __restrict__ bytes, const int* __restrict__ lengths,
+                  unsigned char* bnd_o, int* nxt_o, int* h1_o, int* h2_o, int L,
+                  int vec) {
+  extern __shared__ __align__(16) unsigned lsmem[];
+  const int nth = blockDim.x;
+  unsigned* s_c1 = lsmem;                // striped: local h1 at own word ends
+  unsigned* s_c2 = s_c1 + nth * LROW_K;  // and h2
+  unsigned* s_bw = s_c2 + nth * LROW_K;  // bytes from position -LROW_FRONT, 4 a word
+  __shared__ HashMaps w_f[32];
+  __shared__ NextEnd w_b[32];
+  const int t = threadIdx.x;
+  const size_t off = (size_t)blockIdx.x * L;
+  const int len = max(0, min(lengths[blockIdx.x], L));
+  const int i0 = t * LROW_K;
+
+  // ---- load the row's bytes, 0 outside [0, len) -------------------------
+  // L / 4 int4 for nth >= L / LROW_K threads: at most LROW_K / 4 a thread,
+  // all issued before the first is used
+  LROW_STAMP(0);
+  int4 x[LROW_K / 4];
+#pragma unroll
+  for (int j = 0; j < LROW_K / 4; ++j) {
+    const int v = t + j * nth;
+    if (v >= L / 4) continue;
+    if (vec) {
+      x[j] = __ldg(reinterpret_cast<const int4*>(bytes + off) + v);
+    } else {
+      const int* g = bytes + off + 4 * v;
+      x[j] = make_int4(__ldg(g), __ldg(g + 1), __ldg(g + 2), __ldg(g + 3));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < LROW_K / 4; ++j) {
+    const int v = t + j * nth;
+    if (v >= L / 4) continue;
+    const int p = 4 * v;
+    s_bw[LROW_FRONT / 4 + v] = (p < len ? (unsigned)x[j].x & 0xffu : 0u) |
+                               (p + 1 < len ? ((unsigned)x[j].y & 0xffu) << 8 : 0u) |
+                               (p + 2 < len ? ((unsigned)x[j].z & 0xffu) << 16 : 0u) |
+                               (p + 3 < len ? ((unsigned)x[j].w & 0xffu) << 24 : 0u);
+  }
+  if (t < (LROW_FRONT + LROW_BACK) / 4)  // the zero pads
+    s_bw[t < LROW_FRONT / 4 ? t : L / 4 + t] = 0u;
+  __syncthreads();
+  LROW_STAMP(1);
+
+  // ---- own positions: boundaries, word ends, local hashes ----------------
+  // bit k of bmask: bnd at i0 + k (k <= 16); of emask: word end at i0 + k
+  unsigned bmask = 0, emask = 0;
+  unsigned x1 = 0, x2 = 0;          // local hashes: the maps from i0 applied to 0
+  int e0 = -1;                      // first own word end
+  unsigned fc1 = 0, fc2 = 0;        // local hashes there
+  unsigned fa1 = 0, fa2 = 0;        // the maps' factors from i0 to e0
+  HashMaps fwd = HashMaps::id();
+  NextEnd rev = NextEnd::id();
+  if (i0 < L) {
+    // the window: bytes at i0 - 4 .. i0 + 19, bit q of a mask for i0 - 4 + q
+    const uint4 u = *reinterpret_cast<const uint4*>(s_bw + i0 / 4);
+    const uint2 u2 = *reinterpret_cast<const uint2*>(s_bw + i0 / 4 + 4);
+    const unsigned wv[6] = {u.x, u.y, u.z, u.w, u2.x, u2.y};
+    unsigned m_l = 0, m_n = 0, m_sp = 0, m_ws = 0, m_apo = 0;  // ascii_cls, and '
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const unsigned w = wv[j], x = w & 0x7f7f7f7fu, ascii = ~w & 0x80808080u;
+      const unsigned y = x | 0x20202020u;
+      m_l |= nib4(ge4(y, 'a') & ~gt4(y, 'z') & ascii) << (4 * j);
+      m_n |= nib4(ge4(x, '0') & ~gt4(x, '9') & ascii) << (4 * j);
+      m_ws |= nib4(ge4(x, 9) & ~gt4(x, 13) & ascii) << (4 * j);
+      m_sp |= nib4(eq4(w, ' ')) << (4 * j);
+      m_apo |= nib4(eq4(w, '\'')) << (4 * j);
+    }
+    // contractions starting at q = 1 .. 19 (Row::contr), visited only at
+    // apostrophes after L, N, WS or at position 0: c3 're 've 'll, c2 's 't 'm 'd
+    const unsigned char* s_b8 = reinterpret_cast<const unsigned char*>(s_bw);
+    const unsigned at0 = i0 == 0 ? 1u << 4 : 0u;
+    unsigned c2 = 0, c3 = 0;
+    for (unsigned am = m_apo & 0x000ffffeu & (((m_l | m_n | m_ws) << 1) | at0); am;
+         am &= am - 1) {
+      const int q = __ffs(am) - 1;
+      const unsigned b1 = s_b8[i0 + q + 1], b2 = s_b8[i0 + q + 2];
+      const bool is3 = (b2 == 'e' && (b1 == 'r' || b1 == 'v')) || (b1 == 'l' && b2 == 'l');
+      const bool is2 = b1 == 's' || b1 == 't' || b1 == 'm' || b1 == 'd';
+      c3 |= is3 ? 1u << q : 0u;
+      c2 |= (!is3 && is2) ? 1u << q : 0u;
+    }
+    // Row::bnd, all positions at once
+    const int lr = len - i0;
+    const unsigned inlen = lr + 4 >= 32 ? ~0u : (lr + 4 <= 0 ? 0u : (1u << (lr + 4)) - 1u);
+    const unsigned interior = ((c2 | c3) << 1) | (c3 << 2);
+    const unsigned contr_end = (c2 << 2) | (c3 << 3);
+    const unsigned m_w = m_sp | m_ws;
+    const unsigned n_nonws = (inlen >> 1) & ~(m_w >> 1);
+    const unsigned b_nonws = (m_ws << 1) | ((m_l << 1) & ~m_l) | ((m_n << 1) & ~m_n) |
+                             (~((m_w | m_l | m_n) << 1) & (m_l | m_n));
+    const unsigned b_ws = ~(m_w << 1) | n_nonws;
+    const unsigned out = (m_w & b_ws) | (~m_w & b_nonws) | at0 | contr_end;
+    bmask = ((out & ~interior & inlen) >> 4) & 0x1ffffu;
+    // a word ends where the next position is a boundary or past the text
+    emask = ((bmask >> 1) | (lr >= 1 && lr <= LROW_K ? 1u << (lr - 1) : 0u)) & 0xffffu;
+#pragma unroll
+    for (int k = 0; k < LROW_K; ++k) {  // the hash steps
+      const bool bd = (bmask >> k) & 1u;
+      const unsigned cb = ((wv[1 + k / 4] >> (8 * (k & 3))) & 0xffu) + 1u;
+      x1 = bd ? cb : x1 * H1_MULT + cb;
+      x2 = bd ? cb : x2 * H2_MULT + cb;
+      if ((emask >> k) & 1u) {
+        s_c1[k * nth + t] = x1;
+        s_c2[k * nth + t] = x2;
+      }
+    }
+    // the maps from i0 to the first end: a = M^(e0 + 1) if no boundary came first
+    e0 = emask ? __ffs(emask) - 1 : -1;
+    if (e0 >= 0) {
+      fc1 = s_c1[e0 * nth + t];
+      fc2 = s_c2[e0 * nth + t];
+      if (!(bmask & ((2u << e0) - 1u))) {
+        fa1 = mpow(H1_MULT, e0 + 1);
+        fa2 = mpow(H2_MULT, e0 + 1);
+      }
+    }
+    const bool seen = bmask & 0xffffu;  // a boundary among the own positions
+    fwd = {seen ? 0u : mpow(H1_MULT, LROW_K), x1, seen ? 0u : mpow(H2_MULT, LROW_K), x2};
+    const unsigned b16 = bmask & 0xffffu;
+    rev.nb = b16 ? i0 + __ffs(b16) - 1 : BIG_POS;
+    if (e0 >= 0) {
+      rev.end = i0 + e0;
+      rev.f = {fa1, fc1, fa2, fc2};
+    } else {
+      rev.f = fwd;
+    }
+  }
+
+  // ---- one fused scan round: fwd becomes the maps of the row before i0,
+  //      rev the first boundary and word end after i0 + LROW_K - 1 --------
+  LROW_STAMP(2);
+  row_scan_exclusive(fwd, rev, w_f, w_b);
+  LROW_STAMP(3);
+
+  // the hashes at i0 - 1 (fwd applied to 0), and from them the true hash at
+  // this thread's first end (the one end whose word may start before i0),
+  // at its last position, and at the first end after it
+  const unsigned in1 = fwd.c1, in2 = fwd.c2;
+  if (i0 < L && e0 >= 0) {
+    s_c1[e0 * nth + t] = fa1 * in1 + fc1;
+    s_c2[e0 * nth + t] = fa2 * in2 + fc2;
+  }
+  const bool seen = bmask & 0xffffu;
+  const unsigned last1 = (seen ? 0u : mpow(H1_MULT, LROW_K)) * in1 + x1;
+  const unsigned last2 = (seen ? 0u : mpow(H2_MULT, LROW_K)) * in2 + x2;
+  const int tail_end = rev.end;
+  const unsigned tail1 = rev.f.a1 * last1 + rev.f.c1;
+  const unsigned tail2 = rev.f.a2 * last2 + rev.f.c2;
+  const unsigned b16 = bmask & 0xffffu;
+
+  // ---- outputs: a reverse walk carrying the next boundary and the nearest
+  //      word end with its hashes; four positions to a store ---------------
+  if (i0 < L) {
+    int nb = rev.nb, ep = tail_end;
+    unsigned v1 = tail1, v2 = tail2;
+#pragma unroll
+    for (int g = LROW_K / 4 - 1; g >= 0; --g) {
+      int on[4], o1[4], o2[4];
+#pragma unroll
+      for (int kk = 3; kk >= 0; --kk) {
+        const int k = 4 * g + kk;
+        const int i = i0 + k;
+        on[kk] = nb;
+        nb = (b16 >> k) & 1u ? i : nb;
+        const bool end = (emask >> k) & 1u;
+        const unsigned e1 = s_c1[k * nth + t], e2 = s_c2[k * nth + t];
+        ep = end ? i : ep;
+        v1 = end ? e1 : v1;
+        v2 = end ? e2 : v2;
+        const bool ok = ep - i <= HASH_REACH;  // ep >= i; BIG_POS is never ok
+        o1[kk] = ok ? (int)v1 : 0;
+        o2[kk] = ok ? (int)v2 : 0;
+      }
+      if (vec) {
+        *reinterpret_cast<int4*>(nxt_o + off + i0 + 4 * g) = make_int4(on[0], on[1], on[2], on[3]);
+        *reinterpret_cast<int4*>(h1_o + off + i0 + 4 * g) = make_int4(o1[0], o1[1], o1[2], o1[3]);
+        *reinterpret_cast<int4*>(h2_o + off + i0 + 4 * g) = make_int4(o2[0], o2[1], o2[2], o2[3]);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          nxt_o[off + i0 + 4 * g + kk] = on[kk];
+          h1_o[off + i0 + 4 * g + kk] = o1[kk];
+          h2_o[off + i0 + 4 * g + kk] = o2[kk];
+        }
+      }
+    }
+    // bnd: four bits to four bytes by one multiply
+    uint4 bb;
+    bb.x = ((b16 & 0xfu) * 0x204081u) & 0x01010101u;
+    bb.y = (((b16 >> 4) & 0xfu) * 0x204081u) & 0x01010101u;
+    bb.z = (((b16 >> 8) & 0xfu) * 0x204081u) & 0x01010101u;
+    bb.w = (((b16 >> 12) & 0xfu) * 0x204081u) & 0x01010101u;
+    if (vec) {
+      *reinterpret_cast<uint4*>(bnd_o + off + i0) = bb;
+    } else {
+#pragma unroll
+      for (int k = 0; k < LROW_K; ++k) bnd_o[off + i0 + k] = (b16 >> k) & 1u;
+    }
+  }
+#ifdef TT_LAYOUT_PHASES
+  __syncthreads();
+  LROW_STAMP(4);
+#endif
+}
+
+extern "C" int tt_n_scratch_layout_wide() { return 3; }
+
+extern "C" int tt_layout_row_max_l() { return LROW_MAX_L; }
+
+extern "C" long long tt_layout_row_smem(int L) {
+  return (long long)lrow_smem_bytes(L, lrow_threads(L));
+}
+
+// Allow the row kernel its dynamic shared memory at LROW_MAX_L on the
+// current device; needed once per device before the first launch.
+extern "C" int tt_layout_row_init() {
+  return (int)cudaFuncSetAttribute(
+      layout_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)lrow_smem_bytes(LROW_MAX_L, LROW_THREADS));
+}
+
+// Blocks of the row kernel resident on one SM at width L (0 on error).
+extern "C" int tt_layout_row_blocks_per_sm(int L) {
+  int n = 0;
+  const int nth = lrow_threads(L);
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layout_row_kernel, nth,
+                                                    lrow_smem_bytes(L, nth)) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// vec: bytes, nxt, h1, h2 16-byte aligned (with L % 16 == 0, every row is)
+extern "C" int tt_layout_row(void* bytes, void* lengths, void* bnd, void* nxt,
+                             void* h1, void* h2, int B, int L, int vec,
+                             void* stream) {
+  if (L < 1 || L > LROW_MAX_L || L % LROW_K) return (int)cudaErrorInvalidValue;
+  const int nth = lrow_threads(L);
+  layout_row_kernel<<<B, nth, lrow_smem_bytes(L, nth), (cudaStream_t)stream>>>(
+      (const int*)bytes, (const int*)lengths, (unsigned char*)bnd, (int*)nxt,
+      (int*)h1, (int*)h2, L, vec);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tt_layout_wide(void* bytes, void* lengths, void* bnd, void* nxt,
+                              void* h1, void* h2, void* scratch, int B, int L,
+                              void* stream) {
+  layout_wide_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
       (const int*)bytes, (const int*)lengths, (unsigned char*)bnd, (int*)nxt, (int*)h1,
       (int*)h2, (int*)scratch, B, L);
   return (int)cudaGetLastError();

@@ -28,14 +28,17 @@
 // writes ids, own_l, own_r and f, 29 B per position, plus the table rows as
 // B1.  All are bound by bytes.  The table-row reads mostly hit L1 and L2.
 //
-// The wide B1 (and B4, B2): one block of 1024 threads per row (words never
+// The wide B1 (and B4): one block of 1024 threads per row (words never
 // cross rows, so rows are independent) walks the row in 1024-wide tiles,
 // a dozen passes, every intermediate in 17 global scratch planes the
 // wrapper allocates.  Each scan of a tile is a block_scan with three
 // __syncthreads; at C = 4096 the wide B1 runs 36 of them one after another
 // (9 per tile).  Measured on an H100, the merge kernels take about 1.3 us
-// per such scan (B1 48.9 us for 36, B4 41.6 for 32, B2 5.9 for 4), ten
-// times B1's 4.9 us bound: barriers, not bytes, set its time.
+// per such scan (B1 48.9 us for 36, B4 41.6 for 32), ten times B1's 4.9 us
+// bound: barriers, not bytes, set its time.
+//
+// B2 (keys_kernel, below) reads only a bounded window: tiles of 1024
+// positions and the 512 after them, no scan and no scratch.
 //
 // The row B1 (tt_merge_round_row, below) keeps the row on the SM: thread t
 // owns ROW_K = 4 contiguous positions in registers, what neighbors read
@@ -145,13 +148,113 @@ __device__ void emit_keys(const int* ids, int* first_ge, int* h0, int* h1,
   }
 }
 
-__global__ void __launch_bounds__(NT)
-keys_kernel(const int* ids, int* h0, int* h1, int* nid, int* scratch, int C,
-            int reach, unsigned seed, unsigned mask) {
-  __shared__ int wt[32];
-  const size_t off = (size_t)blockIdx.x * C;
-  emit_keys(ids + off, scratch + off, h0 + off, h1 + off, nid + off, C, reach,
-            seed, mask, wt);
+// ---- B2: the keys in bounded windows -------------------------------------
+//
+// nid[i] is the id at the first alive position in (i, i + reach], so a
+// block needs only its tile of KEYS_P positions and the KEYS_HALO after it:
+// no scan.  It loads them into shared memory (int4, KEYS_K positions a
+// thread), builds an alive bitmap (each thread's KEYS_K bits, eight lanes
+// to a 32-bit word by three shuffles), and after one __syncthreads finds
+// the next alive after each thread's run with __ffs over at most
+// reach / 32 + 1 words.
+// 256 threads a block: at [74, 4096] 296 blocks, all resident at once on
+// 132 SMs.  A reach above KEYS_HALO is refused (cudaErrorInvalidValue).
+// Measured on an H100 at [74, 4096]: about 0.0038 ms against 0.0059 for
+// the row scan it replaced, 2.6x its bound; an empty kernel among
+// back-to-back launches takes about 0.0018 ms of that.
+
+#define KEYS_P 1024
+#define KEYS_HALO 512  // the widest reach the kernel takes (2^FILL_K)
+#define KEYS_K 4
+#define KEYS_THREADS (KEYS_P / KEYS_K)
+#define KEYS_W (KEYS_P + KEYS_HALO)
+
+// vec: C % 4 == 0 and ids, h0, h1, nid 16-byte aligned
+__global__ void __launch_bounds__(KEYS_THREADS)
+keys_kernel(const int* __restrict__ ids, int* h0, int* h1, int* nid, int C,
+            int tiles, int reach, unsigned seed, unsigned mask, int vec) {
+  __shared__ __align__(16) int s_ids[KEYS_W];
+  __shared__ unsigned s_bits[KEYS_W / 32];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const size_t off = (size_t)(blockIdx.x / tiles) * C;
+  const int c0 = (blockIdx.x % tiles) * KEYS_P;
+
+  // ---- the tile and its halo, dead (-1) past the row's end: both loads
+  //      issued before either is used --------------------------------------
+  int4 x[KEYS_W / KEYS_P + 1];
+#pragma unroll
+  for (int q = 0; q * KEYS_P < KEYS_W; ++q) {
+    const int l0 = KEYS_K * t + q * KEYS_P;
+    if (l0 >= KEYS_W) break;  // the halo: the first KEYS_HALO / KEYS_K threads
+    const int i = c0 + l0;
+    if (vec && i < C) {  // C % 4 == 0: the whole int4 is in the row
+      x[q] = __ldg(reinterpret_cast<const int4*>(ids + off + i));
+    } else {
+      x[q].x = i < C ? __ldg(ids + off + i) : -1;
+      x[q].y = i + 1 < C ? __ldg(ids + off + i + 1) : -1;
+      x[q].z = i + 2 < C ? __ldg(ids + off + i + 2) : -1;
+      x[q].w = i + 3 < C ? __ldg(ids + off + i + 3) : -1;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q * KEYS_P < KEYS_W; ++q) {
+    const int l0 = KEYS_K * t + q * KEYS_P;
+    if (l0 >= KEYS_W) break;  // whole warps: KEYS_HALO / KEYS_K % 32 == 0
+    *reinterpret_cast<int4*>(s_ids + l0) = x[q];
+    unsigned w = ((x[q].x >= 0 ? 1u : 0u) | (x[q].y >= 0 ? 2u : 0u) |
+                  (x[q].z >= 0 ? 4u : 0u) | (x[q].w >= 0 ? 8u : 0u))
+                 << (KEYS_K * (lane & 7));
+    w |= __shfl_xor_sync(FULL_MASK, w, 1);
+    w |= __shfl_xor_sync(FULL_MASK, w, 2);
+    w |= __shfl_xor_sync(FULL_MASK, w, 4);
+    if ((lane & 7) == 0) s_bits[l0 / 32] = w;
+  }
+  __syncthreads();
+
+  // ---- each position's next alive id within reach; the slot hashes ------
+  const int l0 = KEYS_K * t;
+  const int4 a4 = *reinterpret_cast<const int4*>(s_ids + l0);
+  const int a[KEYS_K] = {a4.x, a4.y, a4.z, a4.w};
+  // the first alive after the thread's run, within the reach of its last
+  // position; each position takes the next alive of its own run or that
+  // one, if within its reach
+  int j;
+  {
+    const int s0 = l0 + KEYS_K, s1 = l0 + KEYS_K - 1 + reach;  // search [s0, s1]
+    int w = s0 >> 5;
+    unsigned bits = s_bits[w] & (FULL_MASK << (s0 & 31));
+    while (!bits && (w + 1) * 32 <= s1) bits = s_bits[++w];
+    j = bits ? w * 32 + __ffs(bits) - 1 : BIG_POS;
+    j = j <= s1 ? j : BIG_POS;
+  }
+  int n[KEYS_K];
+#pragma unroll
+  for (int k = KEYS_K - 1; k >= 0; --k) {
+    n[k] = j - (l0 + k) <= reach ? s_ids[j] : 0;
+    if (a[k] >= 0) j = l0 + k;
+  }
+  const int i = c0 + l0;
+  if (i >= C) return;
+  int r0[KEYS_K], r1[KEYS_K];
+#pragma unroll
+  for (int k = 0; k < KEYS_K; ++k) {
+    r0[k] = pair_hash(a[k], n[k], seed, mask, 0);
+    r1[k] = pair_hash(a[k], n[k], seed, mask, 1);
+  }
+  if (vec) {
+    *reinterpret_cast<int4*>(nid + off + i) = make_int4(n[0], n[1], n[2], n[3]);
+    *reinterpret_cast<int4*>(h0 + off + i) = make_int4(r0[0], r0[1], r0[2], r0[3]);
+    *reinterpret_cast<int4*>(h1 + off + i) = make_int4(r1[0], r1[1], r1[2], r1[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < KEYS_K; ++k) {
+      if (i + k >= C) break;
+      nid[off + i + k] = n[k];
+      h0[off + i + k] = r0[k];
+      h1[off + i + k] = r1[k];
+    }
+  }
 }
 
 // One safe-set merge round over one row (row pointers; S: the scratch
@@ -823,12 +926,15 @@ extern "C" int tt_merge_round_row_init() {
       (int)row_smem_bytes(ROW_MAX_C, ROW_THREADS));
 }
 
-extern "C" int tt_keys(void* ids, void* h0, void* h1, void* nid,
-                       void* scratch, int R, int C, int reach, unsigned seed,
-                       unsigned mask, void* stream) {
-  keys_kernel<<<R, NT, 0, (cudaStream_t)stream>>>(
-      (const int*)ids, (int*)h0, (int*)h1, (int*)nid, (int*)scratch, C, reach,
-      seed, mask);
+// vec: C % 4 == 0 and ids, h0, h1, nid 16-byte aligned
+extern "C" int tt_keys(void* ids, void* h0, void* h1, void* nid, int R, int C,
+                       int reach, unsigned seed, unsigned mask, int vec,
+                       void* stream) {
+  if (reach < 1 || reach > KEYS_HALO || C < 1) return (int)cudaErrorInvalidValue;
+  const int tiles = (C + KEYS_P - 1) / KEYS_P;
+  keys_kernel<<<R * tiles, KEYS_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)ids, (int*)h0, (int*)h1, (int*)nid, C, tiles, reach, seed,
+      mask, vec);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 plain versions; port of `tokenizers_tpu.ops.merge_pallas`.
 
 * `keys` (B2, replaces `keys_pallas`): each position's next alive id
-  within 2^k_steps, and both cuckoo slot hashes of (id, next id).
+  within 2^k_steps, and both cuckoo slot hashes of (id, next id).  The
+  kernel reads tiles of 1024 positions and the 512 after them, so it takes
+  k_steps <= 9 (every caller passes FILL_K = 9) and raises beyond.
 * `merge_round_fused` (B1, replaces `merge_round_fused`): one safe-set
   merge round from the carried keys, merge-table row reads included, then
   the next round's keys.  Returns (ids, own_l, own_r, f, h0, h1, nid).
@@ -47,7 +49,7 @@ def load(defines=()):
     (() is the shipped build)."""
     lib = library(_SRC, tuple(defines))
     if not getattr(lib, "_tt_typed", False):
-        lib.tt_keys.argtypes = [_P] * 5 + [_I, _I, _I, _U, _U, _P]
+        lib.tt_keys.argtypes = [_P] * 4 + [_I, _I, _I, _U, _U, _I, _P]
         lib.tt_keys.restype = _I
         lib.tt_merge_round.argtypes = [_P] * 17 + [_I, _I, _I, _U, _U, _P]
         lib.tt_merge_round.restype = _I
@@ -106,14 +108,13 @@ def keys(ids, rows0, seed, k_steps=FILL_K):
     h0, h1, nid = (torch.empty_like(ids) for _ in range(3))
     if ids.numel() == 0:
         return h0, h1, nid
-    scratch = torch.empty_like(ids)
+    vec = C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (ids, h0, h1, nid))
     lib = load()
-    LAUNCHES["keys"] += 1
     check_status("keys", lib.tt_keys(
-        ids.data_ptr(), h0.data_ptr(), h1.data_ptr(), nid.data_ptr(),
-        scratch.data_ptr(), R, C, 1 << k_steps, int(seed) & 0xFFFFFFFF, mask,
-        _stream(ids),
+        ids.data_ptr(), h0.data_ptr(), h1.data_ptr(), nid.data_ptr(), R, C,
+        1 << k_steps, int(seed) & 0xFFFFFFFF, mask, int(vec), _stream(ids),
     ))
+    LAUNCHES["keys"] += 1  # after the check: a refused reach launches nothing
     return h0, h1, nid
 
 

@@ -18,7 +18,8 @@ added) on `tests/fixtures/gpt2/tokenizer.json` and
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
 `tools/b1_phases.py` hold and time B1.  `adversarial_case` builds the
 edge-case merge layouts on which `chip_smoke.py` and the tests hold the
-merge kernels against their plain versions.
+merge kernels against their plain versions; `adversarial_layout_case` the
+edge-case byte rows for the layout kernel.
 """
 
 from __future__ import annotations
@@ -208,3 +209,93 @@ def adversarial_case(seed: int, R: int, C: int, reach: int = 512):
         if r % 2:
             wid[r] = np.where(wid[r] >= 0, wid[r] + int(rng.integers(1 << 20)), -1)
     return merges, n_ids, ids, wid
+
+
+CONTRACTIONS = (b"'s", b"'t", b"'re", b"'ve", b"'m", b"'ll", b"'d",
+                b"'S", b"'T", b"'RE", b"'VE", b"'M", b"'LL", b"'D")
+WHITESPACE = np.frombuffer(b" \t\r\n\x0b\x0c", np.uint8)
+LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ", np.uint8)
+DENSE = np.frombuffer(b"'''''     0123456789abcdefxyzRSTVLMD.,\n\t", np.uint8)
+
+
+def adversarial_layout_case(seed: int, B: int, L: int, k: int = 16, reach: int = 512):
+    """ASCII rows for the layout kernel (`csrc/layout.cu`), built to hit the
+    edges of a kernel whose threads own k contiguous positions, 32 * k to a
+    warp, the tiled kernel's 1024-wide tiles, and the 2^9 reach of the hash
+    delivery.  Row r holds text of kind r % 6:
+
+    0. contractions ('s 't 're 've 'm 'll 'd and their upper-case
+       look-alikes, after letters, digits, whitespace or punctuation) whose
+       apostrophe falls 3 before to 1 after multiples of k, 32 * k and 1024;
+    1. whitespace runs (spaces and \\t \\r \\n \\v \\f) ending just before, on
+       and after those edges, each followed by a word or by more whitespace;
+    2. words of reach - 1, reach, reach + 1 and more than L / 2 letters
+       (those that fit), between short words and contractions;
+    3. every whitespace byte, with words, digits and contractions;
+    4. random printable ASCII dense in apostrophes, spaces and digits, the
+       row's last byte an apostrophe;
+    5. random printable ASCII;
+
+    and is cut to the length of case r % 5: 0, 1, L - 1, L, random.  Bytes
+    past a row's length are 0.  Returns (bytes int32[B, L], lengths
+    int32[B]), numpy."""
+    rng = np.random.default_rng(seed)
+    before = b"aZ9 \t\n.-'"
+
+    def word(n):
+        return bytes(rng.choice(LETTERS, size=n))
+
+    def blanks(n):
+        return bytes(rng.choice(WHITESPACE, size=n))
+
+    edges = sorted({m for step in (k, 32 * k, 1024) for m in range(step, L, step)})
+    buf = np.zeros((B, L), np.int32)
+    lens = np.zeros((B,), np.int32)
+    for r in range(B):
+        kind = r % 6
+        row = bytearray(rng.integers(32, 127, size=L, dtype=np.uint8).tobytes())
+        if kind == 0:
+            for m in edges:
+                if rng.random() < 0.4:
+                    at = m + int(rng.integers(-3, 2))  # the apostrophe's position
+                    piece = (bytes([before[int(rng.integers(len(before)))]])
+                             + CONTRACTIONS[int(rng.integers(len(CONTRACTIONS)))]
+                             + word(int(rng.integers(0, 3))))
+                    if at >= 1 and at - 1 + len(piece) <= L:
+                        row[at - 1:at - 1 + len(piece)] = piece
+        elif kind == 1:
+            for m in edges:
+                if rng.random() < 0.6:
+                    end = m + int(rng.integers(-1, 2))  # one past the run's last byte
+                    n = int(rng.integers(1, 9))
+                    piece = blanks(n) + (word(2) if rng.random() < 0.7 else b"  ")
+                    if end - n >= 0 and end - n + len(piece) <= L:
+                        row[end - n:end - n + len(piece)] = piece
+        elif kind == 2:
+            col = 0
+            sizes = [reach - 1, reach, reach + 1, L // 2 + 1 + int(rng.integers(8))]
+            rng.shuffle(sizes)
+            for n in sizes:
+                piece = b" " + word(n) + b" x, 's"
+                if col + len(piece) <= L:
+                    row[col:col + len(piece)] = piece
+                    col += len(piece)
+        elif kind == 3:
+            col = 0
+            while col < L:
+                pick = int(rng.integers(4))
+                piece = (blanks(int(rng.integers(1, 5))) if pick == 0
+                         else word(int(rng.integers(1, 6))) if pick == 1
+                         else str(int(rng.integers(10 ** 6))).encode() if pick == 2
+                         else CONTRACTIONS[int(rng.integers(len(CONTRACTIONS)))])
+                piece = piece[:L - col]
+                row[col:col + len(piece)] = piece
+                col += len(piece)
+        elif kind == 4:
+            row = bytearray(rng.choice(DENSE, size=L).tobytes())
+        n = (0, 1, L - 1, L, int(rng.integers(2, L)))[r % 5]
+        if kind == 4 and n >= 1:
+            row[n - 1] = ord("'")
+        buf[r, :n] = np.frombuffer(bytes(row[:n]), np.uint8)
+        lens[r] = n
+    return buf, lens
