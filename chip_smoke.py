@@ -9,8 +9,7 @@
    PyTorch version on the card, at that path's shapes: the layout kernel
    (B3) on a [256, 8192] corpus chunk, and on the adversarial rows of
    `smoke_data.adversarial_layout_case` at widths 256-8192 (its row
-   kernel) and 16384 (its tiled kernel, which the main path never takes:
-   its launches there are 0, and those of that phase are reported apart);
+   kernel) and 16384-65536 (its cluster kernel, the long documents');
    the keys (B2) and merge-round (B1)
    kernels on the first rounds of that chunk's real [74, 4096] unique
    buffer, then at the compacted widths 2560 and 2048 and on a
@@ -18,14 +17,13 @@
    of B1's below.  B1 has two kernels, chosen by width:
    the row kernel (C <= 4096) runs there, and both are held on the
    adversarial layouts of `smoke_data.adversarial_case` (the row kernel
-   at widths 64-4096, the wide one at 5120 and 8192); the wide one also on
-   the full-width branch's state, the chunk's first 8 rows at [8, 8192]
-   and at its 5/8 width (the smoke documents never take it: its launches
-   on the gpt2 path are 0, and those of that phase are reported apart).
-   Times each kernel and its plain version with CUDA events, the two B3
-   kernels in turns at [256, 8192] and the two B1 kernels at [74, 4096]
-   and [74, 2048], and B2 on one 1024-position tile beside an empty
-   kernel (its launch and ramp).
+   at widths 64-4096, the cluster one at 5120-65536, where its cluster of
+   16 CTAs is non-portable); the cluster one also on the chunk's first 8
+   rows at [8, 8192] and at its 5/8 width.
+   Times each kernel and its plain version with CUDA events, the B1 row
+   kernel against the cluster one in turns at [74, 4096] and [74, 2048],
+   and B2 on one 1024-position tile beside an empty kernel (its launch and
+   ramp).
 3. Drives the gpt2 path: `Tokenizer.encode_batch_fast` on 512 8 KB corpus
    documents (two [256, 8192] ASCII chunks and one [32, 8192] chunk of the
    documents with multi-byte characters), cold and then on the warm word
@@ -42,8 +40,24 @@
    ends.
 5. Drives the llama3 path the same way as 3, on the same documents with
    the llama3_128k tokenizer: cold launches of B1 and B2 above 0 and of
-   B3 at 0 (the layout kernel is gpt2's), every digest matched.
-6. Prints a line of numbers per path, the per-kernel JSON line, the card's
+   B3 at 0 (the layout kernel is gpt2's), every digest matched.  The
+   cold launch counts of both 8 KB paths must be those in EIGHT_KB_COLD.
+6. The gpt2 long documents (`smoke_data.long_parts`): the cluster
+   kernels at this path's real states, bit for bit against their plain
+   versions: B3 on a [64, 32768] chunk of 32 KB documents and on the
+   [8, 16384] chunk of the 12 KB dense documents, B1 on the latter's
+   full-width branch at 16384, 10240 and 8192 (two rounds each).  Then
+   drives `encode_batch_fast` on (a) the 32 KB and 100 KB documents, (b)
+   the 12 KB dense ones and (c) 16 KB dense ones, each cold and cached,
+   counts set to 0 before each run, every document against
+   `data/gpt2_long_digests.json`: (a) must launch the cluster B3, (b) and
+   (c) the cluster B1; (c)'s rows all overflow the 5/8 width and go to the
+   host, and its flagged share is printed.  Times the cluster B3 at
+   [128, 16384], [64, 32768] and [32, 65536] and the cluster B1 at
+   [8, 8192] and the dense full-width state [32, 16384]
+   (`tools/wide_ab.wide_times`), with each one's slice, cluster size,
+   shared memory and resident clusters (cudaOccupancyMaxActiveClusters).
+7. Prints a line of numbers per path, the per-kernel JSON line, the card's
    name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Any mismatch or error exits non-zero; there is no fallback.  Without a
@@ -63,7 +77,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 GPT2 = os.path.join(FIXTURES, "gpt2", "tokenizer.json")
 LLAMA3 = os.path.join(FIXTURES, "llama3_128k", "tokenizer.json")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 TPU_KERNELS = {  # file:line of the `pallas_call` each kernel replaces
     "layout_fused": "tokenizers_tpu/ops/layout_pallas.py:176",
     "layout_fused_wide": "tokenizers_tpu/ops/layout_pallas.py:176",
@@ -83,20 +96,16 @@ SOURCES = {
 # the compacted states of the merge loop each kernel is checked at:
 # (width, rows): full unique buffer, 5/8 and 1/2 width, a ladder rung
 STATES = ((4096, None), (2560, None), (2048, None), (2048, 37))
-# widths of the adversarial layouts: the row kernel's, then the wide one's
-ADVERSARIAL_WIDTHS = (64, 256, 1536, 2048, 2560, 4096, 5120, 8192)
-LAYOUT_WIDTHS = (256, 1024, 4096, 8192, 16384)  # B3's: row kernel to 8192, then tiled
-
-
-def _nbytes(*xs):
-    return sum(x.numel() * x.element_size() for x in xs)
-
-
-def _table_bytes(torch, h0, h1, rows0):
-    """Bytes of the merge-table rows a round reads at the keys (h0, h1):
-    each distinct row of either table once, a row being one 32 B sector."""
-    row = rows0.shape[1] * rows0.element_size()
-    return (torch.unique(h0).numel() + torch.unique(h1).numel()) * row
+# widths of the adversarial layouts: the row kernel's, then the cluster one's
+ADVERSARIAL_WIDTHS = (64, 256, 1536, 2048, 2560, 4096, 5120, 8192, 16384, 40960, 65536)
+LAYOUT_WIDTHS = (256, 1024, 4096, 8192, 16384, 32768, 65536)  # B3's: row kernel to 8192
+# cold launches of the 8 KB paths: no change to a kernel may move them
+EIGHT_KB_COLD = {
+    "gpt2": {"layout_fused": 2, "layout_fused_wide": 0, "keys": 16,
+             "merge_round_fused": 79, "merge_round_fused_wide": 0},
+    "llama3": {"layout_fused": 0, "layout_fused_wide": 0, "keys": 14,
+               "merge_round_fused": 69, "merge_round_fused_wide": 0},
+}
 
 
 def _check_equal(torch, name, got, want):
@@ -135,11 +144,10 @@ def b1_rounds(torch, mk, name, st, wid, rows0, rows1, seed, rounds):
 def adversarial_b3(torch, lk):
     """Both B3 kernels against the plain version on the adversarial rows,
     the kernel each width takes read from the launch counts.  Returns
-    ({kernel: max |diff|}, launches of the tiled kernel)."""
+    {kernel: max |diff|}."""
     from tokenizers_tpu_torch.smoke_data import adversarial_layout_case
 
     errs = {"layout_fused": 0, "layout_fused_wide": 0}
-    wide0 = lk.LAUNCHES["layout_fused_wide"]
     for L in LAYOUT_WIDTHS:
         buf, lens = adversarial_layout_case(L, 30, L)
         b, n = torch.from_numpy(buf).cuda(), torch.from_numpy(lens).cuda()
@@ -152,8 +160,8 @@ def adversarial_b3(torch, lk):
         errs[k] = max(errs[k], _check_equal(torch, f"{k} adversarial [30, {L}]", got,
                                             lk.layout_fused_plain(b, n)))
     print(f"B3 bit-equal (tolerance 0) on the adversarial rows at [30, L], L in "
-          f"{list(LAYOUT_WIDTHS)} (row kernel to {lk.ROW_MAX_L}, tiled beyond)", flush=True)
-    return errs, lk.LAUNCHES["layout_fused_wide"] - wide0
+          f"{list(LAYOUT_WIDTHS)} (row kernel to {lk.ROW_MAX_L}, cluster beyond)", flush=True)
+    return errs
 
 
 def adversarial_b1(torch, mk):
@@ -181,16 +189,42 @@ def adversarial_b1(torch, mk):
                              rows1, table.seed, 3)
         errs[k] = max(errs[k], err)
     print(f"B2 and B1 bit-equal (tolerance 0) on the adversarial layouts at [12, C], C in "
-          f"{list(ADVERSARIAL_WIDTHS)} (B1's row kernel to {mk.ROW_MAX_C}, wide beyond)",
+          f"{list(ADVERSARIAL_WIDTHS)} (B1's row kernel to {mk.ROW_MAX_C}, cluster beyond)",
           flush=True)
     return errs
 
 
-def drive_path(torch, tok, docs, config, counts):
+def full_width_rounds(torch, mk, args, widths):
+    """Two checked B1 rounds at each of `widths` from the full-width state
+    args = (ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed),
+    compacting to each next width as `run_merge_phases` does.  Returns
+    max |diff|."""
+    from tokenizers_tpu_torch.ops.bpe_merge2 import compact
+
+    ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed = args
+    st, err = (ids, own_l, own_r, h0, h1, nid), 0
+    for width in widths:
+        if st[0].shape[1] != width:
+            ids_c, wid, _bad, (l_c, r_c) = compact(st[0], wid, width, st[1:3])
+            st = (ids_c, l_c, r_c) + tuple(mk.keys(ids_c, rows0, seed))
+        st, e = b1_rounds(torch, mk, f"merge_round_fused_wide {list(st[0].shape)}", st, wid,
+                          rows0, rows1, seed, 2)
+        err = max(err, e)
+    return err
+
+
+def check_eight_kb(runs, config):
+    cold = {k: runs["cold"]["launches"][k] for k in EIGHT_KB_COLD[config]}
+    if cold != EIGHT_KB_COLD[config]:
+        raise SystemExit(f"{config} (8 KB documents) cold launches {cold}, "
+                         f"want {EIGHT_KB_COLD[config]}")
+
+
+def drive_path(torch, tok, docs, config, counts, digests=None):
     """`encode_batch_fast` on `docs`, cold then on the warm word cache;
     every launch count set to 0 just before each run and read just after.
     Returns the runs' numbers; raises on a document that differs from its
-    digest."""
+    digest (`digests`, else the committed ones of `config`)."""
     from tokenizers_tpu_torch.ops import engine_base
     from tokenizers_tpu_torch.smoke_data import ids_digest, load_digests
 
@@ -209,7 +243,8 @@ def drive_path(torch, tok, docs, config, counts):
         return out
 
     eng._program_many = timed_program
-    digests = load_digests(config)
+    if digests is None:
+        digests = load_digests(config)
     runs = {}
     for run in ("cold", "cached"):
         for c in counts.values():
@@ -249,6 +284,105 @@ def path_numbers(eng, docs, prepared, runs, config):
     }
 
 
+def long_path(torch, stats, b3_err, b1_err, counts, numbers):
+    """Phase 6, the gpt2 long documents: both cluster kernels at this
+    path's real states against their plain versions, the parts of
+    `long_parts` driven cold (a new tokenizer, its word cache empty) and
+    cached against their digests, both cluster kernels timed.  Fills the cluster
+    kernels' entries of `stats`, every kernel's `long_path_launches` and
+    `numbers`."""
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch import smoke_data
+    from tokenizers_tpu_torch.ops import kernel_build
+    from tokenizers_tpu_torch.ops import layout_kernels as lk
+    from tokenizers_tpu_torch.ops import merge_kernels as mk
+    from tokenizers_tpu_torch.ops.engine_base import CHUNK_TARGET
+    from tokenizers_tpu_torch.ops.packing import MAX_L
+    from tokenizers_tpu_torch.smoke_data import (
+        first_ascii_chunk, full_width_state, load_digests, long_parts,
+    )
+    from tokenizers_tpu_torch.tools import timing
+    from tokenizers_tpu_torch.tools.wide_ab import wide_times
+
+    tok = Tokenizer.from_file(GPT2)
+    eng = tok._get_device_engine()
+    T = eng.tables
+    rows0, rows1, seed = T["merge_rows0"], T["merge_rows1"], T["seed"]
+
+    def pieces(docs):  # the work items encode_batch makes of the documents
+        out = []
+        for d in docs:
+            p = eng._prepare(d)
+            out += eng._split_long(p, CHUNK_TARGET) if len(p) > MAX_L // 2 else [p]
+        return out
+
+    parts = long_parts()
+    # the cluster kernels at this path's states
+    b, n, _inb = first_ascii_chunk(eng, pieces(parts["long"]), (64, 32768))
+    b3_err = max(b3_err, _check_equal(torch, "layout_fused [64, 32768]", lk.layout_fused(b, n),
+                                      lk.layout_fused_plain(b, n)))
+    bd, nd, inbd = first_ascii_chunk(eng, pieces(parts["dense"]), (8, 16384))
+    lay = lk.layout_fused(bd, nd)
+    b3_err = max(b3_err, _check_equal(torch, "layout_fused [8, 16384]", lay,
+                                      lk.layout_fused_plain(bd, nd)))
+    ids, own_l, own_r, wid = full_width_state(eng, bd, inbd, lay[0])
+    args = (ids, own_l, own_r, wid, *mk.keys(ids, rows0, seed), rows0, rows1, seed)
+    b1_err = max(b1_err, full_width_rounds(torch, mk, args, (16384, 10240, 8192)))
+    print("cluster B3 bit-equal (tolerance 0) at [64, 32768] (32 KB documents) and [8, 16384] "
+          "(dense documents); cluster B1 at the dense full-width state [8, 16384] and its "
+          "widths 10240 and 8192", flush=True)
+
+    # (a), (b) and (c), cold then cached, each against its digests
+    digests = load_digests("gpt2_long")
+    runs = {}
+    for part, want in (("long", "layout_fused_wide"), ("dense", "merge_round_fused_wide"),
+                       ("dense_16k", "merge_round_fused_wide")):
+        docs = parts[part]
+        dig, digests = digests[:len(docs)], digests[len(docs):]
+        runs[part] = drive_path(torch, tok, docs, f"gpt2 {part}", counts, dig)
+        cold = runs[part]["cold"]["launches"]
+        if cold[want] < (2 if part == "long" else 1):
+            raise SystemExit(f"gpt2 {part} documents: {want} launched {cold[want]} times")
+        numbers[f"gpt2_{part}"] = path_numbers(eng, docs, pieces(docs), runs[part], f"gpt2_{part}")
+        print("numbers " + json.dumps(numbers[f"gpt2_{part}"]), flush=True)
+    print(f"gpt2 dense_16k documents: {numbers['gpt2_dense_16k']['cold_bad_row_fraction']} of "
+          f"rows flagged cold (the 5/8 width's overflow), "
+          f"{runs['dense_16k']['cold']['launches']['merge_round_fused_wide']} cluster B1 "
+          f"launches", flush=True)
+    for k, st in stats.items():
+        st["long_path_launches"] = stats_launches(runs, k)
+
+    # timing: the cluster B3 on corpus chunks, the cluster B1 at full-width states
+    by = wide_times(torch, lk, mk, eng, smoke_data, timing)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, t in by["layout_fused_wide"].items():
+        S, nc = lk.wide_geometry(int(shape.split("x")[1]))
+        t.update(slice=S, cluster=nc, smem_bytes=lk.smem_bytes(S),
+                 max_active_clusters=lk.max_clusters(S, nc))
+    for shape, t in by["merge_round_fused_wide"].items():
+        S, nc = mk.cluster_geometry(*(int(x) for x in shape.split("x")), sms)
+        t.update(slice=S, cluster=nc, smem_bytes=mk.smem_bytes(S),
+                 max_active_clusters=mk.max_clusters(S, nc))
+    for k, err, head, entry in (
+            ("layout_fused_wide", b3_err, "64x32768", "tt_layout_wide_max_clusters"),
+            ("merge_round_fused_wide", b1_err, "32x16384", "tt_merge_round_max_clusters")):
+        stats[k] = {
+            "max_abs_err": err, **{x: by[k][head][x] for x in ("ms", "plain_ms", "bound_ms")},
+            "shape": [int(x) for x in head.split("x")], "by_shape": by[k],
+            "launches": stats_launches(runs, k),
+            "launches_from": "gpt2 long documents, cold: (a) + (b) + (c)",
+            "long_path_launches": stats_launches(runs, k),
+            # every (slice, cluster size) this run launched, phase 2's included
+            "max_active_clusters": {f"S={S} n={nc}": v for (_l, e, _d, S, nc), v
+                                    in sorted(kernel_build.CLUSTERS.items()) if e == entry},
+        }
+        print(f"{k} by shape: {json.dumps(by[k])}", flush=True)
+
+
+def stats_launches(runs, k):
+    return sum(r["cold"]["launches"][k] for r in runs.values())
+
+
 def main() -> int:
     import torch
 
@@ -267,8 +401,10 @@ def main() -> int:
     from tokenizers_tpu_torch.ops.bpe_merge2 import _round, compact, init_own, make_round_driver
     from tokenizers_tpu_torch.ops.layout_kernels import next_boundary
     from tokenizers_tpu_torch.ops.llama3_presplit import llama3_boundaries
-    from tokenizers_tpu_torch.smoke_data import build_docs, first_ascii_chunk, unique_state
-    from tokenizers_tpu_torch.tools.timing import median_ms
+    from tokenizers_tpu_torch.smoke_data import (
+        build_docs, first_ascii_chunk, full_width_states, unique_state,
+    )
+    from tokenizers_tpu_torch.tools.timing import bound_ms, median_ms, nbytes, table_bytes
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -295,30 +431,23 @@ def main() -> int:
 
     got = lk.layout_fused(b, n)
     want = lk.layout_fused_plain(b, n)
-    b3_errs, b3_wide_launches = adversarial_b3(torch, lk)
+    b3_errs = adversarial_b3(torch, lk)
     b3_errs["layout_fused"] = max(b3_errs["layout_fused"],
                                   _check_equal(torch, "layout_fused", got, want))
+    # the cluster kernel takes this width too, as one CTA a cluster
     b3_errs["layout_fused_wide"] = max(b3_errs["layout_fused_wide"], _check_equal(
         torch, "layout_fused_wide", lk.layout_fused_wide(b, n), want))
-    # the row kernel and the tiled one on the main path's chunk, in turns
-    b3_ms = {}
-    for k in ("row", "wide", "wide", "row"):
-        fn = lk.layout_fused if k == "row" else lk.layout_fused_wide
-        b3_ms.setdefault(k, []).append(median_ms(lambda fn=fn: fn(b, n), 20))
-    b3_plain_ms = median_ms(lambda: lk.layout_fused_plain(b, n), 2)
     b3_smem, b3_blocks = lk.row_residency(b.shape[1])
-    for k, ms in (("layout_fused", b3_ms["row"][0]), ("layout_fused_wide", b3_ms["wide"][0])):
-        stats[k] = {
-            "max_abs_err": b3_errs[k], "ms": ms, "plain_ms": b3_plain_ms,
-            "bound_ms": _nbytes(b, n, *got) / HBM_BYTES_PER_S * 1e3,
-            "shape": list(b.shape),
-        }
-    stats["layout_fused"].update(smem_bytes=b3_smem, blocks_per_sm=b3_blocks,
-                                 wide_kernel_ms_same_shape=b3_ms["wide"][0], ms_runs=b3_ms)
-    print(f"B3 bit-equal (tolerance 0) at {list(b.shape)}, both kernels; ms in turns "
-          f"(row, wide, wide, row): {json.dumps(b3_ms)}; row kernel {b3_smem} B of dynamic "
-          f"shared memory, {b3_blocks} blocks per SM", flush=True)
-    bnd = got[0]
+    stats["layout_fused"] = {
+        "max_abs_err": b3_errs["layout_fused"],
+        "ms": median_ms(lambda: lk.layout_fused(b, n), 20),
+        "plain_ms": median_ms(lambda: lk.layout_fused_plain(b, n), 2),
+        "bound_ms": bound_ms(nbytes(b, n, *got)),
+        "shape": list(b.shape), "smem_bytes": b3_smem, "blocks_per_sm": b3_blocks,
+    }
+    print(f"B3 bit-equal (tolerance 0) at {list(b.shape)}, both kernels; row kernel "
+          f"{stats['layout_fused']['ms']:.5f} ms, {b3_smem} B of dynamic shared memory, "
+          f"{b3_blocks} blocks per SM", flush=True)
     state0 = unique_state(eng, b, n, inb, got)
     ids, own_l, own_r, wid = state0
     rows0, rows1, seed = T["merge_rows0"], T["merge_rows1"], T["seed"]
@@ -345,23 +474,11 @@ def main() -> int:
     wide_errs = adversarial_b1(torch, mk)
     for k in ("keys", "merge_round_fused"):
         errs[k] = max(errs[k], wide_errs[k])
-    # the wide B1 at the full-width branch's state: the chunk's first 8 rows
-    inb8 = inb[:8]
-    ids_w = torch.where(inb8, T["byte2id"][b[:8].to(torch.int64)], -1)
-    wid_w = torch.where(inb8, torch.cumsum(bnd[:8].int(), 1, dtype=torch.int32) - 1, -1)
-    l_w, r_w = init_own(ids_w, T["merge_mclr"])
-    args_wide = (ids_w, l_w, r_w, wid_w, *mk.keys(ids_w, rows0, seed), rows0, rows1, seed)
-    st = args_wide[:3] + args_wide[4:7]
-    wide_before = mk.LAUNCHES["merge_round_fused_wide"]
-    for width in (8192, 5120):
-        if st[0].shape[1] != width:
-            ids_c, wid_w, _bad, (l_c, r_c) = compact(st[0], wid_w, width, st[1:3])
-            st = (ids_c, l_c, r_c) + tuple(mk.keys(ids_c, rows0, seed))
-        st, err = b1_rounds(torch, mk, f"merge_round_fused_wide {list(st[0].shape)}", st,
-                            wid_w, rows0, rows1, seed, 2)
-        wide_errs["merge_round_fused_wide"] = max(wide_errs["merge_round_fused_wide"], err)
-    wide_launches = mk.LAUNCHES["merge_round_fused_wide"] - wide_before
-    print("wide B1 bit-equal (tolerance 0) at the full-width state [8, 8192] and its 5/8 "
+    # the cluster B1 at the full-width state of the chunk's first 8 rows
+    args_wide = full_width_states(eng)[(8, 8192)]
+    wide_errs["merge_round_fused_wide"] = max(wide_errs["merge_round_fused_wide"], full_width_rounds(
+        torch, mk, args_wide, (8192, 5120)))
+    print("cluster B1 bit-equal (tolerance 0) at the full-width state [8, 8192] and its 5/8 "
           "width [8, 5120]", flush=True)
 
     # timing at the main path's unique-buffer shape [74, 4096]
@@ -375,12 +492,13 @@ def main() -> int:
         "ms": median_ms(lambda: mk.keys(ids, rows0, seed), 20),
         "one_tile_ms": median_ms(lambda: mk.keys(ids_tile, rows0, seed), 20),
         "plain_ms": median_ms(lambda: mk.keys_plain(ids, rows0, seed), 2),
-        "bound_ms": _nbytes(ids, *keys0) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": bound_ms(nbytes(ids, *keys0)),
         "shape": list(ids.shape),
     }
     args = (ids, own_l, own_r, wid, *keys0, rows0, rows1, seed)
     r_out = mk.merge_round_fused(*args)
-    # the row kernel and the wide one on the same inputs, in turns
+    # the row kernel and the cluster one (the same body in slices) on the
+    # same inputs, in turns
     b1_ms = {}
     for w, a_ in ((4096, args), (2048, args_2048)):
         for k in ("row", "wide", "wide", "row"):
@@ -391,23 +509,13 @@ def main() -> int:
         "max_abs_err": errs["merge_round_fused"],
         "ms": b1_ms["row_4096"][0],
         "plain_ms": median_ms(lambda: mk.merge_round_fused_plain(*args), 2),
-        "bound_ms": (_nbytes(*args[:7], *r_out) + _table_bytes(torch, *keys0[:2], rows0))
-                    / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": bound_ms(nbytes(*args[:7], *r_out) + table_bytes(*keys0[:2], rows0)),
         "shape": list(ids.shape),
-        "smem_bytes": mk.row_smem_bytes(ids.shape[1]),
-        "wide_kernel_ms_same_shape": b1_ms["wide_4096"][0],
+        "smem_bytes": mk.smem_bytes(ids.shape[1]),
+        "cluster_kernel_ms_same_shape": b1_ms["wide_4096"][0],
         "ms_runs": b1_ms,
     }
-    w_out = mk.merge_round_fused_wide(*args_wide)
-    stats["merge_round_fused_wide"] = {
-        "max_abs_err": wide_errs["merge_round_fused_wide"],
-        "ms": median_ms(lambda: mk.merge_round_fused_wide(*args_wide), 20),
-        "plain_ms": median_ms(lambda: mk.merge_round_fused_plain(*args_wide), 2),
-        "bound_ms": (_nbytes(*args_wide[:7], *w_out)
-                     + _table_bytes(torch, *args_wide[4:6], rows0)) / HBM_BYTES_PER_S * 1e3,
-        "shape": list(ids_w.shape),
-    }
-    print("B1 ms, row kernel against the wide one in turns (row, wide, wide, row): "
+    print("B1 ms, row kernel against the cluster one in turns (row, wide, wide, row): "
           + json.dumps(b1_ms), flush=True)
     torch.cuda.synchronize()
 
@@ -417,20 +525,10 @@ def main() -> int:
               "merge_round_fused": mk.LAUNCHES, "merge_round_fused_wide": mk.LAUNCHES,
               "merge_round_standalone": mk.LAUNCHES}
     runs = drive_path(torch, tok, docs, "gpt2", counts)
-    zero = [k for k in ("layout_fused", "keys", "merge_round_fused")
-            if runs["cold"]["launches"][k] == 0]
-    if zero:
-        raise SystemExit(f"the gpt2 path never launched {zero}")
-    for k in ("merge_round_fused_wide", "layout_fused_wide"):
-        if runs["cold"]["launches"][k] != 0:
-            raise SystemExit(f"the gpt2 path took {k} on the smoke documents")
-    for k in ("layout_fused", "layout_fused_wide", "keys", "merge_round_fused",
-              "merge_round_fused_wide"):
+    check_eight_kb(runs, "gpt2")
+    for k in ("layout_fused", "keys", "merge_round_fused"):
         stats[k]["launches"] = runs["cold"]["launches"][k]
-        stats[k]["launches_from"] = "gpt2 path, cold"
-    # the wide kernels' launches in their own phases (the main path launches them 0 times)
-    stats["merge_round_fused_wide"]["own_phase_launches"] = wide_launches
-    stats["layout_fused_wide"]["own_phase_launches"] = b3_wide_launches
+        stats[k]["launches_from"] = "gpt2 path (8 KB documents), cold"
     numbers = {"gpt2": path_numbers(eng, docs, prepared, runs, "gpt2")}
     print("numbers " + json.dumps(numbers["gpt2"]), flush=True)
 
@@ -498,8 +596,7 @@ def main() -> int:
         "max_abs_err": err4,
         "ms": median_ms(lambda: mk.merge_round_standalone(*args4), 20),
         "plain_ms": median_ms(lambda: mk.merge_round_standalone_plain(*args4), 2),
-        "bound_ms": (_nbytes(*args4[:4], *out4) + _table_bytes(torch, *keys4[:2], rows0))
-                    / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": bound_ms(nbytes(*args4[:4], *out4) + table_bytes(*keys4[:2], rows0)),
         "shape": list(ids0.shape),
     }
     # B4's own path: `_round` merges the buffer to completion
@@ -529,37 +626,39 @@ def main() -> int:
 
     # ---- 5. the llama3 path, cold then warm -------------------------------
     runs3 = drive_path(torch, tok3, docs, "llama3", counts)
-    cold3 = runs3["cold"]["launches"]
-    if (cold3["keys"] == 0 or cold3["merge_round_fused"] == 0 or cold3["layout_fused"] != 0
-            or cold3["merge_round_fused_wide"] != 0 or cold3["layout_fused_wide"] != 0):
-        raise SystemExit(f"llama3 cold launches {cold3}: want B1, B2 > 0 and B3 and "
-                         f"the wide B1 = 0")
+    check_eight_kb(runs3, "llama3")
     numbers["llama3"] = path_numbers(eng3, docs, prepared3, runs3, "llama3")
     numbers["llama3"]["tables_s"] = llama3_build_s
     numbers["llama3"]["b4_rounds_to_completion"] = rounds
     print("numbers " + json.dumps(numbers["llama3"]), flush=True)
+
+    # ---- 6. the gpt2 long documents -----------------------------------------
+    long_path(torch, stats, b3_errs["layout_fused_wide"],
+              wide_errs["merge_round_fused_wide"], counts, numbers)
+
     print("kernel_numbers " + json.dumps({
         "kernel_median_ms": {k: s["ms"] for k, s in stats.items()},
         "kernel_bound_us": {k: s["bound_ms"] * 1e3 for k, s in stats.items()},
         "kernel_shapes": {k: s["shape"] for k, s in stats.items()},
-        "b1_row_and_wide_ms": stats["merge_round_fused"]["ms_runs"],
+        "b1_row_and_cluster_ms": stats["merge_round_fused"]["ms_runs"],
         "b1_row_smem_bytes": stats["merge_round_fused"]["smem_bytes"],
-        "b3_row_and_wide_ms": stats["layout_fused"]["ms_runs"],
         "b3_row_smem_bytes": stats["layout_fused"]["smem_bytes"],
         "b3_row_blocks_per_sm": stats["layout_fused"]["blocks_per_sm"],
         "b2_one_tile_ms": stats["keys"]["one_tile_ms"],
         "empty_kernel_ms": empty_ms,
+        "max_active_clusters": {f"{entry} S={S} n={n}": v for (_l, entry, _d, S, n), v
+                                in kernel_build.CLUSTERS.items()},
     }), flush=True)
 
+    extra = ("own_phase_launches", "by_shape", "cluster_kernel_ms_same_shape",
+             "max_active_clusters")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": TPU_KERNELS[k],
          "launches": s["launches"], "launches_from": s["launches_from"],
-         **({"own_phase_launches": s["own_phase_launches"]}
-            if "own_phase_launches" in s else {}),
+         "long_path_launches": s["long_path_launches"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
-         **({"wide_kernel_ms_same_shape": s["wide_kernel_ms_same_shape"]}
-            if "wide_kernel_ms_same_shape" in s else {})}
+         "shape": s["shape"], **{x: s[x] for x in extra if x in s}}
         for k, s in stats.items()
     ]}), flush=True)
     print(smi, flush=True)

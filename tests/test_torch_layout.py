@@ -6,7 +6,8 @@ and against the lax oracle on `smoke_data.adversarial_layout_case` rows.
 The UTF-8 branch of the port's `gpt2_boundaries` is held against JAX's on
 multi-byte text.  Bit-exact.  The `gpu` tests hold both CUDA kernels (the
 row kernel up to ROW_MAX_L, the tiled one beyond) against the plain
-version."""
+version, the cluster kernel at every width of the long documents'
+chunks."""
 
 import numpy as np
 import pytest
@@ -79,11 +80,12 @@ def test_layout_plain_matches_jax():
         assert torch.equal(g, v)
 
 
-@pytest.mark.parametrize("width", [256, 1024])
+@pytest.mark.parametrize("width", [256, 1024, 16384])
 def test_layout_plain_matches_jax_adversarial(width):
     """Every row kind and length case of `adversarial_layout_case`:
     contractions and whitespace runs across thread, warp and tile edges,
-    words of 511-513 bytes and of more than half the row."""
+    words of 511-513 bytes and of more than half the row; at 16384, the
+    width of the cluster kernel's two slices."""
     buf, lens = adversarial_layout_case(width, 30, width)
     got = tl.layout_fused_plain(torch.from_numpy(buf), torch.from_numpy(lens))
     oracle = _lax_layout(jnp.asarray(buf), jnp.asarray(lens), jnp.zeros((1,), jnp.int8))
@@ -129,11 +131,12 @@ def test_gpu_layout_kernel_matches_plain():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", [256, 1024, 4096, 8192, 16384])
+@pytest.mark.parametrize("width", [256, 1024, 4096, 8192, 16384, 32768, 65536])
 def test_gpu_layout_adversarial(width):
     """Both B3 kernels on the adversarial rows: the row kernel up to
-    ROW_MAX_L, the tiled one beyond (which one ran is read from LAUNCHES);
-    bytes past a row's length must not matter."""
+    ROW_MAX_L, the cluster kernel beyond, in 2, 4 and 8 slices (which one
+    ran is read from LAUNCHES); bytes past a row's length must not
+    matter."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     buf, lens = adversarial_layout_case(width, 30, width)
@@ -151,3 +154,24 @@ def test_gpu_layout_adversarial(width):
         assert wide == int(width > tl.ROW_MAX_L)
         for name, g, w in zip(("bnd", "nxt", "h1", "h2"), got, want):
             assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+def test_gpu_layout_wide_refuses():
+    """The cluster kernel takes L % 128 == 0 from ROW_MAX_L to WIDE_MAX_L
+    and raises before any launch otherwise, through `layout_fused` too: a
+    row wider than WIDE_MAX_L, which `supported` sends there, is refused,
+    not sent to the plain version.  The slices of every width it takes fit
+    the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert tl.supported((2, 2 * tl.WIDE_MAX_L))
+    for L in (tl.ROW_MAX_L + 64, 2 * tl.WIDE_MAX_L):
+        b = torch.zeros((2, L), dtype=torch.int32, device="cuda")
+        n = torch.full((2,), 5, dtype=torch.int32, device="cuda")
+        before = dict(tl.LAUNCHES)
+        for fn in (tl.layout_fused_wide, tl.layout_fused):
+            with pytest.raises(ValueError, match="L % 128 == 0"):
+                fn(b, n)
+        assert tl.LAUNCHES == before
+    assert all(tl.max_clusters(*tl.wide_geometry(L)) > 0 for L in (16384, 32768, 65536))

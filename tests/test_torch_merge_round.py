@@ -232,10 +232,13 @@ def _gpu_rounds(rows0, rows1, s, mclr, ids, wid, rounds=3):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [64, 256, 1536, 2048, 2560, 4096, 5120, 8192])
+@pytest.mark.parametrize("C", [64, 256, 1536, 2048, 2560, 4096, 5120, 8192, 16384,
+                               40960, 65536])
 def test_gpu_b1_adversarial(C):
     """Both B1 kernels on the adversarial layouts: the row kernel up to
-    ROW_MAX_C, the wide one beyond (which one ran is read from LAUNCHES)."""
+    ROW_MAX_C, the cluster kernel beyond (which one ran is read from
+    LAUNCHES), with words longer than one of its slices and, at 65536, a
+    non-portable cluster of 16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     case = adversarial_tables(C, 12, C)
@@ -271,7 +274,8 @@ def test_gpu_keys_adversarial(C):
 @pytest.mark.gpu
 def test_gpu_b1_row_and_wide_agree():
     """The two B1 kernels are one function: at a width both take, and on
-    a row kernel width whose rows are not 16-byte multiples."""
+    a row kernel width whose rows are not 16-byte multiples (the cluster
+    kernel there in slices of 512, the last one short)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for C in (2048, 1001, 1004):
@@ -284,6 +288,25 @@ def test_gpu_b1_row_and_wide_agree():
         for a, b, c in zip(tk.merge_round_fused(*args), tk.merge_round_fused_wide(*args),
                            tk.merge_round_fused_plain(*args)):
             assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_gpu_b1_wide_refuses():
+    """The cluster kernel refuses rows wider than WIDE_MAX_C before any
+    launch; a launch it cannot make would raise, never fall back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rows0, rows1, s, mclr, ids, wid = (
+        _t(x).cuda() if isinstance(x, np.ndarray) else x
+        for x in adversarial_tables(3, 1, tk.WIDE_MAX_C + 128)
+    )
+    ol, orr = tm.init_own(ids, mclr)
+    before = dict(tk.LAUNCHES)
+    with pytest.raises(ValueError, match="C <= 65536"):
+        tk.merge_round_fused(ids, ol, orr, wid, *tk.keys(ids, rows0, s), rows0, rows1, s)
+    assert tk.LAUNCHES["merge_round_fused"] == before["merge_round_fused"]
+    assert all(tk.max_clusters(*tk.cluster_geometry(R, C)) > 0
+               for R, C in ((8, 8192), (32, 16384), (8, 65536)))
 
 
 @pytest.mark.gpu

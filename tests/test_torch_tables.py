@@ -1,7 +1,8 @@
 """The port's committed data and the tables it builds, re-derived from
 their references: the two-stage class table from the JAX package's
 `char_class_tables()`, the per-document gpt2 and llama3_128k digests that
-chip_smoke.py checks from the `tokenizers` wheel on the same documents,
+chip_smoke.py checks from the `tokenizers` wheel on the same documents
+(the 8 KB ones and those of the long-document phase),
 and the engine's tables (gpt2, and llama3 with its whole-word table) from
 the JAX engine's `_program_args()`, array for array."""
 
@@ -15,7 +16,10 @@ from tokenizers_tpu.tokenizer import Tokenizer as JaxTokenizer
 from tokenizers_tpu_torch import Tokenizer
 from tokenizers_tpu_torch.ops import unicode_tables as tu
 from tokenizers_tpu_torch.ops.bpe_engine import TABLE_KEYS, WW_KEYS
-from tokenizers_tpu_torch.smoke_data import CONFIGS, build_docs, ids_digest, load_digests
+from tokenizers_tpu_torch.smoke_data import (
+    CONFIGS, DENSE_BYTES, DENSE_OVERFLOW_BYTES, build_docs, ids_digest, load_digests,
+    long_parts,
+)
 
 GPT2 = "tests/fixtures/gpt2/tokenizer.json"
 LLAMA3 = "tests/fixtures/llama3/tokenizer.json"
@@ -44,6 +48,18 @@ def test_gpt2_digests_match_wheel():
 
 def test_llama3_digests_match_wheel():
     _digests_match_wheel("llama3")
+
+
+def test_gpt2_long_digests_match_wheel():
+    parts = long_parts()
+    long, dense, dense_16k = parts["long"], parts["dense"], parts["dense_16k"]
+    assert len(long) == 131 and all(99_000 < len(d.encode()) <= 100_000 for d in long[-3:])
+    assert len(dense) == 8 and all(10_000 < len(d) <= DENSE_BYTES for d in dense)
+    assert len(dense_16k) == 8 and all(
+        DENSE_BYTES < len(d) <= DENSE_OVERFLOW_BYTES for d in dense_16k)
+    wheel = WheelTokenizer.from_file(CONFIGS["gpt2"])
+    encs = wheel.encode_batch_fast(long + dense + dense_16k, add_special_tokens=True)
+    assert [ids_digest(e.ids) for e in encs] == load_digests("gpt2_long")
 
 
 def _check_key(args, tables, key):

@@ -36,160 +36,46 @@
 // __launch_bounds__(512, 2), so two rows share an SM and 256 rows take one
 // wave of 132 SMs; dynamic shared memory lrow_smem_bytes(L) = 73,744 B at
 // L = 8192.  Measured on an H100 at [256, 8192]: about 0.027 ms against
-// 0.103 for the tiled kernel, 2.6x the bound.  What holds it is one SM's
-// work on two rows: the blocks start together, the second on an SM
+// 0.103 for the first, tiled design, 2.6x the bound.  What holds it is one
+// SM's work on two rows: the blocks start together, the second on an SM
 // finishes about 9 us after the first, and the store phase alone runs at
 // the card's write rate (phase stamps: tools/b3_phases.py, built with
 // -DTT_LAYOUT_PHASES).
 //
-// layout_wide_kernel (wider rows; PR 1's design): one block of 1024
-// threads per row walks the row in 1024-wide tiles: a forward pass computes
-// boundaries and scans both hashes as one affine scan; a reverse pass scans
-// next-boundary and next-word-end positions; a last pass delivers the
-// hashes.  The raw hashes and word-end positions go through a global
-// scratch buffer, so it moves about twice its bound in bytes; the
-// sequential tiles per row, each with block-wide barriers, keep it well
-// above that in time (PERF.md has the numbers).
+// tt_layout_wide (rows of LROW_MAX_L < L <= LWIDE_MAX_L positions: every
+// long-document chunk, [128, 16384], [64, 32768] and [32, 65536] under the
+// 2M-position budget) is the same body over a thread-block cluster: a row
+// is cut into n slices of S <= LROW_MAX_L positions, one CTA each (the
+// wrapper's layout_kernels.wide_geometry: S = 8192, 4096 at L = 32768,
+// so 2, 8 and 8 CTAs of 512 or 256 threads at 73,744 or 36,880 B, two or
+// four CTAs an SM).  Each CTA loads its slice and the window's bytes
+// across both edges; the scan's carries cross the slices through
+// scan.cuh's cluster_scan_exclusive (forward: both hash maps; reverse: the
+// next boundary and the nearest word end with its maps), so the hash
+// delivery is the same 2^9 cut wherever the slices fall.  No global
+// scratch.  A slice past a row's length still writes its outputs.
+// Measured on an H100: about 0.031, 0.035 and 0.044 ms at those shapes,
+// against 0.14, 0.27 and 0.51 for the tiled kernel it replaced (bound
+// 0.0106).  What holds it beyond [128, 16384]: the card holds 62 clusters
+// spanning two SMs and 30 spanning four at once
+// (cudaOccupancyMaxActiveClusters), not 64 and 32, so the last rows run in
+// a second wave; and a cluster's CTAs wait at the scan's cluster barrier
+// for its slowest CTA (tools/b3_phases.py --wide).
 #include "scan.cuh"
 
-enum { CLS_O = 0, CLS_L = 1, CLS_N = 2, CLS_SP = 3, CLS_WS = 4, CLS_END = 5 };
 #define H1_MULT 0x01000193u
 #define H2_MULT 0x0000C597u
 #define HASH_REACH 512
 
-struct Row {
-  const int* b;
-  int L;
-  int len;
-  __device__ __forceinline__ int byte(int i) const {
-    return (i >= 0 && i < L && i < len) ? b[i] : 0;
-  }
-  __device__ __forceinline__ int cls(int i) const {  // bpe_encode.ascii_cls
-    const int c = byte(i);
-    const int cl = c | 32;
-    if (cl >= 97 && cl <= 122) return CLS_L;
-    if (c >= 48 && c <= 57) return CLS_N;
-    if (c == 32) return CLS_SP;
-    if (c >= 9 && c <= 13) return CLS_WS;
-    return CLS_O;
-  }
-  __device__ __forceinline__ int prev_cls(int i) const {
-    return i == 0 ? CLS_END : cls(i - 1);
-  }
-  // contraction starting at i: 0 none, 2 two bytes ('s 't 'm 'd), 3 three
-  __device__ __forceinline__ int contr(int i) const {
-    if (i < 0 || i >= L || i >= len || byte(i) != 0x27) return 0;
-    const int pc = prev_cls(i);
-    const bool p_ok = i == 0 || pc == CLS_L || pc == CLS_N || pc == CLS_WS;
-    if (!p_ok) return 0;
-    const int b1 = byte(i + 1), b2 = byte(i + 2);
-    const bool is3 = ((b1 == 'r' && b2 == 'e') || (b1 == 'v' && b2 == 'e') ||
-                      (b1 == 'l' && b2 == 'l')) &&
-                     i + 2 < len;
-    const bool is2 =
-        (b1 == 's' || b1 == 't' || b1 == 'm' || b1 == 'd') && i + 1 < len;
-    return is3 ? 3 : (is2 ? 2 : 0);
-  }
-  __device__ __forceinline__ bool bnd(int i) const {
-    if (i < 0 || i >= L || i >= len) return false;
-    const int c = cls(i), pc = prev_cls(i);
-    const bool next_exists = i + 1 < len;
-    const int nc = next_exists ? cls(i + 1) : CLS_END;
-    const int c1 = contr(i - 1), c2 = contr(i - 2), c3 = contr(i - 3);
-    const bool interior = c1 != 0 || c2 == 3;
-    const bool contr_end = c2 == 2 || c3 == 3;
-    const bool c_ws = c == CLS_SP || c == CLS_WS;
-    const bool p_ws = pc == CLS_SP || pc == CLS_WS;
-    const bool n_nonws = next_exists && nc != CLS_SP && nc != CLS_WS;
-    bool b_nonws;
-    if (pc == CLS_SP) b_nonws = false;
-    else if (pc == CLS_WS) b_nonws = true;
-    else if (pc == CLS_L) b_nonws = c != CLS_L;
-    else if (pc == CLS_N) b_nonws = c != CLS_N;
-    else b_nonws = c == CLS_L || c == CLS_N;
-    const bool b_ws = p_ws ? n_nonws : true;
-    bool out = c_ws ? b_ws : b_nonws;
-    out = out || i == 0 || contr_end;
-    return out && !interior;
-  }
-};
-
-__global__ void __launch_bounds__(NT)
-layout_wide_kernel(const int* bytes, const int* lengths, unsigned char* bnd_o, int* nxt_o,
-              int* h1_o, int* h2_o, int* scratch, int B, int L) {
-  __shared__ int wti[32];
-  __shared__ Aff2 wta[32];
-  const size_t off = (size_t)blockIdx.x * L;
-  const size_t plane = (size_t)B * L;
-  Row row{bytes + off, L, lengths[blockIdx.x]};
-  int* H1 = scratch + off;
-  int* H2 = scratch + plane + off;
-  int* END = scratch + 2 * plane + off;
-  const int nt = n_tiles(L);
-
-  // ---- forward: boundaries and both rolling hashes ---------------------
-  {
-    Aff2 carry{1u, 0u, 1u, 0u};
-    for (int t = 0; t < nt; ++t) {
-      const int i = t * NT + threadIdx.x;
-      Aff2 x{1u, 0u, 1u, 0u};
-      if (i < L) {
-        const bool b = row.bnd(i);
-        const unsigned c = (unsigned)row.byte(i) + 1u;
-        x.a1 = b ? 0u : H1_MULT;
-        x.a2 = b ? 0u : H2_MULT;
-        x.c1 = c;
-        x.c2 = c;
-        bnd_o[off + i] = b ? 1 : 0;
-      }
-      const Aff2 h = block_scan(x, AffOp(), wta, carry);
-      if (i < L) {
-        H1[i] = (int)h.c1;
-        H2[i] = (int)h.c2;
-      }
-    }
-  }
-  // ---- reverse: next boundary, next word end ---------------------------
-  {
-    int c_b = BIG_POS, c_e = BIG_POS;
-    for (int t = 0; t < nt; ++t) {
-      const int e = L - 1 - (t * NT + threadIdx.x);
-      bool isb = false, is_end = false;
-      if (e >= 0) {
-        isb = row.bnd(e);
-        const bool inb = e < row.len;
-        const bool nxt_in = e + 1 < L && e + 1 < row.len;
-        is_end = inb && (row.bnd(e + 1) || !nxt_in);
-      }
-      const int nb = block_scan(isb ? e : BIG_POS, MinOp(), wti, c_b);
-      const int ne = block_scan(is_end ? e : BIG_POS, MinOp(), wti, c_e);
-      if (e >= 0) {
-        // nxt is the first boundary strictly after the position: the scan
-        // value at e is what position e - 1 reports
-        if (e >= 1) nxt_o[off + e - 1] = nb;
-        if (e == L - 1) nxt_o[off + e] = BIG_POS;
-        END[e] = ne;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- deliver the hashes from each word's end ------------------------
-  for (int i = threadIdx.x; i < L; i += NT) {
-    const int j = END[i];
-    const bool ok = j < L && j - i <= HASH_REACH;
-    h1_o[off + i] = ok ? H1[j] : 0;
-    h2_o[off + i] = ok ? H2[j] : 0;
-  }
-}
-
-// ---- B3 for rows of up to LROW_MAX_L positions: the row stays on the SM --
+// ---- B3: a row (or a cluster's slice of one) stays on the SM --------------
 
 #define LROW_K 16         // positions a thread owns
 #define LROW_MAX_L 8192
+#define LWIDE_MAX_L 65536  // the widest chunk engine_base makes: MAX_L / 2
+#define LWIDE_MAX_N 16     // CTAs a cluster of the wide kernel may have (above 8: non-portable)
 #define LROW_THREADS (LROW_MAX_L / LROW_K)
-#define LROW_FRONT 4      // zero bytes before the row in shared memory
-#define LROW_BACK 12      // and after it
+#define LROW_FRONT 4      // bytes before the slice in shared memory (0 before the row)
+#define LROW_BACK 12      // and after it (0 after the row)
 
 #ifdef TT_LAYOUT_PHASES
 // Phase-timing build (tools/b3_phases.py): thread 0 of each of the first
@@ -201,11 +87,6 @@ layout_wide_kernel(const int* bytes, const int* lengths, unsigned char* bnd_o, i
 // per block: the SM clock at each stamp, then the global timer (ns) at the
 // first and the last
 __device__ long long tt_layout_stamps[LROW_TIMED * (LROW_STAMPS + 2)];
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
 #define LROW_STAMP(n)                                                             \
   do {                                                                            \
     if (threadIdx.x == 0 && blockIdx.x < LROW_TIMED) {                            \
@@ -229,8 +110,9 @@ __host__ __device__ __forceinline__ int lrow_threads(int L) {
 }
 
 // the striped local hashes (two uint32 per owned position), then the bytes
-__host__ __device__ __forceinline__ size_t lrow_smem_bytes(int L, int nth) {
-  return 2 * sizeof(unsigned) * (size_t)nth * LROW_K + LROW_FRONT + (size_t)L +
+// of a slice of S positions
+__host__ __device__ __forceinline__ size_t lrow_smem_bytes(int S, int nth) {
+  return 2 * sizeof(unsigned) * (size_t)nth * LROW_K + LROW_FRONT + (size_t)S +
          LROW_BACK;
 }
 
@@ -286,51 +168,75 @@ struct NextEnd {  // reverse scan: first boundary, first word end, and the
   }
 };
 
-// vec: the byte rows and the int32 outputs are 16-byte aligned
+// CL false: one block per row (S = L).  CL true: cluster rank r of n holds
+// the slice [r * S, min(L, (r + 1) * S)) of row blockIdx.x / n.  Positions
+// are the row's throughout.  vec: the byte rows and the int32 outputs are
+// 16-byte aligned.
+template <bool CL>
 __global__ void __launch_bounds__(LROW_THREADS, 2)
-layout_row_kernel(const int* __restrict__ bytes, const int* __restrict__ lengths,
-                  unsigned char* bnd_o, int* nxt_o, int* h1_o, int* h2_o, int L,
-                  int vec) {
+layout_kernel(const int* __restrict__ bytes, const int* __restrict__ lengths,
+              unsigned char* bnd_o, int* nxt_o, int* h1_o, int* h2_o, int L, int S,
+              int vec) {
   extern __shared__ __align__(16) unsigned lsmem[];
   const int nth = blockDim.x;
   unsigned* s_c1 = lsmem;                // striped: local h1 at own word ends
   unsigned* s_c2 = s_c1 + nth * LROW_K;  // and h2
-  unsigned* s_bw = s_c2 + nth * LROW_K;  // bytes from position -LROW_FRONT, 4 a word
+  unsigned* s_bw = s_c2 + nth * LROW_K;  // bytes from position s0 - LROW_FRONT, 4 a word
   __shared__ HashMaps w_f[32];
   __shared__ NextEnd w_b[32];
+  int rank = 0, n = 1;
+  if constexpr (CL) {
+    rank = cluster_rank();
+    n = cluster_size();
+  }
+  const int row = CL ? blockIdx.x / n : blockIdx.x;
+  const int s0 = rank * S;  // this block's positions: [s0, iend)
+  const int iend = min(L, s0 + S);
   const int t = threadIdx.x;
-  const size_t off = (size_t)blockIdx.x * L;
-  const int len = max(0, min(lengths[blockIdx.x], L));
-  const int i0 = t * LROW_K;
+  const size_t off = (size_t)row * L;
+  const int len = max(0, min(lengths[row], L));
+  const int i0 = s0 + t * LROW_K;
 
-  // ---- load the row's bytes, 0 outside [0, len) -------------------------
-  // L / 4 int4 for nth >= L / LROW_K threads: at most LROW_K / 4 a thread,
+  // ---- load the slice's bytes, 0 outside [0, len) -----------------------
+  // S / 4 int4 for nth >= S / LROW_K threads: at most LROW_K / 4 a thread,
   // all issued before the first is used
   LROW_STAMP(0);
   int4 x[LROW_K / 4];
 #pragma unroll
   for (int j = 0; j < LROW_K / 4; ++j) {
     const int v = t + j * nth;
-    if (v >= L / 4) continue;
-    if (vec) {
-      x[j] = __ldg(reinterpret_cast<const int4*>(bytes + off) + v);
+    const int p = s0 + 4 * v;
+    if (v >= S / 4) continue;
+    if (p >= L) {  // the last slice of a cluster may end before S
+      x[j] = make_int4(0, 0, 0, 0);
+    } else if (vec) {
+      x[j] = __ldg(reinterpret_cast<const int4*>(bytes + off + p));
     } else {
-      const int* g = bytes + off + 4 * v;
+      const int* g = bytes + off + p;
       x[j] = make_int4(__ldg(g), __ldg(g + 1), __ldg(g + 2), __ldg(g + 3));
     }
   }
 #pragma unroll
   for (int j = 0; j < LROW_K / 4; ++j) {
     const int v = t + j * nth;
-    if (v >= L / 4) continue;
-    const int p = 4 * v;
+    if (v >= S / 4) continue;
+    const int p = s0 + 4 * v;
     s_bw[LROW_FRONT / 4 + v] = (p < len ? (unsigned)x[j].x & 0xffu : 0u) |
                                (p + 1 < len ? ((unsigned)x[j].y & 0xffu) << 8 : 0u) |
                                (p + 2 < len ? ((unsigned)x[j].z & 0xffu) << 16 : 0u) |
                                (p + 3 < len ? ((unsigned)x[j].w & 0xffu) << 24 : 0u);
   }
-  if (t < (LROW_FRONT + LROW_BACK) / 4)  // the zero pads
-    s_bw[t < LROW_FRONT / 4 ? t : L / 4 + t] = 0u;
+  if (t < (LROW_FRONT + LROW_BACK) / 4) {  // the window's bytes past the slice
+    const int p = t < LROW_FRONT / 4 ? s0 - LROW_FRONT + 4 * t : s0 + S + 4 * (t - 1);
+    unsigned w = 0u;  // a row's own ends: zero pads
+    if (CL && p >= 0) {
+      const int* g = bytes + off + p;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (p + k < len) w |= ((unsigned)__ldg(g + k) & 0xffu) << (8 * k);
+    }
+    s_bw[t < LROW_FRONT / 4 ? t : S / 4 + t] = w;
+  }
   __syncthreads();
   LROW_STAMP(1);
 
@@ -343,10 +249,10 @@ layout_row_kernel(const int* __restrict__ bytes, const int* __restrict__ lengths
   unsigned fa1 = 0, fa2 = 0;        // the maps' factors from i0 to e0
   HashMaps fwd = HashMaps::id();
   NextEnd rev = NextEnd::id();
-  if (i0 < L) {
+  if (i0 < iend) {
     // the window: bytes at i0 - 4 .. i0 + 19, bit q of a mask for i0 - 4 + q
-    const uint4 u = *reinterpret_cast<const uint4*>(s_bw + i0 / 4);
-    const uint2 u2 = *reinterpret_cast<const uint2*>(s_bw + i0 / 4 + 4);
+    const uint4 u = *reinterpret_cast<const uint4*>(s_bw + (i0 - s0) / 4);
+    const uint2 u2 = *reinterpret_cast<const uint2*>(s_bw + (i0 - s0) / 4 + 4);
     const unsigned wv[6] = {u.x, u.y, u.z, u.w, u2.x, u2.y};
     unsigned m_l = 0, m_n = 0, m_sp = 0, m_ws = 0, m_apo = 0;  // ascii_cls, and '
 #pragma unroll
@@ -359,21 +265,21 @@ layout_row_kernel(const int* __restrict__ bytes, const int* __restrict__ lengths
       m_sp |= nib4(eq4(w, ' ')) << (4 * j);
       m_apo |= nib4(eq4(w, '\'')) << (4 * j);
     }
-    // contractions starting at q = 1 .. 19 (Row::contr), visited only at
-    // apostrophes after L, N, WS or at position 0: c3 're 've 'll, c2 's 't 'm 'd
+    // contractions starting at q = 1 .. 19, visited only at apostrophes
+    // after L, N, WS or at position 0: c3 're 've 'll, c2 's 't 'm 'd
     const unsigned char* s_b8 = reinterpret_cast<const unsigned char*>(s_bw);
     const unsigned at0 = i0 == 0 ? 1u << 4 : 0u;
     unsigned c2 = 0, c3 = 0;
     for (unsigned am = m_apo & 0x000ffffeu & (((m_l | m_n | m_ws) << 1) | at0); am;
          am &= am - 1) {
       const int q = __ffs(am) - 1;
-      const unsigned b1 = s_b8[i0 + q + 1], b2 = s_b8[i0 + q + 2];
+      const unsigned b1 = s_b8[i0 - s0 + q + 1], b2 = s_b8[i0 - s0 + q + 2];
       const bool is3 = (b2 == 'e' && (b1 == 'r' || b1 == 'v')) || (b1 == 'l' && b2 == 'l');
       const bool is2 = b1 == 's' || b1 == 't' || b1 == 'm' || b1 == 'd';
       c3 |= is3 ? 1u << q : 0u;
       c2 |= (!is3 && is2) ? 1u << q : 0u;
     }
-    // Row::bnd, all positions at once
+    // the boundary rule (bpe_encode.gpt2_boundaries), all positions at once
     const int lr = len - i0;
     const unsigned inlen = lr + 4 >= 32 ? ~0u : (lr + 4 <= 0 ? 0u : (1u << (lr + 4)) - 1u);
     const unsigned interior = ((c2 | c3) << 1) | (c3 << 2);
@@ -423,7 +329,14 @@ layout_row_kernel(const int* __restrict__ bytes, const int* __restrict__ lengths
   // ---- one fused scan round: fwd becomes the maps of the row before i0,
   //      rev the first boundary and word end after i0 + LROW_K - 1 --------
   LROW_STAMP(2);
-  row_scan_exclusive(fwd, rev, w_f, w_b);
+  if constexpr (CL) {
+    __shared__ HashMaps c_f;
+    __shared__ NextEnd c_b;
+    cluster_scan_exclusive(fwd, rev, w_f, w_b, &c_f, &c_b, rank, n);
+    cluster_arrive();  // no remote read after this
+  } else {
+    row_scan_exclusive(fwd, rev, w_f, w_b);
+  }
   LROW_STAMP(3);
 
   // the hashes at i0 - 1 (fwd applied to 0), and from them the true hash at
@@ -444,7 +357,7 @@ layout_row_kernel(const int* __restrict__ bytes, const int* __restrict__ lengths
 
   // ---- outputs: a reverse walk carrying the next boundary and the nearest
   //      word end with its hashes; four positions to a store ---------------
-  if (i0 < L) {
+  if (i0 < iend) {
     int nb = rev.nb, ep = tail_end;
     unsigned v1 = tail1, v2 = tail2;
 #pragma unroll
@@ -495,9 +408,8 @@ layout_row_kernel(const int* __restrict__ bytes, const int* __restrict__ lengths
   __syncthreads();
   LROW_STAMP(4);
 #endif
+  if constexpr (CL) cluster_wait();  // no CTA leaves while another reads it
 }
-
-extern "C" int tt_n_scratch_layout_wide() { return 3; }
 
 extern "C" int tt_layout_row_max_l() { return LROW_MAX_L; }
 
@@ -505,19 +417,26 @@ extern "C" long long tt_layout_row_smem(int L) {
   return (long long)lrow_smem_bytes(L, lrow_threads(L));
 }
 
-// Allow the row kernel its dynamic shared memory at LROW_MAX_L on the
-// current device; needed once per device before the first launch.
+// Allow the row kernel and the cluster kernel their dynamic shared memory
+// at LROW_MAX_L, and the cluster kernel clusters of more than 8 CTAs, on
+// the current device; needed once per device before the first launch.
 extern "C" int tt_layout_row_init() {
-  return (int)cudaFuncSetAttribute(
-      layout_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lrow_smem_bytes(LROW_MAX_L, LROW_THREADS));
+  const int bytes = (int)lrow_smem_bytes(LROW_MAX_L, LROW_THREADS);
+  cudaError_t st = cudaFuncSetAttribute(
+      layout_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (st != cudaSuccess) return (int)st;
+  st = cudaFuncSetAttribute(layout_kernel<true>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (st != cudaSuccess) return (int)st;
+  return (int)cudaFuncSetAttribute(layout_kernel<true>,
+                                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
 // Blocks of the row kernel resident on one SM at width L (0 on error).
 extern "C" int tt_layout_row_blocks_per_sm(int L) {
   int n = 0;
   const int nth = lrow_threads(L);
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layout_row_kernel, nth,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layout_kernel<false>, nth,
                                                     lrow_smem_bytes(L, nth)) != cudaSuccess)
     return 0;
   return n;
@@ -529,17 +448,63 @@ extern "C" int tt_layout_row(void* bytes, void* lengths, void* bnd, void* nxt,
                              void* stream) {
   if (L < 1 || L > LROW_MAX_L || L % LROW_K) return (int)cudaErrorInvalidValue;
   const int nth = lrow_threads(L);
-  layout_row_kernel<<<B, nth, lrow_smem_bytes(L, nth), (cudaStream_t)stream>>>(
+  layout_kernel<false><<<B, nth, lrow_smem_bytes(L, nth), (cudaStream_t)stream>>>(
       (const int*)bytes, (const int*)lengths, (unsigned char*)bnd, (int*)nxt,
-      (int*)h1, (int*)h2, L, vec);
+      (int*)h1, (int*)h2, L, L, vec);
   return (int)cudaGetLastError();
 }
 
+// ---- the cluster kernel ----------------------------------------------------
+
+static bool wide_shape_ok(int L, int S, int n) {
+  return L >= 1 && L <= LWIDE_MAX_L && n >= 1 && n <= LWIDE_MAX_N && S >= LROW_K &&
+         S <= LROW_MAX_L && S % LROW_K == 0 && (n - 1) * S < L && L <= n * S;
+}
+
+static cudaLaunchConfig_t wide_config(int B, int S, int n, cudaLaunchAttribute* attr,
+                                      void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  const int nth = lrow_threads(S);
+  cfg.gridDim = dim3((unsigned)(B * n), 1, 1);
+  cfg.blockDim = dim3((unsigned)nth, 1, 1);
+  cfg.dynamicSmemBytes = lrow_smem_bytes(S, nth);
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+extern "C" int tt_layout_wide_max_l() { return LWIDE_MAX_L; }
+extern "C" int tt_layout_wide_max_n() { return LWIDE_MAX_N; }
+
+// Clusters of n CTAs with slices of S that can be resident at once on the
+// current device (cudaOccupancyMaxActiveClusters); minus the cudaError on
+// failure.  Needs tt_layout_row_init first.
+extern "C" int tt_layout_wide_max_clusters(int S, int n) {
+  if (!wide_shape_ok((n - 1) * S + 1, S, n)) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = wide_config(n, S, n, attr, nullptr);
+  int num = 0;
+  const cudaError_t st = cudaOccupancyMaxActiveClusters(&num, layout_kernel<true>, &cfg);
+  return st == cudaSuccess ? num : -(int)st;
+}
+
+// Rows of L positions in slices of S, n CTAs a cluster ((n - 1) * S < L <=
+// n * S, n <= LWIDE_MAX_N, S <= LROW_MAX_L, S % 16 == 0); vec as
+// tt_layout_row, with S % 16 == 0 too.
 extern "C" int tt_layout_wide(void* bytes, void* lengths, void* bnd, void* nxt,
-                              void* h1, void* h2, void* scratch, int B, int L,
-                              void* stream) {
-  layout_wide_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
-      (const int*)bytes, (const int*)lengths, (unsigned char*)bnd, (int*)nxt, (int*)h1,
-      (int*)h2, (int*)scratch, B, L);
+                              void* h1, void* h2, int B, int L, int S, int n,
+                              int vec, void* stream) {
+  if (!wide_shape_ok(L, S, n) || L % LROW_K) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = wide_config(B, S, n, attr, stream);
+  const cudaError_t st = cudaLaunchKernelEx(
+      &cfg, layout_kernel<true>, (const int*)bytes, (const int*)lengths,
+      (unsigned char*)bnd, (int*)nxt, (int*)h1, (int*)h2, L, S, vec);
+  if (st != cudaSuccess) return (int)st;
   return (int)cudaGetLastError();
 }

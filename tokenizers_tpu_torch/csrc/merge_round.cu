@@ -6,18 +6,17 @@
 //                        hashes of (id, next id).
 //   B1 <- merge_round_fused (_apply_keys_kernel, with the merge-table row
 //         reads of _select_rows moved into the kernel): one safe-set merge
-//         round, then the next round's keys.  Two kernels, chosen by row
-//         width: tt_merge_round_row for C <= ROW_MAX_C = 4096 (every launch
-//         of the dedup branch, the whole main path), tt_merge_round (the
-//         "wide" one) for wider rows (the full-width branch).
+//         round, then the next round's keys.  Two kernels from one body,
+//         chosen by row width: tt_merge_round_row for C <= ROW_MAX_C = 4096
+//         (every launch of the dedup branch), tt_merge_round for wider
+//         rows (the full-width branch: C up to 65,536), the row split over
+//         a thread-block cluster.
 //   B4 tt_merge_round_standalone
 //      <- merge_round_pallas (_keys_kernel, the row reads of _select_rows,
 //         then _apply_kernel): one round that computes its own keys and
 //         carries none out.
 // Plain versions: ops/merge_kernels.py (keys_plain, merge_round_fused_plain,
-// merge_round_standalone_plain).  The wide B1 and B4 share a round body
-// (round_row); B4 computes the keys in its first pass and stops after the
-// apply.
+// merge_round_standalone_plain).
 //
 // Bound on an H100 (3.35 TB/s): B2 reads ids and writes h0, h1, nid, 16 B
 // per position (4.9 MB, 1.4 us at the main path's unique buffer
@@ -28,14 +27,13 @@
 // writes ids, own_l, own_r and f, 29 B per position, plus the table rows as
 // B1.  All are bound by bytes.  The table-row reads mostly hit L1 and L2.
 //
-// The wide B1 (and B4): one block of 1024 threads per row (words never
+// B4 (its first design): one block of 1024 threads per row (words never
 // cross rows, so rows are independent) walks the row in 1024-wide tiles,
-// a dozen passes, every intermediate in 17 global scratch planes the
+// a dozen passes, every intermediate in 16 global scratch planes the
 // wrapper allocates.  Each scan of a tile is a block_scan with three
-// __syncthreads; at C = 4096 the wide B1 runs 36 of them one after another
-// (9 per tile).  Measured on an H100, the merge kernels take about 1.3 us
-// per such scan (B1 48.9 us for 36, B4 41.6 for 32), ten times B1's 4.9 us
-// bound: barriers, not bytes, set its time.
+// __syncthreads; at C = 4096 it runs 32 of them one after another.
+// Measured on an H100, about 1.3 us per such scan (41.6 us for 32), ten
+// times its bound: barriers, not bytes, set its time.
 //
 // B2 (keys_kernel, below) reads only a bounded window: tiles of 1024
 // positions and the 512 after them, no scan and no scratch.
@@ -48,12 +46,33 @@
 // threads at C = 4096, 56 registers, no spills (ptxas); dynamic shared
 // memory row_smem_bytes(C) = 184,344 B at C = 4096, plus 1,152 B static, so
 // one block per SM (74 rows fill 74 of 132 SMs).  Measured on an H100 at
-// [74, 4096]: about 0.022 ms against the wide kernel's 0.049, 4.5x the
-// bound.  What holds it there is the one SM a row runs on: its L2 traffic
-// (about one 32 B sector a cycle: the arrays, the table rows of every
-// alive position, the stores) and its instruction issue; the phase times
-// come from tools/b1_phases.py (built with -DTT_ROW_PHASES).  Spreading a
-// row over a cluster of SMs is the next step.
+// [74, 4096]: about 0.021 ms, 4.3x the bound.  What holds it there is the
+// one SM a row runs on: its L2 traffic (about one 32 B sector a cycle: the
+// arrays, the table rows of every alive position, the stores) and its
+// instruction issue; the phase times come from tools/b1_phases.py (built
+// with -DTT_ROW_PHASES).
+//
+// The wide B1 (tt_merge_round) is that body over a thread-block
+// cluster: CTA r of n holds the slice [r * S, (r + 1) * S) of a row in its
+// shared memory (S a power of two, 512-4096 positions; the wrapper picks S
+// and n from (R, C) so that the clusters fill the card where the rows
+// allow it).  Reads of another position go to the CTA that holds it,
+// through distributed shared memory: the bounded ones (next and previous
+// alive within 2^k_steps, the segment edges) reach at most the neighbour,
+// the unbounded ones (the run start, the first tail, the segment end of a
+// word that spans slices) any rank.  The three scan rounds carry across the
+// slices through scan.cuh's cluster_scan_exclusive, and the three
+// __syncthreads between them become cluster barriers.  No global scratch.
+// At C = 65,536 a cluster is 16 CTAs of 4096 (non-portable): the wrapper
+// asks cudaOccupancyMaxActiveClusters first and raises where it is 0.
+// Measured on an H100: about 0.019 ms at [8, 8192] (slices of 1024)
+// against 0.085 for the tiled kernel it replaced, 18x a bound of 0.0011;
+// 0.057 at [32, 16384] (slices of 2048) against 0.194, 6.8x a bound of
+// 0.0083.  What holds it (tools/b1_phases.py --wide): a CTA's cycles per
+// position are twice the row kernel's, the phases that end at a cluster
+// barrier or read other slices longest (the reads' rank test, the wait for
+// the cluster's slowest CTA); and at [32, 16384] the card holds 30
+// clusters of 8 at once, so 2 of the 32 rows run in a second wave.
 //
 // Semantics that must stay bit-equal to the JAX package:
 //   * next/prev alive is searched only 2^k_steps positions away; beyond,
@@ -63,6 +82,8 @@
 //   * INF = 0x7FFFFFFF; tail safety clamps MCR to BIG = 0x3FFFFFF0 first;
 //   * a hit in table 0 takes precedence over table 1;
 //   * the hash is uint32 arithmetic; mask = rows.shape[0] - 1.
+#include <type_traits>
+
 #include "scan.cuh"
 
 #define INF_RANK 0x7fffffff
@@ -86,7 +107,6 @@ enum {
   S_SEGEND,    // first segment end >= i
   S_SEGMIN,    // min rank from the segment start to i
   S_F,         // merged-head flag
-  S_NXT2,      // first alive position >= i after the merges
   N_SCRATCH
 };
 
@@ -129,22 +149,6 @@ __device__ void scan_next_alive(const int* ids, int* first_ge, int C, int* wt) {
     const int v = (e >= 0 && ids[e] >= 0) ? e : BIG_POS;
     const int s = block_scan(v, MinOp(), wt, carry);
     if (e >= 0) first_ge[e] = s;
-  }
-}
-
-// Next round's keys from ids (all scratch/outputs of one row).
-__device__ void emit_keys(const int* ids, int* first_ge, int* h0, int* h1,
-                          int* nid, int C, int reach, unsigned seed,
-                          unsigned mask, int* wt) {
-  scan_next_alive(ids, first_ge, C, wt);
-  __syncthreads();
-  for (int i = threadIdx.x; i < C; i += NT) {
-    const int j = next_within(first_ge, i, C, reach);
-    const int a = ids[i];
-    const int n = j >= 0 ? ids[j] : 0;
-    nid[i] = n;
-    h0[i] = pair_hash(a, n, seed, mask, 0);
-    h1[i] = pair_hash(a, n, seed, mask, 1);
   }
 }
 
@@ -257,22 +261,17 @@ keys_kernel(const int* __restrict__ ids, int* h0, int* h1, int* nid, int C,
   }
 }
 
-// One safe-set merge round over one row (row pointers; S: the scratch
-// planes of this row).  CARRIED: the pair keys (h0, h1, nid) come in from
-// the previous round (B1); otherwise the round computes them from ids
-// itself (B4) and h0_in, h1_in, nid_in are unused.
-template <bool CARRIED>
+// One safe-set merge round over one row (B4; row pointers; S: the scratch
+// planes of this row), its pair keys computed from ids.
 __device__ __forceinline__ void round_row(
     const int* ids, const int* own_l, const int* own_r, const int* wid,
-    const int* h0_in, const int* h1_in, const int* nid_in, const int* rows0,
-    const int* rows1, int* ids_o, int* ol_o, int* or_o, unsigned char* f_o,
-    int* const* S, int C, int reach, unsigned seed, unsigned mask, int* wti,
-    long long* wtl) {
+    const int* rows0, const int* rows1, int* ids_o, int* ol_o, int* or_o,
+    unsigned char* f_o, int* const* S, int C, int reach, unsigned seed,
+    unsigned mask, int* wti, long long* wtl) {
   const int nt = n_tiles(C);
-  if (!CARRIED) {  // first alive >= i, needed for the keys in pass 1
-    scan_next_alive(ids, S[S_NXT], C, wti);
-    __syncthreads();
-  }
+  // first alive >= i, needed for the keys in pass 1
+  scan_next_alive(ids, S[S_NXT], C, wti);
+  __syncthreads();
 
   // ---- pass 1: pair keys; table rows at the keys; last alive <= i ------
   {
@@ -282,17 +281,10 @@ __device__ __forceinline__ void round_row(
       int v = -1;
       if (i < C) {
         const int a = ids[i];
-        int n, k0, k1;
-        if (CARRIED) {
-          n = nid_in[i];
-          k0 = h0_in[i];
-          k1 = h1_in[i];
-        } else {
-          const int j = next_within(S[S_NXT], i, C, reach);
-          n = j >= 0 ? ids[j] : 0;
-          k0 = pair_hash(a, n, seed, mask, 0);
-          k1 = pair_hash(a, n, seed, mask, 1);
-        }
+        const int j = next_within(S[S_NXT], i, C, reach);
+        const int n = j >= 0 ? ids[j] : 0;
+        const int k0 = pair_hash(a, n, seed, mask, 0);
+        const int k1 = pair_hash(a, n, seed, mask, 1);
         const int* r0 = rows0 + 8 * (size_t)k0;
         const int* r1 = rows1 + 8 * (size_t)k1;
         const bool hit0 = r0[0] == a && r0[1] == n;
@@ -308,11 +300,9 @@ __device__ __forceinline__ void round_row(
       if (i < C) S[S_PRV][i] = s;
     }
   }
-  // ---- pass 2: first alive >= i ---------------------------------------
-  if (CARRIED) scan_next_alive(ids, S[S_NXT], C, wti);
   __syncthreads();
 
-  // ---- pass 3: pair validity and rank ---------------------------------
+  // ---- pass 2: pair validity and rank ---------------------------------
   for (int i = threadIdx.x; i < C; i += NT) {
     const int a = ids[i];
     const int j = next_within(S[S_NXT], i, C, reach);
@@ -326,7 +316,7 @@ __device__ __forceinline__ void round_row(
   }
   __syncthreads();
 
-  // ---- pass 4: run structure and head/tail safety ---------------------
+  // ---- pass 3: run structure and head/tail safety ---------------------
   for (int i = threadIdx.x; i < C; i += NT) {
     const int fl = S[S_FLAG1][i];
     const bool cand = fl & F_CAND;
@@ -355,7 +345,7 @@ __device__ __forceinline__ void round_row(
   }
   __syncthreads();
 
-  // ---- pass 5: forward scans ------------------------------------------
+  // ---- pass 4: forward scans ------------------------------------------
   {
     int c_sum = 0, c_seg = -1, c_run = -1;
     long long c_min = -1;  // identity of max over the non-negative keys
@@ -380,7 +370,7 @@ __device__ __forceinline__ void round_row(
       }
     }
   }
-  // ---- pass 6: reverse scans ------------------------------------------
+  // ---- pass 5: reverse scans ------------------------------------------
   {
     int c_tail = BIG_POS, c_end = BIG_POS;
     for (int t = 0; t < nt; ++t) {
@@ -398,7 +388,7 @@ __device__ __forceinline__ void round_row(
   }
   __syncthreads();
 
-  // ---- pass 7: parity, word min, the merge set ------------------------
+  // ---- pass 6: parity, word min, the merge set ------------------------
   for (int i = threadIdx.x; i < C; i += NT) {
     const bool cand = S[S_FLAG1][i] & F_CAND;
     bool f = false;
@@ -424,7 +414,7 @@ __device__ __forceinline__ void round_row(
   }
   __syncthreads();
 
-  // ---- pass 8: apply: left member takes the merge, right member dies --
+  // ---- pass 7: apply: left member takes the merge, right member dies --
   for (int i = threadIdx.x; i < C; i += NT) {
     const int a = ids[i];
     const bool f = S[S_F][i];
@@ -435,31 +425,6 @@ __device__ __forceinline__ void round_row(
     or_o[i] = f ? S[S_MCRN][i] : own_r[i];
     f_o[i] = f ? 1 : 0;
   }
-}
-
-// B1: the round from carried keys, then the next round's keys.
-__global__ void __launch_bounds__(NT)
-merge_round_kernel(const int* ids_g, const int* ol_g, const int* or_g,
-                   const int* wid_g, const int* h0_g, const int* h1_g,
-                   const int* nid_g, const int* rows0, const int* rows1,
-                   int* ids_o, int* ol_o, int* or_o, unsigned char* f_o, int* h0_o,
-                   int* h1_o, int* nid_o, int* scratch, int R, int C, int reach,
-                   unsigned seed, unsigned mask) {
-  __shared__ int wti[32];
-  __shared__ long long wtl[32];
-  const size_t off = (size_t)blockIdx.x * C;
-  const size_t plane = (size_t)R * C;
-  int* S[N_SCRATCH];
-#pragma unroll
-  for (int k = 0; k < N_SCRATCH; ++k) S[k] = scratch + k * plane + off;
-  round_row<true>(ids_g + off, ol_g + off, or_g + off, wid_g + off, h0_g + off,
-                  h1_g + off, nid_g + off, rows0, rows1, ids_o + off, ol_o + off,
-                  or_o + off, f_o + off, S, C, reach, seed, mask, wti, wtl);
-  __syncthreads();
-
-  // ---- passes 9-10: the next round's keys -----------------------------
-  emit_keys(ids_o + off, S[S_NXT2], h0_o + off, h1_o + off, nid_o + off, C,
-            reach, seed, mask, wti);
 }
 
 // B4: one standalone round, its keys computed in the kernel.
@@ -477,9 +442,9 @@ merge_round_standalone_kernel(const int* ids_g, const int* ol_g,
   int* S[N_SCRATCH];
 #pragma unroll
   for (int k = 0; k < N_SCRATCH; ++k) S[k] = scratch + k * plane + off;
-  round_row<false>(ids_g + off, ol_g + off, or_g + off, wid_g + off, nullptr,
-                   nullptr, nullptr, rows0, rows1, ids_o + off, ol_o + off,
-                   or_o + off, f_o + off, S, C, reach, seed, mask, wti, wtl);
+  round_row(ids_g + off, ol_g + off, or_g + off, wid_g + off, rows0, rows1,
+            ids_o + off, ol_o + off, or_o + off, f_o + off, S, C, reach, seed,
+            mask, wti, wtl);
 }
 
 // ---- B1 for rows of up to ROW_MAX_C positions: the row stays on the SM --
@@ -492,23 +457,33 @@ merge_round_standalone_kernel(const int* ids_g, const int* ol_g,
 // fused scan rounds: (a) last alive <= i and first alive >= i; (b) the
 // segmented candidate count, segment min and last run start forward, with
 // the first tail and first segment end in reverse; (c) first alive >= i
-// after the merges.  Six __syncthreads in all.
+// after the merges.  Six __syncthreads in all.  The wide kernel (CL) is
+// the same body over a cluster's slices, six cluster barriers in place of
+// the __syncthreads.
 
 #define ROW_K 4  // positions a thread owns
 #define ROW_MAX_C 4096
 #define ROW_THREADS (ROW_MAX_C / ROW_K)
+#define WIDE_MAX_C 65536  // the widest chunk engine_base makes: MAX_L / 2
+#define WIDE_MAX_N 16     // CTAs a cluster of the wide kernel may have
+#define WIDE_MIN_S 512    // its slices: powers of two, 512 .. ROW_MAX_C
 
 #ifdef TT_ROW_PHASES
 // Phase-timing build (tools/b1_phases.py): thread 0 of each of the first
 // ROW_TIMED blocks stamps the SM clock at the start, after each barrier and
-// at the end.
+// at the end, and the global timer at the start and the end.
 #define ROW_TIMED 256
 #define ROW_STAMPS 8
-__device__ long long tt_row_stamps[ROW_TIMED * ROW_STAMPS];
-#define ROW_STAMP(n)                                                  \
-  do {                                                                \
-    if (threadIdx.x == 0 && blockIdx.x < ROW_TIMED)                   \
-      tt_row_stamps[blockIdx.x * ROW_STAMPS + (n)] = clock64();       \
+// per block: the SM clock at each stamp, then the global timer (ns) at the
+// first and the last
+__device__ long long tt_row_stamps[ROW_TIMED * (ROW_STAMPS + 2)];
+#define ROW_STAMP(n)                                                            \
+  do {                                                                          \
+    if (threadIdx.x == 0 && blockIdx.x < ROW_TIMED) {                           \
+      long long* st = tt_row_stamps + blockIdx.x * (ROW_STAMPS + 2);            \
+      st[n] = clock64();                                                        \
+      if ((n) == 0 || (n) == ROW_STAMPS - 1) st[ROW_STAMPS + ((n) != 0)] = global_ns(); \
+    }                                                                           \
   } while (0)
 extern "C" int tt_row_stamps_read(long long* host) {
   return (int)cudaMemcpyFromSymbol(host, tt_row_stamps, sizeof(tt_row_stamps));
@@ -548,12 +523,20 @@ struct TailEnd {  // reverse scan of round (b): first tail, first segment end
 
 __device__ __forceinline__ int sp(int i) { return i + i / ROW_K; }
 
-// prev (low 16 bits) and next (high) alive position within reach, -1 if none
-__device__ __forceinline__ int pack_pj(int p, int j) {
-  return (int)(((unsigned)j << 16) | ((unsigned)p & 0xffffu));
+// the prev (low 16 bits) and next (high) alive position within reach of
+// position i, as distances from i (0: none; a reach is at most C - 1 <
+// 2^16, the wrappers clamp it)
+__device__ __forceinline__ unsigned pack_pj(int i, int p, int j) {
+  return ((unsigned)(j >= 0 ? j - i : 0) << 16) | (unsigned)(p >= 0 ? i - p : 0);
 }
-__device__ __forceinline__ int prev_of(int pj) { return (int)(short)(pj & 0xffff); }
-__device__ __forceinline__ int next_of(int pj) { return pj >> 16; }
+__device__ __forceinline__ int prev_of(int i, unsigned pj) {
+  const int d = (int)(pj & 0xffffu);
+  return d ? i - d : -1;
+}
+__device__ __forceinline__ int next_of(int i, unsigned pj) {
+  const int d = (int)(pj >> 16);
+  return d ? i + d : -1;
+}
 
 // this thread's ROW_K positions of one row; `vec`: C % 8 == 0 and the row
 // is 16-byte aligned, so a thread's run is ROW_K / 4 aligned int4
@@ -608,17 +591,22 @@ __host__ __device__ __forceinline__ int row_threads(int C) {
   return ((C + ROW_K - 1) / ROW_K + 31) / 32 * 32;
 }
 
+// CL false: one block per row, S = C.  CL true: cluster rank r of n holds
+// the slice [r * S, min(C, (r + 1) * S)) of row blockIdx.x / n, S = 2^lg_s.
+// Positions are the row's throughout; shared arrays are indexed from the
+// slice's start.
+template <bool CL>
 __global__ void __launch_bounds__(ROW_THREADS, 1)
-merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
-                       const int* __restrict__ or_g, const int* __restrict__ wid_g,
-                       const int* __restrict__ h0_g, const int* __restrict__ h1_g,
-                       const int* __restrict__ nid_g, const int* __restrict__ rows0,
-                       const int* __restrict__ rows1, int* ids_o, int* ol_o,
-                       int* or_o, unsigned char* f_o, int* h0_o, int* h1_o,
-                       int* nid_o, int C, int reach, unsigned seed,
-                       unsigned mask, int vec_flags) {
+merge_round_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
+                   const int* __restrict__ or_g, const int* __restrict__ wid_g,
+                   const int* __restrict__ h0_g, const int* __restrict__ h1_g,
+                   const int* __restrict__ nid_g, const int* __restrict__ rows0,
+                   const int* __restrict__ rows1, int* ids_o, int* ol_o,
+                   int* or_o, unsigned char* f_o, int* h0_o, int* h1_o,
+                   int* nid_o, int C, int S, int lg_s, int reach, unsigned seed,
+                   unsigned mask, int vec_flags) {
   extern __shared__ __align__(16) int smem[];
-  const int cp = C + C / ROW_K + 1;
+  const int cp = S + S / ROW_K + 1;
   const int nth = blockDim.x;
   int* s_wid = smem;               // wid; the ids after the round from (c)
   int* s_ol = s_wid + cp;          // own_l
@@ -630,8 +618,8 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
   int* s_mcln = s_newid + nth * ROW_K;
   int* s_mcrn = s_mcln + nth * ROW_K;
   unsigned char* s_valid = reinterpret_cast<unsigned char*>(s_mcrn + nth * ROW_K);
-  unsigned char* s_ht = s_valid + C;  // bit 0 head_ok, bit 1 tail_ok
-  unsigned char* s_f = s_ht + C;
+  unsigned char* s_ht = s_valid + S;  // bit 0 head_ok, bit 1 tail_ok
+  unsigned char* s_f = s_ht + S;
   int* s_smin = s_nmcr;
   int* s_ids2 = s_wid;
   __shared__ LastPos wa_f[32];
@@ -642,11 +630,43 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
   __shared__ FirstPos wc_b[32];
 
   ROW_STAMP(0);
+  int rank = 0, n = 1;
+  if constexpr (CL) {
+    rank = cluster_rank();
+    n = cluster_size();
+  }
   const bool vec = vec_flags & 1;
   const bool tvec = vec_flags & 2;
-  const size_t off = (size_t)blockIdx.x * C;
+  const size_t off = (size_t)(CL ? blockIdx.x / n : blockIdx.x) * C;
+  const int s0 = rank * S;          // this block's positions: [s0, cend)
+  const int cend = min(C, s0 + S);
   const int t = threadIdx.x;
-  const int i0 = t * ROW_K;
+  const int l0 = t * ROW_K;         // in the slice
+  const int i0 = s0 + l0;           // in the row
+  // a padded array (rd) or a byte array (rd8) at row position q, from the
+  // block that holds it; in a cluster without a branch, so that a thread's
+  // reads, local or remote, are all in flight at once
+  auto rd = [&](const int* arr, int q) -> int {
+    if constexpr (CL) {
+      const int r = q >> lg_s;
+      const int* p = arr + sp(q - (r << lg_s));
+      return *(r == rank ? p : at_rank(p, r));
+    }
+    return arr[sp(q - s0)];
+  };
+  auto rd8 = [&](const unsigned char* arr, int q) -> int {
+    if constexpr (CL) {
+      const int r = q >> lg_s;
+      const unsigned char* p = arr + (q - (r << lg_s));
+      return *(r == rank ? p : at_rank(p, r));
+    }
+    return arr[q - s0];
+  };
+  // barriers 2, 4 and 5: the block's, or the cluster's
+  auto barrier = []() {
+    if constexpr (CL) cluster_sync_all();
+    else __syncthreads();
+  };
 
   // ---- load; the merge-table rows at the carried keys ------------------
   int a[ROW_K];
@@ -655,15 +675,15 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
     load_run(wid_g + off, i0, C, vec, x, -1);
 #pragma unroll
     for (int k = 0; k < ROW_K; ++k)
-      if (i0 + k < C) s_wid[sp(i0 + k)] = x[k];
+      if (i0 + k < cend) s_wid[sp(l0 + k)] = x[k];
     load_run(ol_g + off, i0, C, vec, x, 0);
 #pragma unroll
     for (int k = 0; k < ROW_K; ++k)
-      if (i0 + k < C) s_ol[sp(i0 + k)] = x[k];
+      if (i0 + k < cend) s_ol[sp(l0 + k)] = x[k];
     load_run(or_g + off, i0, C, vec, x, 0);
 #pragma unroll
     for (int k = 0; k < ROW_K; ++k)
-      if (i0 + k < C) s_or[sp(i0 + k)] = x[k];
+      if (i0 + k < cend) s_or[sp(l0 + k)] = x[k];
   }
   load_run(ids_g + off, i0, C, vec, a, -1);
   {
@@ -673,8 +693,7 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
     load_run(nid_g + off, i0, C, vec, nid, 0);
 #pragma unroll
     for (int k = 0; k < ROW_K; ++k) {
-      const int i = i0 + k;
-      if (i >= C) continue;
+      if (i0 + k >= cend) continue;
       int r = INF_RANK;
       if (a[k] >= 0) {  // a dead position's pair is never valid
         int4 p0, p1;
@@ -688,12 +707,12 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
         s_mcln[k * nth + t] = hit0 ? q0.x : q1.x;
         s_mcrn[k * nth + t] = hit0 ? q0.y : q1.y;
       }
-      s_r[sp(i)] = r;
+      s_r[sp(l0 + k)] = r;
     }
   }
 
   // ---- round (a): prev and next alive within reach ---------------------
-  int pj[ROW_K];
+  unsigned pj[ROW_K];
   {
     LastPos fa = LastPos::id();
     FirstPos ba = FirstPos::id();
@@ -703,13 +722,20 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
         fa.p = i0 + k;
         if (ba.p == BIG_POS) ba.p = i0 + k;
       }
-    row_scan_exclusive(fa, ba, wa_f, wa_b);  // barrier 1
+    if constexpr (CL) {  // barrier 1
+      __shared__ LastPos ca_f;
+      __shared__ FirstPos ca_b;
+      cluster_scan_exclusive(fa, ba, wa_f, wa_b, &ca_f, &ca_b, rank, n);
+    } else {
+      row_scan_exclusive(fa, ba, wa_f, wa_b);
+    }
     ROW_STAMP(1);
+    int p[ROW_K];
     int carry = fa.p;
 #pragma unroll
     for (int k = 0; k < ROW_K; ++k) {
       const int i = i0 + k;
-      pj[k] = (carry >= 0 && i - carry <= reach) ? carry : -1;
+      p[k] = (carry >= 0 && i - carry <= reach) ? carry : -1;
       if (a[k] >= 0) carry = i;
     }
     carry = ba.p;
@@ -717,7 +743,7 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
     for (int k = ROW_K - 1; k >= 0; --k) {
       const int i = i0 + k;
       const int j = (carry < C && carry - i <= reach) ? carry : -1;
-      pj[k] = pack_pj(pj[k], j);
+      pj[k] = pack_pj(i, p[k], j);
       if (a[k] >= 0) carry = i;
     }
   }
@@ -728,16 +754,16 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
   for (int k = 0; k < ROW_K; ++k) {
     const int i = i0 + k;
     fl[k] = 0;
-    if (i >= C) continue;
-    const int j = next_of(pj[k]);
-    const bool valid = a[k] >= 0 && j >= 0 && s_wid[sp(j)] == s_wid[sp(i)];
-    const int r = valid ? s_r[sp(i)] : INF_RANK;
-    s_r[sp(i)] = r;
-    s_nmcr[sp(i)] = j >= 0 ? s_or[sp(j)] : 0;
-    s_valid[i] = valid;
+    if (i >= cend) continue;
+    const int j = next_of(i, pj[k]);
+    const bool valid = a[k] >= 0 && j >= 0 && rd(s_wid, j) == s_wid[sp(l0 + k)];
+    const int r = valid ? s_r[sp(l0 + k)] : INF_RANK;
+    s_r[sp(l0 + k)] = r;
+    s_nmcr[sp(l0 + k)] = j >= 0 ? rd(s_or, j) : 0;
+    s_valid[l0 + k] = valid;
     fl[k] = (valid ? R_VALID : 0) | ((valid && r < INF_RANK) ? R_CAND : 0);
   }
-  __syncthreads();  // barrier 2
+  barrier();  // barrier 2
   ROW_STAMP(2);
 
   // ---- run structure, head/tail safety, segment edges ------------------
@@ -746,20 +772,20 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
   for (int k = 0; k < ROW_K; ++k) {
     const int i = i0 + k;
     rk[k] = INF_RANK;
-    if (i >= C) continue;
-    const int r = s_r[sp(i)];
-    const int wi = s_wid[sp(i)];
+    if (i >= cend) continue;
+    const int r = s_r[sp(l0 + k)];
+    const int wi = s_wid[sp(l0 + k)];
     const bool valid = fl[k] & R_VALID;
     const bool cand = fl[k] & R_CAND;
-    const int j = next_of(pj[k]);
-    const int p = prev_of(pj[k]);
-    const int nr = j >= 0 ? s_r[sp(j)] : 0;
-    const bool nvalid = j >= 0 && s_valid[j];
-    const int nnmcr = j >= 0 ? s_nmcr[sp(j)] : 0;
+    const int j = next_of(i, pj[k]);
+    const int p = prev_of(i, pj[k]);
+    const int nr = j >= 0 ? rd(s_r, j) : 0;
+    const bool nvalid = j >= 0 && rd8(s_valid, j);
+    const int nnmcr = j >= 0 ? rd(s_nmcr, j) : 0;
     const bool pfound = p >= 0;
-    const int pr = pfound ? s_r[sp(p)] : 0;
-    const int pmcl = pfound ? s_ol[sp(p)] : 0;
-    const bool prev_in_word = pfound && s_wid[sp(p)] == wi;
+    const int pr = pfound ? rd(s_r, p) : 0;
+    const int pmcl = pfound ? rd(s_ol, p) : 0;
+    const bool prev_in_word = pfound && rd(s_wid, p) == wi;
     const bool same_run_prev = cand && prev_in_word && pr == r;
     const bool run_start = cand && !same_run_prev;
     const bool has_next_pair = valid && j >= 0 && nvalid;
@@ -768,9 +794,9 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
     const bool head_ok = run_start && (!prev_in_word || (r < pr && r <= pmcl));
     const int nn = nnmcr < BIG_MCR ? nnmcr : BIG_MCR;
     const bool tail_ok = tail && r < nr && (!has_next_pair || r <= nn + 1);
-    s_ht[i] = (head_ok ? 1 : 0) | (tail_ok ? 2 : 0);
-    const bool seg = i == 0 || s_wid[sp(i - 1)] != wi;
-    const bool send = i == C - 1 || s_wid[sp(i + 1)] != wi;
+    s_ht[l0 + k] = (head_ok ? 1 : 0) | (tail_ok ? 2 : 0);
+    const bool seg = i == 0 || rd(s_wid, i - 1) != wi;
+    const bool send = i == C - 1 || rd(s_wid, i + 1) != wi;
     fl[k] |= (seg ? R_SEG : 0) | (send ? R_SEND : 0) |
              (run_start ? R_RUNSTART : 0) | (tail ? R_TAIL : 0);
     rk[k] = r;
@@ -778,7 +804,13 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
 
   // ---- round (b): segmented count and min, run start; first tail and
   //      first segment end ---------------------------------------------
-  int rs[ROW_K], te[ROW_K];  // te: first tail (low 16 bits), segment end
+  // te: the first tail (TE_NONE if none) in the low half, the first segment
+  // end in the high half; 16 bits each in a row of at most ROW_MAX_C
+  typedef typename std::conditional<CL, unsigned long long, unsigned>::type TE;
+  constexpr int TE_BITS = CL ? 32 : 16;
+  constexpr TE TE_NONE = CL ? 0xffffffffull : 0xffffu;
+  int rs[ROW_K];
+  TE te[ROW_K];
   {
     SegRun fb = SegRun::id();
     TailEnd bb = TailEnd::id();
@@ -790,57 +822,60 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
           (fl[k] & R_SEND) ? i0 + (k) : BIG_POS}
 #pragma unroll
     for (int k = 0; k < ROW_K; ++k)
-      if (i0 + k < C) fb = SegRun::op(fb, SEGRUN_AT(k));
+      if (i0 + k < cend) fb = SegRun::op(fb, SEGRUN_AT(k));
 #pragma unroll
     for (int k = ROW_K - 1; k >= 0; --k)
-      if (i0 + k < C) bb = TailEnd::op(bb, TAILEND_AT(k));
-    row_scan_exclusive(fb, bb, wb_f, wb_b);  // barrier 3
+      if (i0 + k < cend) bb = TailEnd::op(bb, TAILEND_AT(k));
+    if constexpr (CL) {  // barrier 3
+      __shared__ SegRun cb_f;
+      __shared__ TailEnd cb_b;
+      cluster_scan_exclusive(fb, bb, wb_f, wb_b, &cb_f, &cb_b, rank, n);
+    } else {
+      row_scan_exclusive(fb, bb, wb_f, wb_b);
+    }
     ROW_STAMP(3);
 #pragma unroll
     for (int k = 0; k < ROW_K; ++k) {
-      const int i = i0 + k;
       rs[k] = -1;
-      if (i >= C) continue;
+      if (i0 + k >= cend) continue;
       fb = SegRun::op(fb, SEGRUN_AT(k));
-      s_q[sp(i)] = fb.cnt;
-      s_smin[sp(i)] = fb.mn;
+      s_q[sp(l0 + k)] = fb.cnt;
+      s_smin[sp(l0 + k)] = fb.mn;
       rs[k] = fb.rs;
     }
 #pragma unroll
     for (int k = ROW_K - 1; k >= 0; --k) {
-      const int i = i0 + k;
       te[k] = 0;
-      if (i >= C) continue;
+      if (i0 + k >= cend) continue;
       bb = TailEnd::op(bb, TAILEND_AT(k));
-      te[k] = (bb.tail < C ? bb.tail : 0xffff) | (bb.end << 16);
+      te[k] = (bb.tail < C ? (TE)bb.tail : TE_NONE) | ((TE)bb.end << TE_BITS);
     }
 #undef SEGRUN_AT
 #undef TAILEND_AT
   }
-  __syncthreads();  // barrier 4
+  barrier();  // barrier 4
   ROW_STAMP(4);
 
   // ---- parity, word min: the merge set ---------------------------------
 #pragma unroll
   for (int k = 0; k < ROW_K; ++k) {
-    const int i = i0 + k;
-    if (i >= C) continue;
+    if (i0 + k >= cend) continue;
     if (fl[k] & R_CAND) {
-      const int q = s_q[sp(i)];
+      const int q = s_q[sp(l0 + k)];
       int q_head = 0, hl = 0;
       if (rs[k] >= 0) {
-        q_head = s_q[sp(rs[k])];
-        hl = s_ht[rs[k]] & 1;
+        q_head = rd(s_q, rs[k]);
+        hl = rd8(s_ht, rs[k]) & 1;
       }
-      const int tp = te[k] & 0xffff;
-      const int tl = tp < C ? (s_ht[tp] >> 1) & 1 : 0;
-      const int wmin = s_smin[sp(te[k] >> 16)];
+      const TE tp = te[k] & TE_NONE;
+      const int tl = tp < (TE)C ? (rd8(s_ht, (int)tp) >> 1) & 1 : 0;
+      const int wmin = rd(s_smin, (int)(te[k] >> TE_BITS));
       const bool parity_odd = ((q - q_head) & 1) == 0;
       if (parity_odd && (rk[k] == wmin || (hl == 1 && tl == 1))) fl[k] |= R_F;
     }
-    s_f[i] = (fl[k] & R_F) ? 1 : 0;
+    s_f[l0 + k] = (fl[k] & R_F) ? 1 : 0;
   }
-  __syncthreads();  // barrier 5
+  barrier();  // barrier 5
   ROW_STAMP(5);
 
   // ---- apply: the left member takes the merge, the right member dies ---
@@ -850,14 +885,14 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
     for (int k = 0; k < ROW_K; ++k) {
       const int i = i0 + k;
       ol2[k] = or2[k] = 0;
-      if (i >= C) continue;
+      if (i >= cend) continue;
       const bool f = fl[k] & R_F;
-      const int p = prev_of(pj[k]);
-      const bool kill = a[k] >= 0 && p >= 0 && s_f[p];
+      const int p = prev_of(i, pj[k]);
+      const bool kill = a[k] >= 0 && p >= 0 && rd8(s_f, p);
       a[k] = kill ? -1 : (f ? s_newid[k * nth + t] : a[k]);
-      ol2[k] = f ? s_mcln[k * nth + t] : s_ol[sp(i)];
-      or2[k] = f ? s_mcrn[k * nth + t] : s_or[sp(i)];
-      s_ids2[sp(i)] = a[k];
+      ol2[k] = f ? s_mcln[k * nth + t] : s_ol[sp(l0 + k)];
+      or2[k] = f ? s_mcrn[k * nth + t] : s_or[sp(l0 + k)];
+      s_ids2[sp(l0 + k)] = a[k];
     }
     store_run(ids_o + off, i0, C, vec, a);
     store_run(ol_o + off, i0, C, vec, ol2);
@@ -884,46 +919,63 @@ merge_round_row_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol
 #pragma unroll
     for (int k = ROW_K - 1; k >= 0; --k)
       if (a[k] >= 0) bc.p = i0 + k;
-    row_scan_exclusive(fc, bc, wc_f, wc_b);  // barrier 6
+    if constexpr (CL) {  // barrier 6
+      __shared__ NoScan cc_f;
+      __shared__ FirstPos cc_b;
+      cluster_scan_exclusive(fc, bc, wc_f, wc_b, &cc_f, &cc_b, rank, n);
+    } else {
+      row_scan_exclusive(fc, bc, wc_f, wc_b);
+    }
     ROW_STAMP(6);
-    int n[ROW_K];
+    int nx[ROW_K];
     int carry = bc.p;
 #pragma unroll
     for (int k = ROW_K - 1; k >= 0; --k) {
       const int i = i0 + k;
       const int j = (carry < C && carry - i <= reach) ? carry : -1;
-      n[k] = j >= 0 ? s_ids2[sp(j)] : 0;
+      nx[k] = j >= 0 ? rd(s_ids2, j) : 0;
       if (a[k] >= 0) carry = i;
     }
+    if constexpr (CL) cluster_arrive();  // no remote read after this
     int h[ROW_K];
-    store_run(nid_o + off, i0, C, vec, n);
+    store_run(nid_o + off, i0, C, vec, nx);
 #pragma unroll
-    for (int k = 0; k < ROW_K; ++k) h[k] = pair_hash(a[k], n[k], seed, mask, 0);
+    for (int k = 0; k < ROW_K; ++k) h[k] = pair_hash(a[k], nx[k], seed, mask, 0);
     store_run(h0_o + off, i0, C, vec, h);
 #pragma unroll
-    for (int k = 0; k < ROW_K; ++k) h[k] = pair_hash(a[k], n[k], seed, mask, 1);
+    for (int k = 0; k < ROW_K; ++k) h[k] = pair_hash(a[k], nx[k], seed, mask, 1);
     store_run(h1_o + off, i0, C, vec, h);
   }
 #ifdef TT_ROW_PHASES
   __syncthreads();
   ROW_STAMP(7);
 #endif
+  if constexpr (CL) cluster_wait();  // no CTA leaves while another reads it
 }
 
 extern "C" int tt_n_scratch_merge_round() { return N_SCRATCH; }
 
 extern "C" int tt_merge_round_row_max_c() { return ROW_MAX_C; }
 
+// dynamic shared memory of the row kernel at width C, or of the wide
+// kernel at slice C
 extern "C" long long tt_merge_round_row_smem(int C) {
   return (long long)row_smem_bytes(C, row_threads(C));
 }
 
-// Allow the row kernel its dynamic shared memory at ROW_MAX_C on the
-// current device; needed once per device before the first launch.
+// Allow both B1 kernels their dynamic shared memory at ROW_MAX_C, and the
+// wide one clusters of more than 8 CTAs, on the current device; needed
+// once per device before the first launch.
 extern "C" int tt_merge_round_row_init() {
-  return (int)cudaFuncSetAttribute(
-      merge_round_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)row_smem_bytes(ROW_MAX_C, ROW_THREADS));
+  const int bytes = (int)row_smem_bytes(ROW_MAX_C, ROW_THREADS);
+  cudaError_t st = cudaFuncSetAttribute(
+      merge_round_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (st != cudaSuccess) return (int)st;
+  st = cudaFuncSetAttribute(merge_round_kernel<true>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (st != cudaSuccess) return (int)st;
+  return (int)cudaFuncSetAttribute(merge_round_kernel<true>,
+                                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
 // vec: C % 4 == 0 and ids, h0, h1, nid 16-byte aligned
@@ -938,21 +990,6 @@ extern "C" int tt_keys(void* ids, void* h0, void* h1, void* nid, int R, int C,
   return (int)cudaGetLastError();
 }
 
-extern "C" int tt_merge_round(void* ids, void* own_l, void* own_r, void* wid,
-                              void* h0, void* h1, void* nid, void* rows0,
-                              void* rows1, void* ids_o, void* ol_o, void* or_o,
-                              void* f_o, void* h0_o, void* h1_o, void* nid_o,
-                              void* scratch, int R, int C, int reach,
-                              unsigned seed, unsigned mask, void* stream) {
-  merge_round_kernel<<<R, NT, 0, (cudaStream_t)stream>>>(
-      (const int*)ids, (const int*)own_l, (const int*)own_r, (const int*)wid,
-      (const int*)h0, (const int*)h1, (const int*)nid, (const int*)rows0,
-      (const int*)rows1, (int*)ids_o, (int*)ol_o, (int*)or_o, (unsigned char*)f_o,
-      (int*)h0_o, (int*)h1_o, (int*)nid_o, (int*)scratch, R, C, reach, seed,
-      mask);
-  return (int)cudaGetLastError();
-}
-
 // vec_flags: bit 0, C % 8 == 0 and the row arrays 16-byte aligned (f_o
 // 8-byte); bit 1, the tables 16-byte aligned.
 extern "C" int tt_merge_round_row(void* ids, void* own_l, void* own_r, void* wid,
@@ -962,13 +999,85 @@ extern "C" int tt_merge_round_row(void* ids, void* own_l, void* own_r, void* wid
                                   void* nid_o, int R, int C, int reach,
                                   unsigned seed, unsigned mask, int vec_flags,
                                   void* stream) {
-  if (C < 1 || C > ROW_MAX_C) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > ROW_MAX_C || reach < 1) return (int)cudaErrorInvalidValue;
   const int nth = row_threads(C);
-  merge_round_row_kernel<<<R, nth, row_smem_bytes(C, nth), (cudaStream_t)stream>>>(
+  merge_round_kernel<false><<<R, nth, row_smem_bytes(C, nth), (cudaStream_t)stream>>>(
       (const int*)ids, (const int*)own_l, (const int*)own_r, (const int*)wid,
       (const int*)h0, (const int*)h1, (const int*)nid, (const int*)rows0,
       (const int*)rows1, (int*)ids_o, (int*)ol_o, (int*)or_o, (unsigned char*)f_o,
-      (int*)h0_o, (int*)h1_o, (int*)nid_o, C, reach, seed, mask, vec_flags);
+      (int*)h0_o, (int*)h1_o, (int*)nid_o, C, C, 0, min(reach, C), seed, mask,
+      vec_flags);
+  return (int)cudaGetLastError();
+}
+
+// ---- the wide B1: the row kernel's body over a cluster ---------------------
+
+static int wide_lg(int S) {  // log2 of a valid slice, else -1
+  if (S < WIDE_MIN_S || S > ROW_MAX_C || (S & (S - 1))) return -1;
+  int lg = 0;
+  while ((1 << lg) < S) ++lg;
+  return lg;
+}
+
+static bool wide_shape_ok(int C, int S, int n) {
+  return wide_lg(S) >= 0 && n >= 1 && n <= WIDE_MAX_N && C >= 1 &&
+         C <= WIDE_MAX_C && (n - 1) * S < C && C <= n * S;
+}
+
+static cudaLaunchConfig_t wide_config(int R, int S, int n, cudaLaunchAttribute* attr,
+                                      void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  const int nth = row_threads(S);
+  cfg.gridDim = dim3((unsigned)(R * n), 1, 1);
+  cfg.blockDim = dim3((unsigned)nth, 1, 1);
+  cfg.dynamicSmemBytes = row_smem_bytes(S, nth);
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+extern "C" int tt_merge_round_max_c() { return WIDE_MAX_C; }
+extern "C" int tt_merge_round_max_n() { return WIDE_MAX_N; }
+extern "C" int tt_merge_round_min_s() { return WIDE_MIN_S; }
+
+// Clusters of n CTAs with slices of S that can be resident at once on the
+// current device (cudaOccupancyMaxActiveClusters); minus the cudaError on
+// failure.  Needs tt_merge_round_row_init first.
+extern "C" int tt_merge_round_max_clusters(int S, int n) {
+  if (!wide_shape_ok((n - 1) * S + 1, S, n)) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = wide_config(n, S, n, attr, nullptr);
+  int num = 0;
+  const cudaError_t st =
+      cudaOccupancyMaxActiveClusters(&num, merge_round_kernel<true>, &cfg);
+  return st == cudaSuccess ? num : -(int)st;
+}
+
+// Rows of C positions in slices of S (a power of two, WIDE_MIN_S ..
+// ROW_MAX_C), n CTAs a cluster ((n - 1) * S < C <= n * S, n <= WIDE_MAX_N);
+// vec_flags as tt_merge_round_row.
+extern "C" int tt_merge_round(void* ids, void* own_l, void* own_r, void* wid,
+                                   void* h0, void* h1, void* nid, void* rows0,
+                                   void* rows1, void* ids_o, void* ol_o,
+                                   void* or_o, void* f_o, void* h0_o, void* h1_o,
+                                   void* nid_o, int R, int C, int S, int n,
+                                   int reach, unsigned seed, unsigned mask,
+                                   int vec_flags, void* stream) {
+  if (!wide_shape_ok(C, S, n) || reach < 1) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = wide_config(R, S, n, attr, stream);
+  const cudaError_t st = cudaLaunchKernelEx(
+      &cfg, merge_round_kernel<true>, (const int*)ids, (const int*)own_l,
+      (const int*)own_r, (const int*)wid, (const int*)h0, (const int*)h1,
+      (const int*)nid, (const int*)rows0, (const int*)rows1, (int*)ids_o,
+      (int*)ol_o, (int*)or_o, (unsigned char*)f_o, (int*)h0_o, (int*)h1_o,
+      (int*)nid_o, C, S, wide_lg(S), min(reach, C), seed, mask, vec_flags);
+  if (st != cudaSuccess) return (int)st;
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,8 @@
   the `regex` module's \\p{L} and \\p{N} (the classes Oniguruma uses).
 * `gpt2_digests.json`, `llama3_digests.json`: per-document SHA-256 of
   the ids that the `tokenizers` wheel gives for `smoke_data.build_docs()`
-  on the gpt2 and llama3_128k fixtures.
+  on the gpt2 and llama3_128k fixtures; `gpt2_long_digests.json` for
+  the documents of `smoke_data.long_parts()`, in order, on gpt2.
 
 Both references are optional dependencies: they are imported by name here
 only, so the package itself never needs them.
@@ -29,7 +30,7 @@ from ..ops.unicode_tables import (
     PAGE_SIZE,
     TABLE_PATH,
 )
-from ..smoke_data import CONFIGS, build_docs, digests_path, ids_digest
+from ..smoke_data import CONFIGS, build_docs, digests_path, ids_digest, long_parts
 
 # Oniguruma \s
 WS_CODEPOINTS = (
@@ -56,10 +57,11 @@ def class_tables():
     return stage1.reshape(-1).astype(np.int32), uniq.reshape(-1).astype(np.int8)
 
 
-def wheel_digests(config: str = "gpt2"):
+def wheel_digests(config: str = "gpt2", docs=None):
     wheel = importlib.import_module("tokenizers")
     ref = wheel.Tokenizer.from_file(CONFIGS[config])
-    encs = ref.encode_batch_fast(build_docs(), add_special_tokens=True)
+    encs = ref.encode_batch_fast(build_docs() if docs is None else docs,
+                                 add_special_tokens=True)
     return [ids_digest(e.ids) for e in encs]
 
 
@@ -67,11 +69,13 @@ def main():
     stage1, stage2 = class_tables()
     np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
     print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes")
-    for config in CONFIGS:
-        with open(digests_path(config), "w") as f:
-            json.dump({"sha256": wheel_digests(config)}, f, indent=0)
+    digests = {config: wheel_digests(config) for config in CONFIGS}
+    digests["gpt2_long"] = wheel_digests("gpt2", sum(long_parts().values(), []))
+    for name, sha in digests.items():
+        with open(digests_path(name), "w") as f:
+            json.dump({"sha256": sha}, f, indent=0)
             f.write("\n")
-        print("wrote", digests_path(config))
+        print("wrote", digests_path(name))
 
 
 if __name__ == "__main__":

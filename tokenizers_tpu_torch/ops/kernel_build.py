@@ -30,8 +30,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+SMEM_MAX = 232448  # dynamic shared memory a block may use on an H100
+PORTABLE_N = 8  # the widest thread-block cluster every Hopper part must hold
+
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 LOGS: Dict[str, str] = {}  # nvcc/ptxas output per source (and -D flags), from this process
+# (library, entry, device, slice, cluster size) -> clusters resident at once
+CLUSTERS: Dict[Tuple[str, str, int, int, int], int] = {}
 
 
 def build_dir() -> str:
@@ -131,3 +136,25 @@ def device_of(name: str, t) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def max_clusters(lib: ctypes.CDLL, entry: str, dev, S: int, n: int) -> int:
+    """Clusters of n CTAs with slices of S that the card `dev` holds at
+    once: the library's `entry` (cudaOccupancyMaxActiveClusters), asked
+    once per library, device and shape.  Raises where it is not positive:
+    such a cluster can never launch, and there is no fallback."""
+    import torch
+
+    key = (lib._name, entry, dev.index, S, n)
+    if key not in CLUSTERS:
+        with torch.cuda.device(dev):
+            num = getattr(lib, entry)(S, n)
+        if num <= 0:
+            raise RuntimeError(f"{entry}: no cluster of {n} CTAs with slices of {S} fits "
+                               f"the card (cudaOccupancyMaxActiveClusters: {num})")
+        CLUSTERS[key] = num
+    return CLUSTERS[key]

@@ -10,8 +10,10 @@ positions at most).  The plain version composes the same stages from
 
 Two kernels, chosen by row width: the row kernel (`tt_layout_row`) for
 L <= ROW_MAX_L, which keeps the row on the SM and needs L % 16 == 0 (the
-main path's chunks are [B, 8192]), and the tiled one
-(`layout_fused_wide`, through global scratch) for wider rows.  Bytes are
+8 KB documents' chunks are [B, 8192]), and the same body over a
+thread-block cluster (`layout_fused_wide`, `tt_layout_wide`) for the long
+documents' chunks, L up to WIDE_MAX_L: `wide_geometry` cuts a row into
+n <= 8 slices of at most ROW_MAX_L positions, one CTA each.  Bytes are
 0-255.
 
 The wrapper runs the plain version for tensors on the CPU; for CUDA
@@ -26,21 +28,53 @@ import ctypes
 
 import torch
 
-from .kernel_build import check_cuda_int32, check_status, device_of, library
+from . import kernel_build
+from .kernel_build import ceil_div, check_cuda_int32, check_status, device_of, library
 
 LAUNCHES = {"layout_fused": 0, "layout_fused_wide": 0}
-ROW_MAX_L = 8192  # widest row of the row kernel (csrc: LROW_MAX_L)
-ROW_K = 16  # positions a thread of the row kernel owns (csrc: LROW_K)
+ROW_MAX_L = 8192  # widest row of the row kernel, widest slice (csrc: LROW_MAX_L)
+ROW_K = 16  # positions a thread owns (csrc: LROW_K)
+WIDE_MAX_L = 65536  # widest row of the cluster kernel: packing.MAX_L // 2 (csrc: LWIDE_MAX_L)
+WIDE_MAX_N = 16  # CTAs a cluster may have, above 8 non-portable (csrc: LWIDE_MAX_N)
 BIGP = 0x7FFFFFFF
 _SRC = "layout.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ROW_READY = set()  # (library, device) where the row kernel's shared memory is allowed
+# slice sizes other than the rule's, where `tools/cluster_sweep.py` found
+# them faster on an H100 (PERF.md, section 6): at L = 32768 eight slices of
+# 4096 take 0.0356 ms against 0.0383 for four of 8192.  A measured exception,
+# not a rule: sweep again whenever the kernel's body changes
+WIDE_SLICE = {32768: 4096}
+_READY = set()  # (library, device) where the kernels' shared memory is allowed
 
 
 def supported(shape) -> bool:
+    """Chunks `bpe_encode` gives this module.  On the card a row wider
+    than WIDE_MAX_L is refused (`wide_geometry` raises), not sent to the
+    plain boundaries."""
     _B, L = shape
     return L % 128 == 0 and L >= 256
+
+
+def smem_bytes(S):
+    """Dynamic shared memory of a block holding S positions (csrc:
+    lrow_smem_bytes): two striped uint32 a thread's position and the bytes."""
+    nth = ceil_div(ceil_div(S, ROW_K), 32) * 32
+    return 2 * 4 * nth * ROW_K + 4 + S + 12
+
+
+def wide_geometry(L):
+    """(S, n) of the cluster kernel for rows of L positions: n =
+    ceil(L / ROW_MAX_L) CTAs of S = ceil(L / n) positions, rounded up to a
+    multiple of ROW_K, unless WIDE_SLICE names S.  Raises for rows it does
+    not take."""
+    if not (ROW_MAX_L <= L <= WIDE_MAX_L and L % 128 == 0):
+        raise ValueError(
+            f"layout_fused_wide: takes L % 128 == 0 from {ROW_MAX_L} to {WIDE_MAX_L}, "
+            f"got L = {L}"
+        )
+    S = WIDE_SLICE.get(L) or ceil_div(ceil_div(L, ceil_div(L, ROW_MAX_L)), ROW_K) * ROW_K
+    return S, ceil_div(L, S)
 
 
 def load(defines=()):
@@ -50,17 +84,24 @@ def load(defines=()):
     if not getattr(lib, "_tt_typed", False):
         lib.tt_layout_row.argtypes = [_P] * 6 + [_I, _I, _I, _P]
         lib.tt_layout_row.restype = _I
-        lib.tt_layout_wide.argtypes = [_P] * 7 + [_I, _I, _P]
+        lib.tt_layout_wide.argtypes = [_P] * 6 + [_I] * 5 + [_P]
         lib.tt_layout_wide.restype = _I
-        lib.tt_n_scratch_layout_wide.restype = _I
+        lib.tt_layout_wide_max_clusters.argtypes = [_I, _I]
+        lib.tt_layout_wide_max_clusters.restype = _I
+        lib.tt_layout_wide_max_l.restype = _I
+        lib.tt_layout_wide_max_n.restype = _I
         lib.tt_layout_row_init.restype = _I
         lib.tt_layout_row_smem.argtypes = [_I]
         lib.tt_layout_row_smem.restype = ctypes.c_longlong
         lib.tt_layout_row_blocks_per_sm.argtypes = [_I]
         lib.tt_layout_row_blocks_per_sm.restype = _I
         lib.tt_layout_row_max_l.restype = _I
-        if lib.tt_layout_row_max_l() != ROW_MAX_L:
-            raise RuntimeError("layout.cu and layout_kernels.py disagree on ROW_MAX_L")
+        if (lib.tt_layout_row_max_l(), lib.tt_layout_wide_max_l(),
+                lib.tt_layout_wide_max_n()) != (ROW_MAX_L, WIDE_MAX_L, WIDE_MAX_N):
+            raise RuntimeError("layout.cu and layout_kernels.py disagree on their limits")
+        for S in (16, 1024, ROW_MAX_L):
+            if lib.tt_layout_row_smem(S) != smem_bytes(S):
+                raise RuntimeError("layout.cu and layout_kernels.py disagree on shared memory")
         lib._tt_typed = True
     return lib
 
@@ -101,9 +142,9 @@ def _outputs(name, b, lengths):
 
 
 def _row_init(lib, dev):
-    """Allow the row kernel its dynamic shared memory, once per library and
+    """Allow both kernels their dynamic shared memory, once per library and
     device."""
-    if (lib._name, dev.index) in _ROW_READY:
+    if (lib._name, dev.index) in _READY:
         return
     with torch.cuda.device(dev):
         st = lib.tt_layout_row_init()
@@ -112,7 +153,7 @@ def _row_init(lib, dev):
             "layout_fused: cudaFuncSetAttribute(MaxDynamicSharedMemorySize, "
             f"{lib.tt_layout_row_smem(ROW_MAX_L)}) failed with cudaError {st}"
         )
-    _ROW_READY.add((lib._name, dev.index))
+    _READY.add((lib._name, dev.index))
 
 
 def row_residency(L):
@@ -123,6 +164,15 @@ def row_residency(L):
     return lib.tt_layout_row_smem(L), lib.tt_layout_row_blocks_per_sm(L)
 
 
+def max_clusters(S, n, dev=None, lib=None):
+    """Clusters of n CTAs with slices of S the card holds at once
+    (`kernel_build.max_clusters`); raises where there are none."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev is None else dev
+    lib = load() if lib is None else lib
+    _row_init(lib, dev)
+    return kernel_build.max_clusters(lib, "tt_layout_wide_max_clusters", dev, S, n)
+
+
 def layout_fused(b, lengths, lib=None):
     """(b int32[B, L] bytes, lengths int32[B]) -> (bnd, nxt, h1, h2).
     `lib`: the build whose row kernel runs, from `load` (None: the shipped
@@ -131,7 +181,7 @@ def layout_fused(b, lengths, lib=None):
         return layout_fused_plain(b, lengths)
     B, L = b.shape
     if L > ROW_MAX_L:
-        return layout_fused_wide(b, lengths)
+        return layout_fused_wide(b, lengths, lib)
     if L % ROW_K:
         raise ValueError(f"layout_fused: the row kernel takes L % {ROW_K} == 0, got L = {L}")
     outs = _outputs("layout_fused", b, lengths)
@@ -149,23 +199,31 @@ def layout_fused(b, lengths, lib=None):
     return outs
 
 
-def layout_fused_wide(b, lengths):
-    """B3 through the tiled kernel, at any width.  `layout_fused` takes it
-    for rows wider than ROW_MAX_L."""
+def layout_fused_wide(b, lengths, lib=None):
+    """B3 through the cluster kernel, L % 128 == 0 from ROW_MAX_L to
+    WIDE_MAX_L.  `layout_fused` takes it for rows wider than ROW_MAX_L.
+    `lib` as `layout_fused`'s."""
     if device_of("layout_fused_wide", b) == "cpu":
         return layout_fused_plain(b, lengths)
+    return _layout_cluster(b, lengths, *wide_geometry(b.shape[1]), lib)
+
+
+def _layout_cluster(b, lengths, S, n, lib=None):
+    """The cluster kernel in n slices of S positions a row, for CUDA
+    tensors: `layout_fused_wide` with the geometry given
+    (`tools/cluster_sweep.py` times each)."""
     B, L = b.shape
     outs = _outputs("layout_fused_wide", b, lengths)
     if b.numel() == 0:
         return outs
-    lib = load()
-    scratch = torch.empty(
-        (lib.tt_n_scratch_layout_wide(), B, L), dtype=torch.int32, device=b.device
-    )
+    if lib is None:
+        lib = load()
+    max_clusters(S, n, b.device, lib)
+    vec = all(t.data_ptr() % 16 == 0 for t in (b,) + outs)
     LAUNCHES["layout_fused"] += 1
     LAUNCHES["layout_fused_wide"] += 1
     check_status("layout_fused_wide", lib.tt_layout_wide(
-        b.data_ptr(), lengths.data_ptr(), *(t.data_ptr() for t in outs),
-        scratch.data_ptr(), B, L, torch.cuda.current_stream(b.device).cuda_stream,
+        b.data_ptr(), lengths.data_ptr(), *(t.data_ptr() for t in outs), B, L,
+        S, n, int(vec), torch.cuda.current_stream(b.device).cuda_stream,
     ))
     return outs

@@ -8,10 +8,11 @@ plain versions; port of `tokenizers_tpu.ops.merge_pallas`.
 * `merge_round_fused` (B1, replaces `merge_round_fused`): one safe-set
   merge round from the carried keys, merge-table row reads included, then
   the next round's keys.  Returns (ids, own_l, own_r, f, h0, h1, nid).
-  Two kernels, chosen by row width: the row kernel for C <= ROW_MAX_C
-  (the row held in shared memory; every launch of the dedup branch) and
-  the wide one (`merge_round_fused_wide`, tiles through global scratch)
-  for wider rows.
+  Two kernels from one body, chosen by row width: the row kernel for
+  C <= ROW_MAX_C (the row held in one block's shared memory; every launch
+  of the dedup branch) and the wide one (`merge_round_fused_wide`, the row
+  split over a thread-block cluster, `cluster_geometry`) for wider rows,
+  up to WIDE_MAX_C (the full-width branch).
 * `merge_round_standalone` (B4, replaces `merge_round_pallas`): one round
   that computes its own keys and carries none out; word segments derive
   from wid.  Returns (ids, own_l, own_r, f).  Only `bpe_merge2._round`
@@ -29,19 +30,26 @@ import ctypes
 import torch
 
 from .bpe_merge2 import FILL_K, _seg_of, apply_round, fill_next, merge_round, select_rows
-from .kernel_build import check_cuda_int32, check_status, device_of, library
+from . import kernel_build
+from .kernel_build import (
+    PORTABLE_N, ceil_div, check_cuda_int32, check_status, device_of, library,
+)
 from .merge_table import hash_pair
 
 # every B1 launch counts in "merge_round_fused", the wide kernel's also in
 # "merge_round_fused_wide"
 LAUNCHES = {"keys": 0, "merge_round_fused": 0, "merge_round_fused_wide": 0,
             "merge_round_standalone": 0}
-ROW_MAX_C = 4096  # widest row of B1's row kernel (csrc: ROW_MAX_C)
+ROW_MAX_C = 4096  # widest row of B1's row kernel, widest slice (csrc: ROW_MAX_C)
+WIDE_MAX_C = 65536  # widest row of the wide kernel: packing.MAX_L // 2 (csrc: WIDE_MAX_C)
+WIDE_MAX_N = 16  # CTAs a cluster may have; above 8 non-portable (csrc: WIDE_MAX_N)
+WIDE_MIN_S = 512  # narrowest slice (csrc: WIDE_MIN_S)
+SMS = 132  # SMs of an H100 SXM: `cluster_geometry`'s default; the wrapper asks the card
 _SRC = "merge_round.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
-_ROW_READY = set()  # (library, device) where the row kernel's shared memory is allowed
+_READY = set()  # (library, device) where the kernels' shared memory is allowed
 
 
 def load(defines=()):
@@ -51,16 +59,26 @@ def load(defines=()):
     if not getattr(lib, "_tt_typed", False):
         lib.tt_keys.argtypes = [_P] * 4 + [_I, _I, _I, _U, _U, _I, _P]
         lib.tt_keys.restype = _I
-        lib.tt_merge_round.argtypes = [_P] * 17 + [_I, _I, _I, _U, _U, _P]
+        lib.tt_merge_round.argtypes = [_P] * 16 + [_I] * 5 + [_U, _U, _I, _P]
         lib.tt_merge_round.restype = _I
+        lib.tt_merge_round_max_clusters.argtypes = [_I, _I]
+        lib.tt_merge_round_max_clusters.restype = _I
+        for f in ("max_c", "max_n", "min_s"):
+            getattr(lib, f"tt_merge_round_{f}").restype = _I
         lib.tt_merge_round_row.argtypes = [_P] * 16 + [_I, _I, _I, _U, _U, _I, _P]
         lib.tt_merge_round_row.restype = _I
         lib.tt_merge_round_row_init.restype = _I
         lib.tt_merge_round_row_smem.argtypes = [_I]
         lib.tt_merge_round_row_smem.restype = ctypes.c_longlong
         lib.tt_merge_round_row_max_c.restype = _I
-        if lib.tt_merge_round_row_max_c() != ROW_MAX_C:
-            raise RuntimeError("merge_round.cu and merge_kernels.py disagree on ROW_MAX_C")
+        if ((lib.tt_merge_round_row_max_c(), lib.tt_merge_round_max_c(),
+             lib.tt_merge_round_max_n(), lib.tt_merge_round_min_s())
+                != (ROW_MAX_C, WIDE_MAX_C, WIDE_MAX_N, WIDE_MIN_S)):
+            raise RuntimeError("merge_round.cu and merge_kernels.py disagree on their limits")
+        for S in (1001, WIDE_MIN_S, ROW_MAX_C):
+            if lib.tt_merge_round_row_smem(S) != smem_bytes(S):
+                raise RuntimeError("merge_round.cu and merge_kernels.py disagree on "
+                                   "shared memory")
         lib.tt_merge_round_standalone.argtypes = [_P] * 11 + [_I, _I, _I, _U, _U, _P]
         lib.tt_merge_round_standalone.restype = _I
         lib.tt_n_scratch_merge_round.restype = _I
@@ -135,18 +153,53 @@ def _fused_outputs(name, ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1):
 
 
 def _row_init(lib, dev):
-    """Allow the row kernel its dynamic shared memory, once per library and
-    device."""
-    if (lib._name, dev.index) in _ROW_READY:
+    """Allow both B1 kernels their dynamic shared memory (and the wide one
+    its non-portable clusters), once per library and device."""
+    if (lib._name, dev.index) in _READY:
         return
     with torch.cuda.device(dev):
         st = lib.tt_merge_round_row_init()
     if st != 0:
         raise RuntimeError(
-            "merge_round_fused: cudaFuncSetAttribute(MaxDynamicSharedMemorySize, "
-            f"{row_smem_bytes(ROW_MAX_C)}) failed with cudaError {st}"
+            "merge_round_fused: cudaFuncSetAttribute(MaxDynamicSharedMemorySize "
+            f"{smem_bytes(ROW_MAX_C)}, NonPortableClusterSizeAllowed) failed with "
+            f"cudaError {st}"
         )
-    _ROW_READY.add((lib._name, dev.index))
+    _READY.add((lib._name, dev.index))
+
+
+def smem_bytes(S):
+    """Dynamic shared memory of a B1 block holding S positions (csrc:
+    row_smem_bytes): six padded int arrays, three striped ones and three
+    byte arrays."""
+    nth = ceil_div(ceil_div(S, 4), 32) * 32
+    return (6 * (S + S // 4 + 1) + 3 * nth * 4) * 4 + 3 * S
+
+
+def cluster_geometry(R, C, sms=SMS):
+    """(S, n) of the wide B1 for R rows of C positions on a card of `sms`
+    SMs: slices of S (a power of two, WIDE_MIN_S .. ROW_MAX_C), n =
+    ceil(C / S) CTAs a row.  The widest S whose R * n CTAs fill the SMs,
+    with n at most PORTABLE_N; where no S does, the narrowest S with
+    n <= PORTABLE_N; where C > PORTABLE_N * ROW_MAX_C, slices of ROW_MAX_C
+    in a non-portable cluster.  Raises for rows it does not take."""
+    if not 1 <= C <= WIDE_MAX_C:
+        raise ValueError(f"merge_round_fused_wide: takes 1 <= C <= {WIDE_MAX_C}, got C = {C}")
+    if C > PORTABLE_N * ROW_MAX_C:
+        return ROW_MAX_C, ceil_div(C, ROW_MAX_C)
+    fits = [S for S in (4096, 2048, 1024, 512) if ceil_div(C, S) <= PORTABLE_N]
+    full = [S for S in fits if R * ceil_div(C, S) >= sms]
+    S = full[0] if full else fits[-1]
+    return S, ceil_div(C, S)
+
+
+def max_clusters(S, n, dev=None, lib=None):
+    """Clusters of n CTAs with slices of S the card holds at once
+    (`kernel_build.max_clusters`); raises where there are none."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev is None else dev
+    lib = load() if lib is None else lib
+    _row_init(lib, dev)
+    return kernel_build.max_clusters(lib, "tt_merge_round_max_clusters", dev, S, n)
 
 
 def row_vec_flags(rows, f, rows0, rows1):
@@ -156,11 +209,6 @@ def row_vec_flags(rows, f, rows0, rows1):
                and all(t.data_ptr() % 16 == 0 for t in rows))
     table_vec = rows0.data_ptr() % 16 == 0 and rows1.data_ptr() % 16 == 0
     return int(row_vec) | 2 * int(table_vec)
-
-
-def row_smem_bytes(C):
-    """Dynamic shared memory of the row kernel at width C (bytes)."""
-    return load().tt_merge_round_row_smem(C)
 
 
 def merge_round_fused(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed,
@@ -174,7 +222,7 @@ def merge_round_fused(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed,
     R, C = ids.shape
     if C > ROW_MAX_C:
         return merge_round_fused_wide(
-            ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps
+            ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps, lib
         )
     ins = (ids, own_l, own_r, wid, h0, h1, nid)
     mask, outs, f = _fused_outputs("merge_round_fused", *ins, rows0, rows1)
@@ -195,34 +243,45 @@ def merge_round_fused(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed,
 
 
 def merge_round_fused_wide(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1,
-                           seed, k_steps=FILL_K):
-    """B1 through the wide kernel, at any width.  `merge_round_fused` takes
-    it for rows wider than ROW_MAX_C; chip_smoke.py also times it at the
-    row kernel's widths."""
+                           seed, k_steps=FILL_K, lib=None):
+    """B1 through the wide kernel, the row split over a cluster
+    (`cluster_geometry`), C up to WIDE_MAX_C.  `merge_round_fused` takes it
+    for rows wider than ROW_MAX_C.  `lib` as `merge_round_fused`'s."""
     if device_of("merge_round_fused_wide", ids) == "cpu":
         return merge_round_fused_plain(
             ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps
         )
     R, C = ids.shape
-    mask, outs, f = _fused_outputs(
-        "merge_round_fused_wide", ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1
+    geometry = cluster_geometry(R, C, torch.cuda.get_device_properties(ids.device)
+                                .multi_processor_count)
+    return _merge_round_cluster(
+        geometry, ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps, lib
     )
+
+
+def _merge_round_cluster(geometry, ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1,
+                         seed, k_steps=FILL_K, lib=None):
+    """The wide kernel with geometry = (S, n): n slices of S positions a
+    row, for CUDA tensors; `merge_round_fused_wide` with the geometry given
+    (`tools/cluster_sweep.py` times each, `tools/b1_phases.py --one-cta`
+    runs S = C)."""
+    R, C = ids.shape
+    S, n = geometry
+    ins = (ids, own_l, own_r, wid, h0, h1, nid)
+    mask, outs, f = _fused_outputs("merge_round_fused_wide", *ins, rows0, rows1)
     if ids.numel() == 0:
         return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
-    lib = load()
-    scratch = torch.empty(
-        (lib.tt_n_scratch_merge_round(), R, C), dtype=torch.int32,
-        device=ids.device,
-    )
+    if lib is None:
+        lib = load()
+    max_clusters(S, n, ids.device, lib)
     LAUNCHES["merge_round_fused"] += 1
     LAUNCHES["merge_round_fused_wide"] += 1
     check_status("merge_round_fused_wide", lib.tt_merge_round(
-        ids.data_ptr(), own_l.data_ptr(), own_r.data_ptr(), wid.data_ptr(),
-        h0.data_ptr(), h1.data_ptr(), nid.data_ptr(), rows0.data_ptr(),
-        rows1.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-        outs[2].data_ptr(), f.data_ptr(), outs[3].data_ptr(),
-        outs[4].data_ptr(), outs[5].data_ptr(), scratch.data_ptr(), R, C,
-        1 << k_steps, int(seed) & 0xFFFFFFFF, mask, _stream(ids),
+        *(t.data_ptr() for t in ins), rows0.data_ptr(), rows1.data_ptr(),
+        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+        f.data_ptr(), outs[3].data_ptr(), outs[4].data_ptr(),
+        outs[5].data_ptr(), R, C, S, n, 1 << k_steps, int(seed) & 0xFFFFFFFF,
+        mask, row_vec_flags(ins + tuple(outs), f, rows0, rows1), _stream(ids),
     ))
     return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
 

@@ -7,16 +7,29 @@ boundary.  At the default 4 MiB target that is 512 documents: 492 pure
 ASCII, which pack into two [256, 8192] chunks, and 20 with multi-byte
 characters, which pack into one [32, 8192] chunk.
 
+`long_parts` gives the documents of the long-document phase by part:
+(a) `long_docs`, 32 KB corpus documents and three of about 100 KB, which
+the engine splits into chunks of at most 32 KB ([64, 32768] ASCII chunks,
+the cluster layout kernel's); (b) `dense_docs`, 12 KB documents of
+distinct random words, whose unique words overflow the dedup buffer
+([8, 16384], the full-width branch and the cluster merge kernel); (c) the
+same at 16 KB, where two rounds at the full width leave more tokens than
+the 5/8 width holds, so every row is flagged and the host encodes it.
+
 `data/gpt2_digests.json` and `data/llama3_digests.json` hold one SHA-256
 per document of the ids the `tokenizers` wheel gives (special tokens
 added) on `tests/fixtures/gpt2/tokenizer.json` and
-`tests/fixtures/llama3_128k/tokenizer.json`
+`tests/fixtures/llama3_128k/tokenizer.json`; `data/gpt2_long_digests.json`
+those of the `long_parts()` documents, in order, on gpt2
 (`python -m tokenizers_tpu_torch.data.regen` writes them;
 `tests/test_torch_tables.py` re-derives them).
 
 `first_ascii_chunk` and `unique_state` give the merge loop's first state
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
-`tools/b1_phases.py` hold and time B1.  `adversarial_case` builds the
+`tools/b1_phases.py` hold and time B1; `full_width_state` the first state
+of the full-width branch, and `full_width_states` the two such states at
+which the tools and `chip_smoke.py` time the wide B1; `corpus_chunk` the
+corpus chunks at which they time the wide B3.  `adversarial_case` builds the
 edge-case merge layouts on which `chip_smoke.py` and the tests hold the
 merge kernels against their plain versions; `adversarial_layout_case` the
 edge-case byte rows for the layout kernel.
@@ -27,7 +40,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -41,6 +54,12 @@ GPT2_JSON = CONFIGS["gpt2"]
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 DOC_BYTES = 8 * 1024
 TARGET_BYTES = 4 << 20
+LONG_DOC_BYTES = 32 * 1024
+SPLIT_DOC_BYTES = 100_000  # > packing.MAX_L // 2: split at safe seams
+DENSE_DOCS = 8
+DENSE_BYTES = 12 * 1024  # (b): the card finishes every row
+DENSE_OVERFLOW_BYTES = 16 * 1024  # (c): every row overflows the 5/8 width
+DENSE_SEED = 0
 
 
 def build_docs(target: int = TARGET_BYTES, doc_bytes: int = DOC_BYTES) -> List[str]:
@@ -64,6 +83,38 @@ def build_docs(target: int = TARGET_BYTES, doc_bytes: int = DOC_BYTES) -> List[s
     return docs
 
 
+def long_docs() -> List[str]:
+    """32 KB corpus documents (`build_docs` at 4 MB) and three documents of
+    about 100 KB, which `engine_base` splits into chunks of at most 32 KB."""
+    return (build_docs(TARGET_BYTES, LONG_DOC_BYTES)
+            + build_docs(3 * SPLIT_DOC_BYTES, SPLIT_DOC_BYTES))
+
+
+def dense_docs(n: int = DENSE_DOCS, nbytes: int = DENSE_BYTES,
+               seed: int = DENSE_SEED) -> List[str]:
+    """n documents of at most nbytes: random words of 4-8 lowercase
+    letters, as ids in logs (letters: the GPT-2 pattern splits letters
+    from digits, so each word stays one pre-token), separated by spaces.
+    Almost every word is distinct, so a chunk of them overflows its dedup
+    buffer and takes the full-width branch."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for _ in range(n):
+        lens = rng.integers(4, 9, nbytes // 4)
+        keep = int(np.searchsorted(np.cumsum(lens + 1), nbytes + 1))  # words that fit
+        letters = rng.integers(97, 123, int(lens[:keep].sum()), dtype=np.uint8)
+        cuts = np.cumsum(lens[:keep])[:-1]
+        docs.append(" ".join(w.tobytes().decode() for w in np.split(letters, cuts)))
+    return docs
+
+
+def long_parts() -> Dict[str, List[str]]:
+    """The long-document phase's documents by part, in the order of
+    `data/gpt2_long_digests.json`."""
+    return {"long": long_docs(), "dense": dense_docs(),
+            "dense_16k": dense_docs(nbytes=DENSE_OVERFLOW_BYTES)}
+
+
 def ids_digest(ids: Sequence[int]) -> str:
     return hashlib.sha256(np.asarray(ids, dtype="<i4").tobytes()).hexdigest()
 
@@ -77,19 +128,63 @@ def load_digests(config: str = "gpt2") -> List[str]:
         return json.load(f)["sha256"]
 
 
-def first_ascii_chunk(eng, prepared):
-    """The first [256, 8192] ASCII chunk of the packed documents `prepared`
-    on the card: (bytes int32, lengths, in-bounds mask)."""
+def first_ascii_chunk(eng, prepared, shape=(256, 8192), device="cuda"):
+    """The first ASCII chunk of `shape` of the packed documents `prepared`:
+    (bytes int32, lengths, in-bounds mask)."""
     import torch
 
     from .ops.packing import pack_batch
 
     buf, lens, _ = next(c for c in pack_batch(prepared)
-                        if c[0].shape == (256, 8192) and eng._is_ascii(c[0]))
-    b = torch.from_numpy(buf).cuda().to(torch.int32)
-    n = torch.from_numpy(lens).cuda()
+                        if c[0].shape == tuple(shape) and eng._is_ascii(c[0]))
+    b = torch.from_numpy(buf).to(device).to(torch.int32)
+    n = torch.from_numpy(lens).to(device)
     inb = torch.arange(b.shape[1], device=b.device)[None, :] < n[:, None]
     return b, n, inb
+
+
+def corpus_chunk(eng, shape, device="cuda"):
+    """The first ASCII chunk of `shape` = (B, L) of the corpus cut into
+    documents of L bytes (`build_docs`): (bytes int32, lengths, in-bounds
+    mask)."""
+    docs = build_docs(doc_bytes=shape[1])
+    return first_ascii_chunk(eng, [eng._prepare(d) for d in docs], shape, device)
+
+
+def full_width_states(eng, device="cuda"):
+    """{(R, C): B1's args (ids, own_l, own_r, wid, h0, h1, nid, rows0,
+    rows1, seed)} at two full-width states: the first 8 rows of the 8 KB
+    documents' first [256, 8192] ASCII chunk, and the [32, 16384] chunk of
+    32 dense documents.  Boundaries and keys come from the kernels of the
+    package this module is loaded in."""
+    from .ops import layout_kernels as lk
+    from .ops import merge_kernels as mk
+
+    T = eng.tables
+    tabs = (T["merge_rows0"], T["merge_rows1"], T["seed"])
+    states = {}
+    for docs, shape, rows in ((build_docs(), (256, 8192), 8),
+                              (dense_docs(32), (32, 16384), 32)):
+        b, n, inb = first_ascii_chunk(eng, [eng._prepare(d) for d in docs], shape, device)
+        b, n, inb = b[:rows], n[:rows], inb[:rows]
+        ids, own_l, own_r, wid = full_width_state(eng, b, inb, lk.layout_fused(b, n)[0])
+        states[(rows, shape[1])] = (ids, own_l, own_r, wid,
+                                    *mk.keys(ids, tabs[0], tabs[2]), *tabs)
+    return states
+
+
+def full_width_state(eng, b, inb, bnd):
+    """The full-width branch's first state (ids, own_l, own_r, wid) of the
+    chunk b from its boundaries (`bpe_encode.encode_core`)."""
+    import torch
+
+    from .ops.bpe_merge2 import init_own
+
+    T = eng.tables
+    ids = torch.where(inb, T["byte2id"][b.to(torch.int64)], -1)
+    wid = torch.where(inb, torch.cumsum(bnd.int(), 1, dtype=torch.int32) - 1, -1)
+    own_l, own_r = init_own(ids, T["merge_mclr"])
+    return ids, own_l, own_r, wid
 
 
 def unique_state(eng, b, n, inb, layout):

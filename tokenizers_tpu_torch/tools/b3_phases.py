@@ -1,13 +1,16 @@
-"""Per-phase times of B3's row kernel on the card.
+"""Per-phase times of B3's row kernel, or of its cluster kernel, on the
+card.
 
-    python -m tokenizers_tpu_torch.tools.b3_phases
+    python -m tokenizers_tpu_torch.tools.b3_phases [--wide]
 
 Loads `csrc/layout.cu` as shipped and built with -DTT_LAYOUT_PHASES, where
 thread 0 of each block stamps the SM clock at the start, after the load's
 barrier, before and after the scan's, and at the end (after one more
 barrier).  Runs both through `layout_kernels.layout_fused` on the gpt2
-path's first [256, 8192] ASCII corpus chunk (`chip_smoke.py`'s); every
-output must equal `layout_fused_plain`.  Prints one JSON line: the ms of
+path's first [256, 8192] ASCII corpus chunk (`chip_smoke.py`'s), or with
+--wide on the first [64, 32768] chunk of 32 KB corpus documents
+(`smoke_data.corpus_chunk`) (the cluster
+kernel, 4 CTAs a row); every output must equal `layout_fused_plain`.  Prints one JSON line: the ms of
 the kernel and of its timing build (CUDA events, `timing.median_ms`), and
 the mean and largest SM cycles of each phase over the blocks, the spread
 of the blocks' start and end times on the global timer (ns), the phases of
@@ -17,6 +20,7 @@ limit from nvidia-smi.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 
@@ -25,8 +29,8 @@ import torch
 from .. import Tokenizer
 from ..ops import layout_kernels as lk
 from ..ops.kernel_build import check_status
-from ..smoke_data import GPT2_JSON, build_docs, first_ascii_chunk
-from .b1_phases import _smi
+from ..smoke_data import GPT2_JSON, corpus_chunk
+from .b1_phases import _smi, block_spread
 from .timing import median_ms
 
 PHASES = (  # between consecutive stamps
@@ -40,9 +44,12 @@ LROW_TIMED = 256  # blocks that stamp (csrc: LROW_TIMED)
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--wide", action="store_true", help="the cluster kernel at [64, 32768]")
+    shape = (64, 32768) if ap.parse_args().wide else (256, 8192)
     smi = _smi("name,power.limit")
     eng = Tokenizer.from_file(GPT2_JSON)._get_device_engine()
-    b, n, _inb = first_ascii_chunk(eng, [eng._prepare(d) for d in build_docs()])
+    b, n, _inb = corpus_chunk(eng, shape)
     lib = lk.load()
     tlib = lk.load(("TT_LAYOUT_PHASES",))
     tlib.tt_layout_stamps_read.argtypes = [ctypes.c_void_p]
@@ -58,22 +65,17 @@ def main() -> None:
     torch.cuda.synchronize()
     stamps = torch.zeros(LROW_TIMED * (N_STAMPS + 2), dtype=torch.int64)
     check_status("tt_layout_stamps_read", tlib.tt_layout_stamps_read(stamps.data_ptr()))
-    st = stamps.view(LROW_TIMED, N_STAMPS + 2)[:b.shape[0]]
-    d = st[:, :N_STAMPS].diff(dim=1).double()
-    t0, t1 = st[:, N_STAMPS], st[:, N_STAMPS + 1]
-    start, end = (t0 - t0.min()).double(), (t1 - t0.min()).double()
-    q = torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64)
-    slow = (t1 - t0).argsort(descending=True)[:4]
+    B, L = b.shape
+    S, nc = lk.wide_geometry(L) if L > lk.ROW_MAX_L else (L, 1)
+    d, spread = block_spread(stamps, min(B * nc, LROW_TIMED), N_STAMPS)
+    slow = d.sum(1).argsort(descending=True)[:4]
     print(json.dumps({
-        "shape": list(b.shape), "ms": ms, "timed_build_ms": timed_ms,
+        "shape": [B, L], "slice_and_cluster": [S, nc], "ms": ms, "timed_build_ms": timed_ms,
         "phase_cycles_mean": dict(zip(PHASES, d.mean(0).tolist())),
         "phase_cycles_max": dict(zip(PHASES, d.max(0).values.tolist())),
-        "total_cycles_mean": float(d.sum(1).mean()),
-        "block_ns": {"start_p50_p90_max": start.quantile(q).tolist(),
-                     "end_p50_p90_max": end.quantile(q).tolist(),
-                     "length_p50_p90_max": (end - start).quantile(q).tolist()},
-        "slowest_blocks": {int(i): {"row_length": int(n[i]), "phase_cycles": d[i].tolist()}
-                           for i in slow},
+        "total_cycles_mean": float(d.sum(1).mean()), "block_ns": spread,
+        "slowest_blocks": {int(i): {"row_length": int(n[int(i) // nc]),
+                                    "phase_cycles": d[i].tolist()} for i in slow},
         "sm_clock_mhz_now_max": _smi("clocks.sm,clocks.max.sm"), "card": smi,
     }), flush=True)
 

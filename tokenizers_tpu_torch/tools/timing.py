@@ -1,5 +1,6 @@
-"""Kernel timing on the card with CUDA events, shared by `chip_smoke.py`
-and the tools of this package."""
+"""Kernel timing on the card with CUDA events, and the bytes bound a time
+is held against, shared by `chip_smoke.py` and the tools of this
+package."""
 
 from __future__ import annotations
 
@@ -8,6 +9,23 @@ import statistics
 import torch
 
 SLEEP_CYCLES = 50_000_000  # 25 ms at 1.98 GHz: time for the host to queue a run
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+
+
+def nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def table_bytes(h0, h1, rows0):
+    """Bytes of the merge-table rows a round reads at the keys (h0, h1):
+    each distinct row of either table once, a row being one 32 B sector."""
+    row = rows0.shape[1] * rows0.element_size()
+    return (torch.unique(h0).numel() + torch.unique(h1).numel()) * row
+
+
+def bound_ms(n_bytes):
+    """The least time to move n_bytes at the card's memory rate."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def median_ms(fn, launches):
