@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels of `tokenizers_tpu_torch/csrc/` with nvcc
-   (one process per source, all at once) and prints what ptxas reports.
+   (one process per source, all at once) and prints what ptxas reported
+   (kept beside each library, so a reused build prints it too).
 2. Holds each kernel of the gpt2 path bit for bit against its plain
    PyTorch version on the card, at that path's shapes: the layout kernel
    (B3) on a [256, 8192] corpus chunk, and on the adversarial rows of
@@ -30,14 +31,20 @@
    cache, with every kernel's launch count set to 0 just before the cold
    run and read just after it.  Every document's ids must match its
    committed SHA-256 (`tokenizers_tpu_torch/data/`).
-4. B4, the standalone merge round: at the llama-3 path's unique-buffer
+4. B4, the standalone merge round (B1's two kernels without carried
+   keys, chosen by width as B1's): at the llama-3 path's unique-buffer
    shape (its first [256, 8192] ASCII chunk, whole-word bypass applied),
-   then at the widths 2560 and 2048 and a [37, 2048] slice, B4 must equal
-   its plain version and the first four outputs of B2 then B1, and B2 and
-   B1 there must equal their plain versions (all outputs).  Then the
-   one entry that reaches it, `bpe_merge2._round`, merges that buffer to
-   completion (counts set to 0 first), and must end where the B2/B1 loop
-   ends.
+   then at the widths 2560 and 2048 and a [37, 2048] slice, on the
+   adversarial layouts at widths 64-65536 (the row kernel to 4096, the
+   cluster one beyond, 16 non-portable CTAs at 65536) and at the
+   full-width states [8, 8192] and [32, 16384], B4 must equal its plain
+   version and the first four outputs of B2 then B1, and B2 and B1 there
+   must equal their plain versions (all outputs).  Then the one entry
+   that reaches it, `bpe_merge2._round`, merges the llama-3 buffer (row
+   kernel) and the [32, 16384] state (cluster kernel) to completion
+   (counts set to 0 first), launching B4 once a round, and must end where
+   the B2/B1 loop ends.  Times B4 at [74, 4096], [8, 8192] and
+   [32, 16384] (`tools/wide_ab.b4_times`).
 5. Drives the llama3 path the same way as 3, on the same documents with
    the llama3_128k tokenizer: cold launches of B1 and B2 above 0 and of
    B3 at 0 (the layout kernel is gpt2's), every digest matched.  The
@@ -57,7 +64,10 @@
    [8, 8192] and the dense full-width state [32, 16384]
    (`tools/wide_ab.wide_times`), with each one's slice, cluster size,
    shared memory and resident clusters (cudaOccupancyMaxActiveClusters).
-7. Prints a line of numbers per path, the per-kernel JSON line, the card's
+7. Prints a line of numbers per path, the per-kernel JSON line (with each
+   merge kernel's registers and spills from ptxas: a merge kernel missing
+   from the report, or spill bytes in B4's two kernels or B1's row kernel,
+   fail the run), the card's
    name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Any mismatch or error exits non-zero; there is no fallback.  Without a
@@ -84,6 +94,7 @@ TPU_KERNELS = {  # file:line of the `pallas_call` each kernel replaces
     "merge_round_fused": "tokenizers_tpu/ops/merge_pallas.py:283",
     "merge_round_fused_wide": "tokenizers_tpu/ops/merge_pallas.py:283",
     "merge_round_standalone": "tokenizers_tpu/ops/merge_pallas.py:315",
+    "merge_round_standalone_wide": "tokenizers_tpu/ops/merge_pallas.py:315",
 }
 SOURCES = {
     "layout_fused": "tokenizers_tpu_torch/csrc/layout.cu",
@@ -92,7 +103,18 @@ SOURCES = {
     "merge_round_fused": "tokenizers_tpu_torch/csrc/merge_round.cu",
     "merge_round_fused_wide": "tokenizers_tpu_torch/csrc/merge_round.cu",
     "merge_round_standalone": "tokenizers_tpu_torch/csrc/merge_round.cu",
+    "merge_round_standalone_wide": "tokenizers_tpu_torch/csrc/merge_round.cu",
 }
+# the prefix of each merge kernel's mangled name in ptxas's report
+PTXAS_NAMES = {
+    "keys": "_Z11keys_kernel",
+    "merge_round_fused": "_Z18merge_round_kernelILb0ELb1E",
+    "merge_round_fused_wide": "_Z18merge_round_kernelILb1ELb1E",
+    "merge_round_standalone": "_Z18merge_round_kernelILb0ELb0E",
+    "merge_round_standalone_wide": "_Z18merge_round_kernelILb1ELb0E",
+}
+# merge kernels that must build with no spill bytes
+NO_SPILLS = ("merge_round_fused", "merge_round_standalone", "merge_round_standalone_wide")
 # the compacted states of the merge loop each kernel is checked at:
 # (width, rows): full unique buffer, 5/8 and 1/2 width, a ladder rung
 STATES = ((4096, None), (2560, None), (2048, None), (2048, 37))
@@ -164,34 +186,98 @@ def adversarial_b3(torch, lk):
     return errs
 
 
-def adversarial_b1(torch, mk):
-    """B2, then both B1 kernels (three rounds each), on the adversarial
-    layouts, each against its plain version."""
+def adversarial_state(torch, C):
+    """The adversarial merge layout [12, C] of `smoke_data.adversarial_case`
+    on the card: (ids, own_l, own_r, wid, rows0, rows1, seed)."""
     from tokenizers_tpu_torch.ops.bpe_merge2 import init_own
     from tokenizers_tpu_torch.ops.merge_table import CuckooMergeTable, consume_mins
     from tokenizers_tpu_torch.smoke_data import adversarial_case
 
+    merges, n_ids, ids, wid = adversarial_case(C, 12, C)
+    table = CuckooMergeTable(merges)
+    mclr = consume_mins(merges, n_ids)
+    rows0, rows1 = (torch.from_numpy(table.rows8(t, mclr)).cuda() for t in (0, 1))
+    ids, wid = torch.from_numpy(ids).cuda(), torch.from_numpy(wid).cuda()
+    own_l, own_r = init_own(ids, torch.from_numpy(mclr).cuda())
+    return ids, own_l, own_r, wid, rows0, rows1, table.seed
+
+
+def adversarial_b1(torch, mk):
+    """B2, then both B1 kernels (three rounds each), on the adversarial
+    layouts, each against its plain version."""
     errs = {"keys": 0, "merge_round_fused": 0, "merge_round_fused_wide": 0}
     for C in ADVERSARIAL_WIDTHS:
-        merges, n_ids, ids, wid = adversarial_case(C, 12, C)
-        table = CuckooMergeTable(merges)
-        mclr = torch.from_numpy(consume_mins(merges, n_ids)).cuda()
-        rows0, rows1 = (torch.from_numpy(table.rows8(t, mclr.cpu().numpy())).cuda()
-                        for t in (0, 1))
-        ids, wid = torch.from_numpy(ids).cuda(), torch.from_numpy(wid).cuda()
-        own_l, own_r = init_own(ids, mclr)
-        k_got = mk.keys(ids, rows0, table.seed)
+        ids, own_l, own_r, wid, rows0, rows1, seed = adversarial_state(torch, C)
+        k_got = mk.keys(ids, rows0, seed)
         errs["keys"] = max(errs["keys"], _check_equal(
-            torch, f"keys adversarial [12, {C}]", k_got, mk.keys_plain(ids, rows0, table.seed)))
+            torch, f"keys adversarial [12, {C}]", k_got, mk.keys_plain(ids, rows0, seed)))
         st = (ids, own_l, own_r) + tuple(k_got)
         k = "merge_round_fused_wide" if C > mk.ROW_MAX_C else "merge_round_fused"
         _st, err = b1_rounds(torch, mk, f"{k} adversarial [12, {C}]", st, wid, rows0,
-                             rows1, table.seed, 3)
+                             rows1, seed, 3)
         errs[k] = max(errs[k], err)
     print(f"B2 and B1 bit-equal (tolerance 0) on the adversarial layouts at [12, C], C in "
           f"{list(ADVERSARIAL_WIDTHS)} (B1's row kernel to {mk.ROW_MAX_C}, cluster beyond)",
           flush=True)
     return errs
+
+
+def b4_rounds(torch, mk, name, st, wid, rows0, rows1, seed, rounds, errs):
+    """`rounds` B4 rounds from st = (ids, own_l, own_r), each held against
+    its plain version and against B2 then B1 (each against theirs); the
+    kernel must be the one `merge_round_standalone` picks by width.  Raises
+    max |diff| in errs[kernel] for B4's, B2's and B1's kernels.  Returns
+    (state, f of the last round)."""
+    wide = wid.shape[1] > mk.ROW_MAX_C
+    k4 = "merge_round_standalone_wide" if wide else "merge_round_standalone"
+    k1 = "merge_round_fused_wide" if wide else "merge_round_fused"
+    for _ in range(rounds):
+        before = mk.LAUNCHES["merge_round_standalone_wide"]
+        got = mk.merge_round_standalone(*st, wid, rows0, rows1, seed)
+        if mk.LAUNCHES["merge_round_standalone_wide"] - before != int(wide):
+            raise SystemExit(f"{name}: B4 took the wrong kernel at width {wid.shape[1]}")
+        errs[k4] = max(errs[k4], _check_equal(
+            torch, f"{name} B4", got, mk.merge_round_standalone_plain(*st, wid, rows0, rows1,
+                                                                      seed)))
+        k_got = mk.keys(st[0], rows0, seed)
+        errs["keys"] = max(errs["keys"], _check_equal(
+            torch, f"{name} B2", k_got, mk.keys_plain(st[0], rows0, seed)))
+        chain, err = b1_checked(torch, mk, f"{name} B1", (*st, wid, *k_got, rows0, rows1, seed))
+        errs[k1] = max(errs[k1], err)
+        _check_equal(torch, f"{name} B4 against B2, B1", got, chain[:4])
+        st = got[:3]
+    return st, got[3]
+
+
+def round_to_completion(torch, mk, counts, name, st, wid, rows0, rows1, seed):
+    """`bpe_merge2._round` (B4) from st until no head merges, every count
+    of `counts` set to 0 first; it must end where the B2/B1 loop ends and
+    launch B4 once a round.  Returns (rounds, B4 launches, B4 cluster
+    launches)."""
+    from tokenizers_tpu_torch.ops.bpe_merge2 import _round, make_round_driver
+
+    for c in counts.values():
+        for k in c:
+            c[k] = 0
+    st0, rounds = st, 0
+    while True:
+        a, l_, r_, f = _round(*st, wid, rows0, rows1, seed)
+        st, rounds = (a, l_, r_), rounds + 1
+        if not bool(f.any()):
+            break
+    launches = (mk.LAUNCHES["merge_round_standalone"], mk.LAUNCHES["merge_round_standalone_wide"])
+    if launches[0] != rounds:
+        raise SystemExit(f"{name}: _round did not launch B4 once per round")
+    init, step, unpack = make_round_driver(wid, rows0, rows1, seed)
+    cst = init(*st0)
+    while True:
+        cst, f = step(cst)
+        if not bool(f.any()):
+            break
+    _check_equal(torch, f"{name}: _round to completion against the B2/B1 loop", st, unpack(cst))
+    print(f"_round: {rounds} B4 rounds to completion at {list(wid.shape)} ({name}), equal to "
+          f"the B2/B1 loop", flush=True)
+    return (rounds,) + launches
 
 
 def full_width_rounds(torch, mk, args, widths):
@@ -364,8 +450,9 @@ def long_path(torch, stats, b3_err, b1_err, counts, numbers):
         t.update(slice=S, cluster=nc, smem_bytes=mk.smem_bytes(S),
                  max_active_clusters=mk.max_clusters(S, nc))
     for k, err, head, entry in (
-            ("layout_fused_wide", b3_err, "64x32768", "tt_layout_wide_max_clusters"),
-            ("merge_round_fused_wide", b1_err, "32x16384", "tt_merge_round_max_clusters")):
+            ("layout_fused_wide", b3_err, "64x32768", ("tt_layout_wide_max_clusters", ())),
+            ("merge_round_fused_wide", b1_err, "32x16384",
+             ("tt_merge_round_max_clusters", (1,)))):
         stats[k] = {
             "max_abs_err": err, **{x: by[k][head][x] for x in ("ms", "plain_ms", "bound_ms")},
             "shape": [int(x) for x in head.split("x")], "by_shape": by[k],
@@ -373,8 +460,9 @@ def long_path(torch, stats, b3_err, b1_err, counts, numbers):
             "launches_from": "gpt2 long documents, cold: (a) + (b) + (c)",
             "long_path_launches": stats_launches(runs, k),
             # every (slice, cluster size) this run launched, phase 2's included
-            "max_active_clusters": {f"S={S} n={nc}": v for (_l, e, _d, S, nc), v
-                                    in sorted(kernel_build.CLUSTERS.items()) if e == entry},
+            "max_active_clusters": {f"S={S} n={nc}": v for (_l, e, _d, S, nc, a), v
+                                    in sorted(kernel_build.CLUSTERS.items())
+                                    if (e, a) == entry},
         }
         print(f"{k} by shape: {json.dumps(by[k])}", flush=True)
 
@@ -393,18 +481,15 @@ def main() -> int:
     from tokenizers_tpu_torch import Tokenizer
     from tokenizers_tpu_torch.ops import kernel_build
     from tokenizers_tpu_torch.ops import layout_kernels as lk
+    from tokenizers_tpu_torch import smoke_data
     from tokenizers_tpu_torch.ops import merge_kernels as mk
-    from tokenizers_tpu_torch.ops.bpe_dedup import (
-        H1_MULT, H2_MULT, buffer_geometry, dedup_layout, unique_buffer,
-        whole_word_ids, word_hash_heads,
-    )
-    from tokenizers_tpu_torch.ops.bpe_merge2 import _round, compact, init_own, make_round_driver
-    from tokenizers_tpu_torch.ops.layout_kernels import next_boundary
-    from tokenizers_tpu_torch.ops.llama3_presplit import llama3_boundaries
+    from tokenizers_tpu_torch.ops.bpe_merge2 import compact
     from tokenizers_tpu_torch.smoke_data import (
-        build_docs, first_ascii_chunk, full_width_states, unique_state,
+        build_docs, first_ascii_chunk, full_width_states, llama3_unique_state, unique_state,
     )
+    from tokenizers_tpu_torch.tools import timing
     from tokenizers_tpu_torch.tools.timing import bound_ms, median_ms, nbytes, table_bytes
+    from tokenizers_tpu_torch.tools.wide_ab import b4_times
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -417,8 +502,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_build.build()
     print(f"nvcc build {time.perf_counter() - t0:.3f} s", flush=True)
-    for src, log in sorted(kernel_build.LOGS.items()):
-        print(f"== ptxas {src}\n{log.strip()}", flush=True)
+    for src in kernel_build.SOURCES:
+        print(f"== ptxas {src}\n{kernel_build.build_log(src).strip()}", flush=True)
 
     # ---- 2. the gpt2 path's kernels against their plain versions ----------
     tok = Tokenizer.from_file(GPT2)
@@ -509,7 +594,8 @@ def main() -> int:
         "max_abs_err": errs["merge_round_fused"],
         "ms": b1_ms["row_4096"][0],
         "plain_ms": median_ms(lambda: mk.merge_round_fused_plain(*args), 2),
-        "bound_ms": bound_ms(nbytes(*args[:7], *r_out) + table_bytes(*keys0[:2], rows0)),
+        "bound_ms": bound_ms(nbytes(*args[:7], *r_out)
+                             + table_bytes(ids, wid, *keys0[:2], rows0, rows1)),
         "shape": list(ids.shape),
         "smem_bytes": mk.smem_bytes(ids.shape[1]),
         "cluster_kernel_ms_same_shape": b1_ms["wide_4096"][0],
@@ -523,7 +609,7 @@ def main() -> int:
     counts = {"layout_fused": lk.LAUNCHES, "layout_fused_wide": lk.LAUNCHES,
               "keys": mk.LAUNCHES,
               "merge_round_fused": mk.LAUNCHES, "merge_round_fused_wide": mk.LAUNCHES,
-              "merge_round_standalone": mk.LAUNCHES}
+              "merge_round_standalone": mk.LAUNCHES, "merge_round_standalone_wide": mk.LAUNCHES}
     runs = drive_path(torch, tok, docs, "gpt2", counts)
     check_eight_kb(runs, "gpt2")
     for k in ("layout_fused", "keys", "merge_round_fused"):
@@ -532,7 +618,7 @@ def main() -> int:
     numbers = {"gpt2": path_numbers(eng, docs, prepared, runs, "gpt2")}
     print("numbers " + json.dumps(numbers["gpt2"]), flush=True)
 
-    # ---- 4. B4 at the llama-3 path's unique buffer ------------------------
+    # ---- 4. B4, the standalone merge round ---------------------------------
     t = time.perf_counter()
     tok3 = Tokenizer.from_file(LLAMA3)
     eng3 = tok3._get_device_engine()
@@ -542,87 +628,74 @@ def main() -> int:
     print(f"llama3_128k tables {llama3_build_s:.3f} s", flush=True)
     T3 = eng3.tables
     prepared3 = [eng3._prepare(d) for d in docs]
-    b, n, inb = first_ascii_chunk(eng3, prepared3)
-    bnd, _ = llama3_boundaries(b, inb, T3["cls_table"], ascii_only=True)
-    geom = buffer_geometry(b.numel())
-    fits, ops = dedup_layout(b, bnd, inb, n, next_boundary(bnd), T3["seed"], geom)
-    if not fits:
-        raise SystemExit("the llama3 corpus chunk does not fit its dedup buffer")
-    b_u, uhead, inb_u, wid_u, wend_f, upos_f = unique_buffer(ops, b, geom)
-    ids = torch.where(inb_u, T3["byte2id"][b_u.to(torch.int64)], -1)
-    ids0 = whole_word_ids(
-        ids, uhead, inb_u, word_hash_heads(b_u, uhead, inb_u, H1_MULT),
-        word_hash_heads(b_u, uhead, inb_u, H2_MULT),
-        torch.where(uhead, wend_f - upos_f, 0), T3["ww_rows0"], T3["ww_rows1"],
-        T3["ww_seed"],
-    )
+    state3 = llama3_unique_state(eng3)
     rows0, rows1, seed = T3["merge_rows0"], T3["merge_rows1"], T3["seed"]
-    own_l0, own_r0 = init_own(ids0, T3["merge_mclr"])
-    ids, own_l, own_r, wid = ids0, own_l0, own_r0, wid_u
-    err4 = 0
+    e4 = dict(errs, merge_round_fused_wide=wide_errs["merge_round_fused_wide"],
+              merge_round_standalone=0, merge_round_standalone_wide=0)
+    ids, own_l, own_r, wid = state3
     for width, rows in STATES:
         if ids.shape[1] != width:
             ids, wid, _bad, (own_l, own_r) = compact(ids, wid, width, (own_l, own_r))
         st = tuple(x[:rows].contiguous() for x in (ids, own_l, own_r))
         st_wid = wid[:rows].contiguous()
-        for _ in range(2):
-            got = mk.merge_round_standalone(*st, st_wid, rows0, rows1, seed)
-            err4 = max(err4, _check_equal(
-                torch, f"merge_round_standalone {list(st_wid.shape)}", got,
-                mk.merge_round_standalone_plain(*st, st_wid, rows0, rows1, seed)))
-            # B2 and B1 on the llama3 state, each against its plain version
-            k_got = mk.keys(st[0], rows0, seed)
-            errs["keys"] = max(errs["keys"], _check_equal(
-                torch, f"keys {list(st_wid.shape)} (llama3)", k_got,
-                mk.keys_plain(st[0], rows0, seed)))
-            chain, err = b1_checked(torch, mk, f"merge_round_fused {list(st_wid.shape)} (llama3)",
-                                    (*st, st_wid, *k_got, rows0, rows1, seed))
-            errs["merge_round_fused"] = max(errs["merge_round_fused"], err)
-            _check_equal(torch, f"merge_round_standalone {list(st_wid.shape)} against B2, B1",
-                         got, chain[:4])
-            st = got[:3]
+        st, f = b4_rounds(torch, mk, f"llama3 {list(st_wid.shape)}", st, st_wid, rows0, rows1,
+                          seed, 2, e4)
         if rows is None:
             ids, own_l, own_r = st
         print(f"B4 bit-equal (tolerance 0) to its plain version and to B2, B1, and "
-              f"B2, B1 to theirs, at "
-              f"{list(st_wid.shape)}; merged heads in the last round: {int(got[3].sum())}",
-              flush=True)
+              f"B2, B1 to theirs, at {list(st_wid.shape)}; merged heads in the last round: "
+              f"{int(f.sum())}", flush=True)
+    for C in ADVERSARIAL_WIDTHS:
+        ids, own_l, own_r, wid, r0, r1, s_ = adversarial_state(torch, C)
+        b4_rounds(torch, mk, f"adversarial [12, {C}]", (ids, own_l, own_r), wid, r0, r1, s_, 3,
+                  e4)
+    fw = full_width_states(eng)
+    for (R, C), args in fw.items():
+        b4_rounds(torch, mk, f"full width [{R}, {C}]", args[:3], args[3], *args[7:], 2, e4)
+    print(f"B4 bit-equal (tolerance 0) to its plain version and to B2, B1 on the adversarial "
+          f"layouts at [12, C], C in {list(ADVERSARIAL_WIDTHS)} (row kernel to {mk.ROW_MAX_C}, "
+          f"cluster beyond) and at the full-width states {[list(k) for k in fw]}", flush=True)
     for k in ("keys", "merge_round_fused"):
-        stats[k]["max_abs_err"] = errs[k]
-    args4 = (ids0, own_l0, own_r0, wid_u, rows0, rows1, seed)
-    out4 = mk.merge_round_standalone(*args4)
-    keys4 = mk.keys_plain(ids0, rows0, seed)
-    stats["merge_round_standalone"] = {
-        "max_abs_err": err4,
-        "ms": median_ms(lambda: mk.merge_round_standalone(*args4), 20),
-        "plain_ms": median_ms(lambda: mk.merge_round_standalone_plain(*args4), 2),
-        "bound_ms": bound_ms(nbytes(*args4[:4], *out4) + table_bytes(*keys4[:2], rows0)),
-        "shape": list(ids0.shape),
-    }
-    # B4's own path: `_round` merges the buffer to completion
-    for c in counts.values():
-        for k in c:
-            c[k] = 0
-    st, rounds = (ids0, own_l0, own_r0), 0
-    while True:
-        a, l_, r_, f = _round(*st, wid_u, rows0, rows1, seed)
-        st, rounds = (a, l_, r_), rounds + 1
-        if not bool(f.any()):
-            break
-    stats["merge_round_standalone"]["launches"] = mk.LAUNCHES["merge_round_standalone"]
-    stats["merge_round_standalone"]["launches_from"] = (
-        "its own phase: bpe_merge2._round to completion on the llama3 unique buffer")
-    if stats["merge_round_standalone"]["launches"] != rounds:
-        raise SystemExit("_round did not launch B4 once per round")
-    init, step, unpack = make_round_driver(wid_u, rows0, rows1, seed)
-    cst = init(ids0, own_l0, own_r0)
-    while True:
-        cst, f = step(cst)
-        if not bool(f.any()):
-            break
-    _check_equal(torch, "_round to completion against the B2/B1 loop", st, unpack(cst))
-    print(f"_round: {rounds} B4 rounds to completion at {list(ids0.shape)}, equal to "
-          f"the B2/B1 loop", flush=True)
+        stats[k]["max_abs_err"] = e4[k]
+    wide_errs["merge_round_fused_wide"] = e4["merge_round_fused_wide"]
+
+    # B4's own path: `_round` to completion, on the llama3 unique buffer (the
+    # row kernel) and on the dense full-width state (the cluster kernel)
+    rounds, b4_launches, b4_wide = round_to_completion(
+        torch, mk, counts, "llama3 unique buffer", state3[:3], state3[3], rows0, rows1, seed)
+    args = fw[(32, 16384)]
+    rounds_w, _b4_w_all, b4_w_launches = round_to_completion(
+        torch, mk, counts, "gpt2 dense full width", args[:3], args[3], *args[7:])
+    if b4_wide != 0 or b4_w_launches != rounds_w:
+        raise SystemExit(f"_round: cluster B4 launched {b4_wide} times at width 4096 and "
+                         f"{b4_w_launches} of {rounds_w} rounds at 16384")
+    b4_by = b4_times(torch, mk, eng, eng3, smoke_data, timing)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, head, n_launch, from_, cl in (
+            ("merge_round_standalone", "74x4096", b4_launches,
+             "its own phase: bpe_merge2._round to completion on the llama3 unique buffer", 0),
+            ("merge_round_standalone_wide", "32x16384", b4_w_launches,
+             "its own phase: bpe_merge2._round to completion on the gpt2 dense full-width "
+             "state [32, 16384]", 1)):
+        by = {x: t for x, t in b4_by.items() if (int(x.split("x")[1]) > mk.ROW_MAX_C) == cl}
+        for x, at in by.items():
+            R, C = (int(v) for v in x.split("x"))
+            S, n = mk.cluster_geometry(R, C, sms) if cl else (C, 1)
+            at.update(slice=S, cluster=n, smem_bytes=mk.smem_bytes(S))
+            if cl:
+                at["max_active_clusters"] = mk.max_clusters(S, n, carry=False)
+        stats[k] = {
+            "max_abs_err": e4[k], **{x: by[head][x] for x in ("ms", "plain_ms", "bound_ms")},
+            "shape": [int(x) for x in head.split("x")], "by_shape": by,
+            "launches": n_launch, "launches_from": from_,
+        }
+    # every (slice, cluster size) of the cluster B4 this run launched
+    stats["merge_round_standalone_wide"]["max_active_clusters"] = {
+        f"S={S} n={nc}": v for (_l, e, _d, S, nc, a), v in sorted(kernel_build.CLUSTERS.items())
+        if (e, a) == ("tt_merge_round_max_clusters", (0,))}
+    print("B4 by shape: " + json.dumps({k: stats[k]["by_shape"] for k in
+                                        ("merge_round_standalone",
+                                         "merge_round_standalone_wide")}), flush=True)
 
     # ---- 5. the llama3 path, cold then warm -------------------------------
     runs3 = drive_path(torch, tok3, docs, "llama3", counts)
@@ -636,22 +709,33 @@ def main() -> int:
     long_path(torch, stats, b3_errs["layout_fused_wide"],
               wide_errs["merge_round_fused_wide"], counts, numbers)
 
+    # registers, spills and static shared memory of the merge kernels, from
+    # ptxas's report of the build this run loaded
+    usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
+    for k, prefix in PTXAS_NAMES.items():
+        found = [u for name, u in usage.items() if name.startswith(prefix)]
+        if len(found) != 1 or not {"registers", "spill_store_bytes"} <= found[0].keys():
+            raise SystemExit(f"ptxas report: {len(found)} entries for {k} ({prefix})")
+        stats[k]["ptxas"] = found[0]
+        if k in NO_SPILLS and found[0]["spill_store_bytes"] + found[0]["spill_load_bytes"]:
+            raise SystemExit(f"ptxas report: {k} spills {found[0]}")
     print("kernel_numbers " + json.dumps({
         "kernel_median_ms": {k: s["ms"] for k, s in stats.items()},
         "kernel_bound_us": {k: s["bound_ms"] * 1e3 for k, s in stats.items()},
         "kernel_shapes": {k: s["shape"] for k, s in stats.items()},
         "b1_row_and_cluster_ms": stats["merge_round_fused"]["ms_runs"],
         "b1_row_smem_bytes": stats["merge_round_fused"]["smem_bytes"],
+        "merge_kernels_ptxas": {k: stats[k]["ptxas"] for k in PTXAS_NAMES},
         "b3_row_smem_bytes": stats["layout_fused"]["smem_bytes"],
         "b3_row_blocks_per_sm": stats["layout_fused"]["blocks_per_sm"],
         "b2_one_tile_ms": stats["keys"]["one_tile_ms"],
         "empty_kernel_ms": empty_ms,
-        "max_active_clusters": {f"{entry} S={S} n={n}": v for (_l, entry, _d, S, n), v
-                                in kernel_build.CLUSTERS.items()},
+        "max_active_clusters": {f"{entry}{list(a) if a else ''} S={S} n={n}": v
+                                for (_l, entry, _d, S, n, a), v in kernel_build.CLUSTERS.items()},
     }), flush=True)
 
     extra = ("own_phase_launches", "by_shape", "cluster_kernel_ms_same_shape",
-             "max_active_clusters")
+             "max_active_clusters", "ptxas")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": TPU_KERNELS[k],
          "launches": s["launches"], "launches_from": s["launches_from"],

@@ -1,8 +1,8 @@
 """Merge kernels B1/B2/B4 of the torch port (plain versions on the CPU)
 against the JAX package: the lax `merge_round` + `hash_jnp` oracle and the
 Pallas kernels in interpret mode.  Bit-exact.  The CUDA kernels themselves
-are held against the same plain versions by the `gpu` tests on a card (B1's
-row and wide kernels and B2 on the adversarial layouts of
+are held against the same plain versions by the `gpu` tests on a card (the
+row and cluster kernels of B1 and B4, and B2, on the adversarial layouts of
 `smoke_data.adversarial_case` too), and by chip_smoke.py;
 `run_merge_phases` is in test_torch_merge_phases.py."""
 
@@ -21,9 +21,11 @@ from tokenizers_tpu.ops import merge_pallas as jp
 from tokenizers_tpu.ops.merge_table import CuckooMergeTable, consume_mins, hash_jnp
 from tokenizers_tpu_torch.ops import bpe_merge2 as tm
 from tokenizers_tpu_torch.ops import merge_kernels as tk
+from tokenizers_tpu_torch.ops import kernel_build
 from tokenizers_tpu_torch.ops.merge_table import CuckooMergeTable as PortMergeTable
 from tokenizers_tpu_torch.ops.merge_table import consume_mins as port_consume_mins
 from tokenizers_tpu_torch.smoke_data import adversarial_case
+from tokenizers_tpu_torch.tools import timing
 
 # the lax oracle as one XLA program (op by op it costs ~5x more here)
 j_merge_round = jax.jit(jm.merge_round, static_argnames=("k_steps",))
@@ -209,6 +211,100 @@ def test_plain_round_matches_jax_adversarial():
     assert merged > 0
 
 
+def test_standalone_plain_matches_jax_adversarial():
+    """B4's plain version against `merge_round_pallas(interpret=True)` for
+    three rounds on the adversarial layouts (every row kind of
+    `adversarial_case`) at width 1024."""
+    rows0, rows1, s, mclr, ids, wid = adversarial_tables(12, 6, 1024)
+    j_tabs = (jnp.asarray(rows0), jnp.asarray(rows1), jnp.int32(s))
+    jids, jwid = jnp.asarray(ids), jnp.asarray(wid)
+    jl, jr = jm.init_own(jids, jnp.asarray(mclr))
+    # compiled at XLA's lowest backend optimisation level: the same program,
+    # compiled in less time on the CPU
+    pallas = jax.jit(functools.partial(jp.merge_round_pallas, interpret=True))
+    pallas = pallas.lower(jids, jl, jr, jwid, *j_tabs).compile(
+        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+    jst = (jids, jl, jr)
+    tl, trr = tm.init_own(_t(ids), _t(mclr))
+    tst = (_t(ids), tl, trr)
+    merged = 0
+    for _ in range(3):
+        p_out = pallas(*jst, jwid, *j_tabs)
+        t_out = tk.merge_round_standalone(*tst, _t(wid), _t(rows0), _t(rows1), s)
+        for j in range(4):
+            np.testing.assert_array_equal(np.asarray(p_out[j]), t_out[j].numpy())
+        jst, tst = p_out[:3], t_out[:3]
+        merged += int(t_out[3].sum())
+    assert merged > 0
+
+
+@pytest.mark.parametrize("C", [64, 257, 1024, 4096])
+def test_standalone_plain_is_keys_then_fused(C):
+    """The identity B4's kernel rests on: its round equals B2's keys, then
+    B1's round (its first four outputs), on the adversarial layouts, round
+    after round."""
+    rows0, rows1, s, mclr, ids, wid = (
+        _t(x) if isinstance(x, np.ndarray) else x for x in adversarial_tables(C + 3, 6, C)
+    )
+    st = (ids,) + tuple(tm.init_own(ids, mclr))
+    merged = 0
+    for _ in range(3):
+        got = tk.merge_round_standalone_plain(*st, wid, rows0, rows1, s)
+        chain = tk.merge_round_fused_plain(*st, wid, *tk.keys_plain(st[0], rows0, s), rows0,
+                                           rows1, s)
+        for a, b in zip(got, chain[:4]):
+            assert torch.equal(a, b)
+        st = got[:3]
+        merged += int(got[3].sum())
+    assert merged > 0
+
+
+@pytest.mark.parametrize("C", [64, 257])
+def test_table_bytes_counts_pairs_in_words(C):
+    """`tools/timing.table_bytes`, the table term of the merge kernels'
+    bound, against a loop over the positions: the distinct table-0 rows of
+    pairs inside one word, and the distinct table-1 rows of those table 0
+    does not hold, 32 B each."""
+    rows0, rows1, s, mclr, ids, wid = (
+        _t(x) if isinstance(x, np.ndarray) else x for x in adversarial_tables(C + 5, 6, C, 8)
+    )
+    h0, h1, nid = tk.keys_plain(ids, rows0, s, 3)
+    want0, want1 = set(), set()
+    for r in range(ids.shape[0]):
+        alive = [i for i in range(C) if ids[r, i] >= 0]
+        for i, j in zip(alive, alive[1:]):
+            if j - i <= 8 and wid[r, i] == wid[r, j]:
+                want0.add(int(h0[r, i]))
+                row = rows0[h0[r, i]]
+                if not (row[0] == ids[r, i] and row[1] == ids[r, j]):
+                    want1.add(int(h1[r, i]))
+    assert want0 and want1
+    assert timing.table_bytes(ids, wid, h0, h1, rows0, rows1, 8) == 32 * (len(want0)
+                                                                         + len(want1))
+
+
+def test_ptxas_usage_parses_report():
+    """`kernel_build.ptxas_usage` on ptxas's `-v` report: registers, spill
+    bytes and static shared memory per kernel."""
+    log = """ptxas info    : Compiling entry function '_Z18merge_round_kernelILb0ELb0EEvPKi' for 'sm_90a'
+ptxas info    : Function properties for _Z18merge_round_kernelILb0ELb0EEvPKi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 1152 bytes smem, 512 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z18merge_round_kernelILb1ELb1EEvPKi' for 'sm_90a'
+ptxas info    : Function properties for _Z18merge_round_kernelILb1ELb1EEvPKi
+    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 512 bytes cmem[0]
+"""
+    assert kernel_build.ptxas_usage(log) == {
+        "_Z18merge_round_kernelILb0ELb0EEvPKi": dict(
+            stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0, registers=64,
+            static_smem_bytes=1152),
+        "_Z18merge_round_kernelILb1ELb1EEvPKi": dict(
+            stack_bytes=8, spill_store_bytes=8, spill_load_bytes=12, registers=64,
+            static_smem_bytes=0),
+    }
+
+
 def _gpu_rounds(rows0, rows1, s, mclr, ids, wid, rounds=3):
     """B1 (through `bpe_merge2`'s round driver) against its plain version,
     round after round, on the card."""
@@ -332,25 +428,57 @@ def test_gpu_kernels_match_plain():
         st = (out[0], out[1], out[2], out[4], out[5], out[6])
 
 
+def _random_tables(seed, R, C, k):
+    """`random_case` as `adversarial_tables` gives its case."""
+    table, mclr, ids, wid = random_case(seed, R, C, k)
+    return table.rows8(0, mclr), table.rows8(1, mclr), table.seed, mclr, ids, wid
+
+
 @pytest.mark.gpu
-def test_gpu_standalone_round_matches_plain():
-    """B4 on the card against its plain version and against B2 then B1,
-    round after round."""
+@pytest.mark.parametrize("kind,C", [("adversarial", C) for C in (
+    64, 256, 1536, 2048, 2560, 4096, 5120, 8192, 16384, 40960, 65536)] + [("random", 1536)])
+def test_gpu_standalone_round_matches_plain(kind, C):
+    """B4 on the card (through `_round`) against its plain version and
+    against B2 then B1, round after round, on the adversarial layouts and
+    on `random_case`'s random table: the row kernel up to ROW_MAX_C, the
+    cluster kernel beyond (which one ran is read from LAUNCHES), a
+    non-portable cluster of 16 at 65536."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    table, mclr, ids, wid = random_case(8, 12, 1536, 9)
-    rows0, rows1 = _t(table.rows8(0, mclr)).cuda(), _t(table.rows8(1, mclr)).cuda()
-    s = table.seed
-    wid_c = _t(wid).cuda()
-    ol, orr = tm.init_own(_t(ids).cuda(), _t(mclr).cuda())
-    st = (_t(ids).cuda(), ol, orr)
-    before = tk.LAUNCHES["merge_round_standalone"]
+    case = adversarial_tables(C, 12, C) if kind == "adversarial" else _random_tables(8, 12, C, 9)
+    rows0, rows1, s, mclr, ids, wid = (
+        _t(x).cuda() if isinstance(x, np.ndarray) else x for x in case
+    )
+    st = (ids,) + tuple(tm.init_own(ids, mclr))
+    before = dict(tk.LAUNCHES)
+    merged = 0
     for _ in range(3):
-        out = tm._round(*st, wid_c, rows0, rows1, s)
-        ref = tk.merge_round_standalone_plain(*st, wid_c, rows0, rows1, s)
-        chain = tk.merge_round_fused(*st, wid_c, *tk.keys(st[0], rows0, s), rows0, rows1, s)
+        out = tm._round(*st, wid, rows0, rows1, s)
+        ref = tk.merge_round_standalone_plain(*st, wid, rows0, rows1, s)
+        chain = tk.merge_round_fused(*st, wid, *tk.keys(st[0], rows0, s), rows0, rows1, s)
         torch.cuda.synchronize()
         for a, b, c in zip(out, ref, chain):
             assert torch.equal(a, b) and torch.equal(a, c)
         st = out[:3]
-    assert tk.LAUNCHES["merge_round_standalone"] == before + 3
+        merged += int(out[3].sum())
+    assert merged > 0
+    assert tk.LAUNCHES["merge_round_standalone"] == before["merge_round_standalone"] + 3
+    wide = tk.LAUNCHES["merge_round_standalone_wide"] - before["merge_round_standalone_wide"]
+    assert wide == (3 if C > tk.ROW_MAX_C else 0)
+
+
+@pytest.mark.gpu
+def test_gpu_standalone_refuses():
+    """B4 refuses a row one position wider than WIDE_MAX_C before any
+    launch: no tiled path is left for any width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rows0, rows1, s, mclr, ids, wid = (
+        _t(x).cuda() if isinstance(x, np.ndarray) else x
+        for x in adversarial_tables(5, 1, tk.WIDE_MAX_C + 1)
+    )
+    ol, orr = tm.init_own(ids, mclr)
+    before = dict(tk.LAUNCHES)
+    with pytest.raises(ValueError, match="C <= 65536"):
+        tk.merge_round_standalone(ids, ol, orr, wid, rows0, rows1, s)
+    assert tk.LAUNCHES == before

@@ -11,10 +11,11 @@
 //         (every launch of the dedup branch), tt_merge_round for wider
 //         rows (the full-width branch: C up to 65,536), the row split over
 //         a thread-block cluster.
-//   B4 tt_merge_round_standalone
-//      <- merge_round_pallas (_keys_kernel, the row reads of _select_rows,
+//   B4 <- merge_round_pallas (_keys_kernel, the row reads of _select_rows,
 //         then _apply_kernel): one round that computes its own keys and
-//         carries none out.
+//         carries none out.  B1's two kernels with the keys computed in the
+//         kernel (merge_round_kernel<CL, false>), launched by the same
+//         entries, tt_merge_round_row and tt_merge_round, with carry 0.
 // Plain versions: ops/merge_kernels.py (keys_plain, merge_round_fused_plain,
 // merge_round_standalone_plain).
 //
@@ -22,18 +23,29 @@
 // per position (4.9 MB, 1.4 us at the main path's unique buffer
 // [74, 4096]); B1 reads ids, own_l, own_r, wid, h0, h1, nid and writes ids,
 // own_l, own_r, h0, h1, nid and the bool f, 53 B per position (16 MB at
-// [74, 4096]), plus each distinct merge-table row its keys hit, 32 B each
-// (4.9 us there on gpt2's tables).  B4 reads ids, own_l, own_r, wid and
-// writes ids, own_l, own_r and f, 29 B per position, plus the table rows as
-// B1.  All are bound by bytes.  The table-row reads mostly hit L1 and L2.
+// [74, 4096]), plus the merge-table rows the round must read, 32 B each:
+// table 0's row of each pair inside one word, table 1's where table 0 does
+// not hold the pair, each distinct row once (tools/timing.table_bytes; 4.8
+// us there on gpt2's tables).  B4 reads ids, own_l, own_r, wid and writes
+// ids, own_l, own_r and f, 29 B per position, plus the table rows as B1.
+// All are bound by bytes.  The table-row reads mostly hit L1 and L2.
 //
-// B4 (its first design): one block of 1024 threads per row (words never
-// cross rows, so rows are independent) walks the row in 1024-wide tiles,
-// a dozen passes, every intermediate in 16 global scratch planes the
-// wrapper allocates.  Each scan of a tile is a block_scan with three
-// __syncthreads; at C = 4096 it runs 32 of them one after another.
-// Measured on an H100, about 1.3 us per such scan (41.6 us for 32), ten
-// times its bound: barriers, not bytes, set its time.
+// B4 is B1's body without carried keys (CARRY false): it reads no h0, h1
+// or nid and writes none.  Round (a) already finds each position's next
+// alive position within reach; B4 keeps the ids in shared memory (in s_q,
+// dead until round (b)), takes the id there, hashes the pair and reads the
+// two table rows after round (a) instead of before it, and skips round (c)
+// and its barrier; it reads the table rows only for pairs inside one word.
+// Both widths as B1: the row kernel for C <= 4096, the cluster kernel up to
+// 65,536; 64 registers, no spills in either (ptxas).  Measured on an H100
+// (tools/wide_ab.py, the parent's kernel in the same call): 0.0176 ms at
+// the llama-3 unique buffer [74, 4096] (6.6x a bound of 0.00266), 0.0167
+// at [8, 8192] and 0.0493 at [32, 16384], against 0.041, 0.075 and 0.165
+// for the first design it replaced, which walked the row in 1024-wide
+// tiles with 16 global scratch planes and 32 block scans of three
+// __syncthreads each at C = 4096.  The phase that holds the row kernel
+// (tools/b1_phases.py --standalone) is round (b)'s flags and scan, as in
+// B1; the table-row reads after barrier 1 come second.
 //
 // B2 (keys_kernel, below) reads only a bounded window: tiles of 1024
 // positions and the 512 after them, no scan and no scratch.
@@ -43,7 +55,7 @@
 // lives in shared memory, and the round's scans are three fused scan rounds
 // (a sequential walk over the thread's positions, a warp-shuffle scan, one
 // cross-warp step) with six __syncthreads in all; no global scratch.  1024
-// threads at C = 4096, 56 registers, no spills (ptxas); dynamic shared
+// threads at C = 4096, 64 registers, no spills (ptxas); dynamic shared
 // memory row_smem_bytes(C) = 184,344 B at C = 4096, plus 1,152 B static, so
 // one block per SM (74 rows fill 74 of 132 SMs).  Measured on an H100 at
 // [74, 4096]: about 0.021 ms, 4.3x the bound.  What holds it there is the
@@ -89,30 +101,6 @@
 #define INF_RANK 0x7fffffff
 #define BIG_MCR 0x3ffffff0
 
-// scratch slots, each [R, C] int32
-enum {
-  S_PRV = 0,   // last alive position <= i, or -1
-  S_NXT,       // first alive position >= i, or BIG_POS
-  S_R,         // looked-up rank, then INF where the pair is not valid
-  S_NEWID,     // merged id of the looked-up row
-  S_MCLN,      // MCL(new id)
-  S_MCRN,      // MCR(new id)
-  S_NMCR,      // MCR of the next alive token (0 if none within reach)
-  S_FLAG1,     // valid / cand / seg bits
-  S_FLAG2,     // run_start / tail / head_ok / tail_ok bits
-  S_CANDSUM,   // inclusive prefix count of cand
-  S_SEGSTART,  // last segment start <= i, or -1
-  S_RUNSTART,  // last run start <= i, or -1
-  S_TAIL,      // first tail >= i, or BIG_POS
-  S_SEGEND,    // first segment end >= i
-  S_SEGMIN,    // min rank from the segment start to i
-  S_F,         // merged-head flag
-  N_SCRATCH
-};
-
-enum { F_VALID = 1, F_CAND = 2, F_SEG = 4 };
-enum { F_RUNSTART = 1, F_TAIL = 2, F_HEADOK = 4, F_TAILOK = 8 };
-
 __device__ __forceinline__ int pair_hash(int a, int b, unsigned seed,
                                          unsigned mask, int which) {
   const unsigned c1 = which == 0 ? 0x9E3779B1u : 0x85EBCA77u;
@@ -122,34 +110,6 @@ __device__ __forceinline__ int pair_hash(int a, int b, unsigned seed,
   h *= 0x2C1B3C6Du;
   h ^= h >> 12;
   return (int)(h & mask);
-}
-
-// first position >= i with a property, from its reverse-scan array; the
-// "strictly after i within reach" form used by fill_next
-__device__ __forceinline__ int next_within(const int* first_ge, int i, int C,
-                                           int reach) {
-  if (i + 1 >= C) return -1;
-  const int j = first_ge[i + 1];
-  return (j < C && j - i <= reach) ? j : -1;
-}
-
-__device__ __forceinline__ int prev_within(const int* last_le, int i,
-                                           int reach) {
-  if (i < 1) return -1;
-  const int j = last_le[i - 1];
-  return (j >= 0 && i - j <= reach) ? j : -1;
-}
-
-// Reverse min-scan of the alive positions of `ids` into first_ge.
-__device__ void scan_next_alive(const int* ids, int* first_ge, int C, int* wt) {
-  int carry = BIG_POS;
-  const int nt = n_tiles(C);
-  for (int t = 0; t < nt; ++t) {
-    const int e = C - 1 - (t * NT + threadIdx.x);
-    const int v = (e >= 0 && ids[e] >= 0) ? e : BIG_POS;
-    const int s = block_scan(v, MinOp(), wt, carry);
-    if (e >= 0) first_ge[e] = s;
-  }
 }
 
 // ---- B2: the keys in bounded windows -------------------------------------
@@ -261,192 +221,6 @@ keys_kernel(const int* __restrict__ ids, int* h0, int* h1, int* nid, int C,
   }
 }
 
-// One safe-set merge round over one row (B4; row pointers; S: the scratch
-// planes of this row), its pair keys computed from ids.
-__device__ __forceinline__ void round_row(
-    const int* ids, const int* own_l, const int* own_r, const int* wid,
-    const int* rows0, const int* rows1, int* ids_o, int* ol_o, int* or_o,
-    unsigned char* f_o, int* const* S, int C, int reach, unsigned seed,
-    unsigned mask, int* wti, long long* wtl) {
-  const int nt = n_tiles(C);
-  // first alive >= i, needed for the keys in pass 1
-  scan_next_alive(ids, S[S_NXT], C, wti);
-  __syncthreads();
-
-  // ---- pass 1: pair keys; table rows at the keys; last alive <= i ------
-  {
-    int carry = -1;
-    for (int t = 0; t < nt; ++t) {
-      const int i = t * NT + threadIdx.x;
-      int v = -1;
-      if (i < C) {
-        const int a = ids[i];
-        const int j = next_within(S[S_NXT], i, C, reach);
-        const int n = j >= 0 ? ids[j] : 0;
-        const int k0 = pair_hash(a, n, seed, mask, 0);
-        const int k1 = pair_hash(a, n, seed, mask, 1);
-        const int* r0 = rows0 + 8 * (size_t)k0;
-        const int* r1 = rows1 + 8 * (size_t)k1;
-        const bool hit0 = r0[0] == a && r0[1] == n;
-        const bool hit1 = r1[0] == a && r1[1] == n;
-        const int* r = hit0 ? r0 : r1;
-        S[S_R][i] = (hit0 || hit1) ? r[2] : INF_RANK;
-        S[S_NEWID][i] = r[3];
-        S[S_MCLN][i] = r[4];
-        S[S_MCRN][i] = r[5];
-        if (a >= 0) v = i;
-      }
-      const int s = block_scan(v, MaxOp(), wti, carry);
-      if (i < C) S[S_PRV][i] = s;
-    }
-  }
-  __syncthreads();
-
-  // ---- pass 2: pair validity and rank ---------------------------------
-  for (int i = threadIdx.x; i < C; i += NT) {
-    const int a = ids[i];
-    const int j = next_within(S[S_NXT], i, C, reach);
-    const bool valid = a >= 0 && j >= 0 && wid[j] == wid[i];
-    const int r = valid ? S[S_R][i] : INF_RANK;
-    S[S_R][i] = r;
-    S[S_NMCR][i] = j >= 0 ? own_r[j] : 0;
-    const bool seg = i == 0 || wid[i] != wid[i - 1];
-    S[S_FLAG1][i] = (valid ? F_VALID : 0) | ((valid && r < INF_RANK) ? F_CAND : 0) |
-                    (seg ? F_SEG : 0);
-  }
-  __syncthreads();
-
-  // ---- pass 3: run structure and head/tail safety ---------------------
-  for (int i = threadIdx.x; i < C; i += NT) {
-    const int fl = S[S_FLAG1][i];
-    const bool cand = fl & F_CAND;
-    const bool valid = fl & F_VALID;
-    const int r = S[S_R][i];
-    const int j = next_within(S[S_NXT], i, C, reach);
-    const int nr = j >= 0 ? S[S_R][j] : 0;
-    const bool nvalid = j >= 0 && (S[S_FLAG1][j] & F_VALID);
-    const int nnmcr = j >= 0 ? S[S_NMCR][j] : 0;
-    const int p = prev_within(S[S_PRV], i, reach);
-    const bool pfound = p >= 0;
-    const int pr = pfound ? S[S_R][p] : 0;
-    const int pw = pfound ? wid[p] : 0;
-    const int pmcl = pfound ? own_l[p] : 0;
-    const bool prev_in_word = pfound && pw == wid[i];
-    const bool same_run_prev = cand && prev_in_word && pr == r;
-    const bool run_start = cand && !same_run_prev;
-    const bool has_next_pair = valid && j >= 0 && nvalid;
-    const bool same_run_next = cand && has_next_pair && nr == r;
-    const bool tail = cand && !same_run_next;
-    const bool head_ok = run_start && (!prev_in_word || (r < pr && r <= pmcl));
-    const int nn = nnmcr < BIG_MCR ? nnmcr : BIG_MCR;
-    const bool tail_ok = tail && r < nr && (!has_next_pair || r <= nn + 1);
-    S[S_FLAG2][i] = (run_start ? F_RUNSTART : 0) | (tail ? F_TAIL : 0) |
-                    (head_ok ? F_HEADOK : 0) | (tail_ok ? F_TAILOK : 0);
-  }
-  __syncthreads();
-
-  // ---- pass 4: forward scans ------------------------------------------
-  {
-    int c_sum = 0, c_seg = -1, c_run = -1;
-    long long c_min = -1;  // identity of max over the non-negative keys
-    for (int t = 0; t < nt; ++t) {
-      const int i = t * NT + threadIdx.x;
-      const bool in = i < C;
-      const int fl = in ? S[S_FLAG1][i] : 0;
-      const int fl2 = in ? S[S_FLAG2][i] : 0;
-      const int cs = block_scan((fl & F_CAND) ? 1 : 0, AddOp(), wti, c_sum);
-      const int ss = block_scan((in && (fl & F_SEG)) ? i : -1, MaxOp(), wti, c_seg);
-      const int rs = block_scan((fl2 & F_RUNSTART) ? i : -1, MaxOp(), wti, c_run);
-      // segmented min as one max-scan: (segment ordinal, ~rank)
-      const unsigned r = in ? (unsigned)S[S_R][i] : 0xffffffffu;
-      const long long key =
-          in ? (((long long)(ss + 1) << 32) | (long long)(0xffffffffu - r)) : -1;
-      const long long mk = block_scan(key, MaxOp(), wtl, c_min);
-      if (in) {
-        S[S_CANDSUM][i] = cs;
-        S[S_SEGSTART][i] = ss;
-        S[S_RUNSTART][i] = rs;
-        S[S_SEGMIN][i] = (int)(0xffffffffu - (unsigned)(mk & 0xffffffffLL));
-      }
-    }
-  }
-  // ---- pass 5: reverse scans ------------------------------------------
-  {
-    int c_tail = BIG_POS, c_end = BIG_POS;
-    for (int t = 0; t < nt; ++t) {
-      const int e = C - 1 - (t * NT + threadIdx.x);
-      const bool in = e >= 0;
-      const bool tail = in && (S[S_FLAG2][e] & F_TAIL);
-      const bool send = in && (e == C - 1 || wid[e + 1] != wid[e]);
-      const int tt = block_scan(tail ? e : BIG_POS, MinOp(), wti, c_tail);
-      const int se = block_scan(send ? e : BIG_POS, MinOp(), wti, c_end);
-      if (in) {
-        S[S_TAIL][e] = tt;
-        S[S_SEGEND][e] = se;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- pass 6: parity, word min, the merge set ------------------------
-  for (int i = threadIdx.x; i < C; i += NT) {
-    const bool cand = S[S_FLAG1][i] & F_CAND;
-    bool f = false;
-    if (cand) {
-      const int* P = S[S_CANDSUM];
-      const int ss = S[S_SEGSTART][i];
-      const int q = P[i] - (ss >= 1 ? P[ss - 1] : 0);
-      const int rs = S[S_RUNSTART][i];
-      int q_head = 0, hl = 0;
-      if (rs >= 0) {
-        const int ss2 = S[S_SEGSTART][rs];
-        q_head = P[rs] - (ss2 >= 1 ? P[ss2 - 1] : 0);
-        hl = (S[S_FLAG2][rs] & F_HEADOK) ? 1 : 0;
-      }
-      const int tp = S[S_TAIL][i];
-      const int tl = (tp < C && (S[S_FLAG2][tp] & F_TAILOK)) ? 1 : 0;
-      const int wmin = S[S_SEGMIN][S[S_SEGEND][i]];
-      const int r = S[S_R][i];
-      const bool parity_odd = ((q - q_head) & 1) == 0;
-      f = parity_odd && (r == wmin || (hl == 1 && tl == 1));
-    }
-    S[S_F][i] = f ? 1 : 0;
-  }
-  __syncthreads();
-
-  // ---- pass 7: apply: left member takes the merge, right member dies --
-  for (int i = threadIdx.x; i < C; i += NT) {
-    const int a = ids[i];
-    const bool f = S[S_F][i];
-    const int p = prev_within(S[S_PRV], i, reach);
-    const bool kill = a >= 0 && p >= 0 && S[S_F][p] == 1;
-    ids_o[i] = kill ? -1 : (f ? S[S_NEWID][i] : a);
-    ol_o[i] = f ? S[S_MCLN][i] : own_l[i];
-    or_o[i] = f ? S[S_MCRN][i] : own_r[i];
-    f_o[i] = f ? 1 : 0;
-  }
-}
-
-// B4: one standalone round, its keys computed in the kernel.
-__global__ void __launch_bounds__(NT)
-merge_round_standalone_kernel(const int* ids_g, const int* ol_g,
-                              const int* or_g, const int* wid_g,
-                              const int* rows0, const int* rows1, int* ids_o,
-                              int* ol_o, int* or_o, unsigned char* f_o,
-                              int* scratch, int R, int C, int reach,
-                              unsigned seed, unsigned mask) {
-  __shared__ int wti[32];
-  __shared__ long long wtl[32];
-  const size_t off = (size_t)blockIdx.x * C;
-  const size_t plane = (size_t)R * C;
-  int* S[N_SCRATCH];
-#pragma unroll
-  for (int k = 0; k < N_SCRATCH; ++k) S[k] = scratch + k * plane + off;
-  round_row(ids_g + off, ol_g + off, or_g + off, wid_g + off, rows0, rows1,
-            ids_o + off, ol_o + off, or_o + off, f_o + off, S, C, reach, seed,
-            mask, wti, wtl);
-}
-
 // ---- B1 for rows of up to ROW_MAX_C positions: the row stays on the SM --
 //
 // Thread t owns positions [t*ROW_K, t*ROW_K + ROW_K).  Its ids, neighbor
@@ -459,7 +233,8 @@ merge_round_standalone_kernel(const int* ids_g, const int* ol_g,
 // the first tail and first segment end in reverse; (c) first alive >= i
 // after the merges.  Six __syncthreads in all.  The wide kernel (CL) is
 // the same body over a cluster's slices, six cluster barriers in place of
-// the __syncthreads.
+// the __syncthreads.  B4 (CARRY false) computes its keys after round (a)
+// and has no round (c): five barriers.
 
 #define ROW_K 4  // positions a thread owns
 #define ROW_MAX_C 4096
@@ -471,7 +246,8 @@ merge_round_standalone_kernel(const int* ids_g, const int* ol_g,
 #ifdef TT_ROW_PHASES
 // Phase-timing build (tools/b1_phases.py): thread 0 of each of the first
 // ROW_TIMED blocks stamps the SM clock at the start, after each barrier and
-// at the end, and the global timer at the start and the end.
+// at the end, and the global timer at the start and the end.  B4 stamps 6
+// after its stores (thread 0's, no barrier) in place of round (c).
 #define ROW_TIMED 256
 #define ROW_STAMPS 8
 // per block: the SM clock at each stamp, then the global timer (ns) at the
@@ -594,8 +370,9 @@ __host__ __device__ __forceinline__ int row_threads(int C) {
 // CL false: one block per row, S = C.  CL true: cluster rank r of n holds
 // the slice [r * S, min(C, (r + 1) * S)) of row blockIdx.x / n, S = 2^lg_s.
 // Positions are the row's throughout; shared arrays are indexed from the
-// slice's start.
-template <bool CL>
+// slice's start.  CARRY true: B1, the keys read from h0_g, h1_g, nid_g and
+// the next round's written to h0_o, h1_o, nid_o; false: B4, those six null.
+template <bool CL, bool CARRY>
 __global__ void __launch_bounds__(ROW_THREADS, 1)
 merge_round_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
                    const int* __restrict__ or_g, const int* __restrict__ wid_g,
@@ -613,7 +390,7 @@ merge_round_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
   int* s_or = s_ol + cp;           // own_r
   int* s_r = s_or + cp;            // looked-up rank, then INF where not valid
   int* s_nmcr = s_r + cp;          // MCR of the next alive; segment-min prefix from (b)
-  int* s_q = s_nmcr + cp;          // segmented candidate count
+  int* s_q = s_nmcr + cp;          // segmented candidate count; B4: the ids until (b)
   int* s_newid = s_q + cp;         // striped: the hit row's new id, MCL, MCR
   int* s_mcln = s_newid + nth * ROW_K;
   int* s_mcrn = s_mcln + nth * ROW_K;
@@ -668,8 +445,34 @@ merge_round_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
     else __syncthreads();
   };
 
-  // ---- load; the merge-table rows at the carried keys ------------------
+  // the merge-table rows of this thread's pairs (a[k], nid[k]) at the slot
+  // hashes h0, h1: the rank where a table holds the pair (table 0 first),
+  // else INF_RANK, into s_r; the new id, MCL and MCR, striped.  Only the
+  // pairs of bit k of `live` are read: the others are never valid.
   int a[ROW_K];
+  auto lookup = [&](const int(&h0)[ROW_K], const int(&h1)[ROW_K], const int(&nid)[ROW_K],
+                    unsigned live) {
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k) {
+      if (i0 + k >= cend) continue;
+      int r = INF_RANK;
+      if ((live >> k) & 1) {
+        int4 p0, p1;
+        int2 q0, q1;
+        read_row(rows0 + 8 * (size_t)h0[k], tvec, p0, q0);
+        read_row(rows1 + 8 * (size_t)h1[k], tvec, p1, q1);
+        const bool hit0 = p0.x == a[k] && p0.y == nid[k];
+        const bool hit1 = p1.x == a[k] && p1.y == nid[k];
+        r = hit0 ? p0.z : (hit1 ? p1.z : INF_RANK);
+        s_newid[k * nth + t] = hit0 ? p0.w : p1.w;
+        s_mcln[k * nth + t] = hit0 ? q0.x : q1.x;
+        s_mcrn[k * nth + t] = hit0 ? q0.y : q1.y;
+      }
+      s_r[sp(l0 + k)] = r;
+    }
+  };
+
+  // ---- load; B1: the merge-table rows at the carried keys --------------
   {
     int x[ROW_K];
     load_run(wid_g + off, i0, C, vec, x, -1);
@@ -686,29 +489,19 @@ merge_round_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
       if (i0 + k < cend) s_or[sp(l0 + k)] = x[k];
   }
   load_run(ids_g + off, i0, C, vec, a, -1);
-  {
+  if constexpr (CARRY) {
     int h0[ROW_K], h1[ROW_K], nid[ROW_K];
     load_run(h0_g + off, i0, C, vec, h0, 0);
     load_run(h1_g + off, i0, C, vec, h1, 0);
     load_run(nid_g + off, i0, C, vec, nid, 0);
+    unsigned alive = 0;  // a dead position's pair is never valid
 #pragma unroll
-    for (int k = 0; k < ROW_K; ++k) {
-      if (i0 + k >= cend) continue;
-      int r = INF_RANK;
-      if (a[k] >= 0) {  // a dead position's pair is never valid
-        int4 p0, p1;
-        int2 q0, q1;
-        read_row(rows0 + 8 * (size_t)h0[k], tvec, p0, q0);
-        read_row(rows1 + 8 * (size_t)h1[k], tvec, p1, q1);
-        const bool hit0 = p0.x == a[k] && p0.y == nid[k];
-        const bool hit1 = p1.x == a[k] && p1.y == nid[k];
-        r = hit0 ? p0.z : (hit1 ? p1.z : INF_RANK);
-        s_newid[k * nth + t] = hit0 ? p0.w : p1.w;
-        s_mcln[k * nth + t] = hit0 ? q0.x : q1.x;
-        s_mcrn[k * nth + t] = hit0 ? q0.y : q1.y;
-      }
-      s_r[sp(l0 + k)] = r;
-    }
+    for (int k = 0; k < ROW_K; ++k) alive |= (a[k] >= 0 ? 1u : 0u) << k;
+    lookup(h0, h1, nid, alive);
+  } else {  // B4: the ids where other threads (and CTAs) read the next id
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k)
+      if (i0 + k < cend) s_q[sp(l0 + k)] = a[k];
   }
 
   // ---- round (a): prev and next alive within reach ---------------------
@@ -746,6 +539,19 @@ merge_round_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
       pj[k] = pack_pj(i, p[k], j);
       if (a[k] >= 0) carry = i;
     }
+  }
+  if constexpr (!CARRY) {  // B4: the keys of this round, then the table rows
+    int h0[ROW_K], h1[ROW_K], nid[ROW_K];
+    unsigned valid = 0;  // the rows of pairs within one word only
+#pragma unroll
+    for (int k = 0; k < ROW_K; ++k) {
+      const int j = next_of(i0 + k, pj[k]);
+      nid[k] = j >= 0 ? rd(s_q, j) : 0;
+      h0[k] = pair_hash(a[k], nid[k], seed, mask, 0);
+      h1[k] = pair_hash(a[k], nid[k], seed, mask, 1);
+      valid |= (a[k] >= 0 && j >= 0 && rd(s_wid, j) == s_wid[sp(l0 + k)] ? 1u : 0u) << k;
+    }
+    lookup(h0, h1, nid, valid);
   }
 
   // ---- pair validity and rank; MCR of the next alive -------------------
@@ -892,7 +698,7 @@ merge_round_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
       a[k] = kill ? -1 : (f ? s_newid[k * nth + t] : a[k]);
       ol2[k] = f ? s_mcln[k * nth + t] : s_ol[sp(l0 + k)];
       or2[k] = f ? s_mcrn[k * nth + t] : s_or[sp(l0 + k)];
-      s_ids2[sp(l0 + k)] = a[k];
+      if constexpr (CARRY) s_ids2[sp(l0 + k)] = a[k];
     }
     store_run(ids_o + off, i0, C, vec, a);
     store_run(ol_o + off, i0, C, vec, ol2);
@@ -912,8 +718,11 @@ merge_round_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
     }
   }
 
-  // ---- round (c): the next round's keys --------------------------------
-  {
+  // ---- round (c): the next round's keys (B1 only) ----------------------
+  if constexpr (!CARRY) {
+    if constexpr (CL) cluster_arrive();  // no remote read after this
+    ROW_STAMP(6);
+  } else {
     NoScan fc;
     FirstPos bc = FirstPos::id();
 #pragma unroll
@@ -953,8 +762,6 @@ merge_round_kernel(const int* __restrict__ ids_g, const int* __restrict__ ol_g,
   if constexpr (CL) cluster_wait();  // no CTA leaves while another reads it
 }
 
-extern "C" int tt_n_scratch_merge_round() { return N_SCRATCH; }
-
 extern "C" int tt_merge_round_row_max_c() { return ROW_MAX_C; }
 
 // dynamic shared memory of the row kernel at width C, or of the wide
@@ -963,19 +770,29 @@ extern "C" long long tt_merge_round_row_smem(int C) {
   return (long long)row_smem_bytes(C, row_threads(C));
 }
 
-// Allow both B1 kernels their dynamic shared memory at ROW_MAX_C, and the
-// wide one clusters of more than 8 CTAs, on the current device; needed
-// once per device before the first launch.
+typedef decltype(&merge_round_kernel<false, true>) RoundKernel;
+
+// the row (cl false) or cluster kernel of B1 (carry true) or B4
+static RoundKernel round_kernel(bool cl, bool carry) {
+  if (cl) return carry ? merge_round_kernel<true, true> : merge_round_kernel<true, false>;
+  return carry ? merge_round_kernel<false, true> : merge_round_kernel<false, false>;
+}
+
+// Allow the four kernels of B1 and B4 their dynamic shared memory at
+// ROW_MAX_C, and the cluster ones clusters of more than 8 CTAs, on the
+// current device; needed once per device before the first launch.
 extern "C" int tt_merge_round_row_init() {
   const int bytes = (int)row_smem_bytes(ROW_MAX_C, ROW_THREADS);
-  cudaError_t st = cudaFuncSetAttribute(
-      merge_round_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (st != cudaSuccess) return (int)st;
-  st = cudaFuncSetAttribute(merge_round_kernel<true>,
-                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (st != cudaSuccess) return (int)st;
-  return (int)cudaFuncSetAttribute(merge_round_kernel<true>,
-                                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  for (int cl = 0; cl < 2; ++cl)
+    for (int carry = 0; carry < 2; ++carry) {
+      const RoundKernel k = round_kernel(cl, carry);
+      cudaError_t st =
+          cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (st == cudaSuccess && cl)
+        st = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (st != cudaSuccess) return (int)st;
+    }
+  return 0;
 }
 
 // vec: C % 4 == 0 and ids, h0, h1, nid 16-byte aligned
@@ -990,18 +807,31 @@ extern "C" int tt_keys(void* ids, void* h0, void* h1, void* nid, int R, int C,
   return (int)cudaGetLastError();
 }
 
-// vec_flags: bit 0, C % 8 == 0 and the row arrays 16-byte aligned (f_o
-// 8-byte); bit 1, the tables 16-byte aligned.
+// B1 (carry 1: h0, h1, nid read, h0_o, h1_o, nid_o written) or B4 (carry
+// 0: those six null); any other mix is refused.
+static bool keys_agree(int carry, const void* h0, const void* h1, const void* nid,
+                       const void* h0_o, const void* h1_o, const void* nid_o) {
+  const bool all = h0 && h1 && nid && h0_o && h1_o && nid_o;
+  const bool none = !h0 && !h1 && !nid && !h0_o && !h1_o && !nid_o;
+  return carry == 1 ? all : (carry == 0 && none);
+}
+
+// The row kernel of B1 or B4 (carry, as keys_agree).  vec_flags: bit 0,
+// C % 8 == 0 and the row arrays 16-byte aligned (f_o 8-byte); bit 1, the
+// tables 16-byte aligned.
 extern "C" int tt_merge_round_row(void* ids, void* own_l, void* own_r, void* wid,
                                   void* h0, void* h1, void* nid, void* rows0,
                                   void* rows1, void* ids_o, void* ol_o,
                                   void* or_o, void* f_o, void* h0_o, void* h1_o,
                                   void* nid_o, int R, int C, int reach,
                                   unsigned seed, unsigned mask, int vec_flags,
-                                  void* stream) {
-  if (C < 1 || C > ROW_MAX_C || reach < 1) return (int)cudaErrorInvalidValue;
+                                  int carry, void* stream) {
+  if (C < 1 || C > ROW_MAX_C || reach < 1 ||
+      !keys_agree(carry, h0, h1, nid, h0_o, h1_o, nid_o))
+    return (int)cudaErrorInvalidValue;
   const int nth = row_threads(C);
-  merge_round_kernel<false><<<R, nth, row_smem_bytes(C, nth), (cudaStream_t)stream>>>(
+  const RoundKernel k = round_kernel(false, carry);
+  k<<<R, nth, row_smem_bytes(C, nth), (cudaStream_t)stream>>>(
       (const int*)ids, (const int*)own_l, (const int*)own_r, (const int*)wid,
       (const int*)h0, (const int*)h1, (const int*)nid, (const int*)rows0,
       (const int*)rows1, (int*)ids_o, (int*)ol_o, (int*)or_o, (unsigned char*)f_o,
@@ -1010,7 +840,7 @@ extern "C" int tt_merge_round_row(void* ids, void* own_l, void* own_r, void* wid
   return (int)cudaGetLastError();
 }
 
-// ---- the wide B1: the row kernel's body over a cluster ---------------------
+// ---- the cluster kernels: the row kernels' body over a cluster -------------
 
 static int wide_lg(int S) {  // log2 of a valid slice, else -1
   if (S < WIDE_MIN_S || S > ROW_MAX_C || (S & (S - 1))) return -1;
@@ -1045,51 +875,45 @@ extern "C" int tt_merge_round_max_c() { return WIDE_MAX_C; }
 extern "C" int tt_merge_round_max_n() { return WIDE_MAX_N; }
 extern "C" int tt_merge_round_min_s() { return WIDE_MIN_S; }
 
-// Clusters of n CTAs with slices of S that can be resident at once on the
-// current device (cudaOccupancyMaxActiveClusters); minus the cudaError on
-// failure.  Needs tt_merge_round_row_init first.
-extern "C" int tt_merge_round_max_clusters(int S, int n) {
+static int max_clusters(RoundKernel k, int S, int n) {
   if (!wide_shape_ok((n - 1) * S + 1, S, n)) return -(int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = wide_config(n, S, n, attr, nullptr);
   int num = 0;
-  const cudaError_t st =
-      cudaOccupancyMaxActiveClusters(&num, merge_round_kernel<true>, &cfg);
+  const cudaError_t st = cudaOccupancyMaxActiveClusters(&num, k, &cfg);
   return st == cudaSuccess ? num : -(int)st;
+}
+
+// Clusters of n CTAs with slices of S of B1's (carry 1) or B4's (carry 0)
+// cluster kernel that can be resident at once on the current device
+// (cudaOccupancyMaxActiveClusters); minus the cudaError on failure.  Needs
+// tt_merge_round_row_init first.
+extern "C" int tt_merge_round_max_clusters(int S, int n, int carry) {
+  if (carry != 0 && carry != 1) return -(int)cudaErrorInvalidValue;
+  return max_clusters(round_kernel(true, carry), S, n);
 }
 
 // Rows of C positions in slices of S (a power of two, WIDE_MIN_S ..
 // ROW_MAX_C), n CTAs a cluster ((n - 1) * S < C <= n * S, n <= WIDE_MAX_N);
-// vec_flags as tt_merge_round_row.
+// carry and vec_flags as tt_merge_round_row.
 extern "C" int tt_merge_round(void* ids, void* own_l, void* own_r, void* wid,
                                    void* h0, void* h1, void* nid, void* rows0,
                                    void* rows1, void* ids_o, void* ol_o,
                                    void* or_o, void* f_o, void* h0_o, void* h1_o,
                                    void* nid_o, int R, int C, int S, int n,
                                    int reach, unsigned seed, unsigned mask,
-                                   int vec_flags, void* stream) {
-  if (!wide_shape_ok(C, S, n) || reach < 1) return (int)cudaErrorInvalidValue;
+                                   int vec_flags, int carry, void* stream) {
+  if (!wide_shape_ok(C, S, n) || reach < 1 ||
+      !keys_agree(carry, h0, h1, nid, h0_o, h1_o, nid_o))
+    return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = wide_config(R, S, n, attr, stream);
   const cudaError_t st = cudaLaunchKernelEx(
-      &cfg, merge_round_kernel<true>, (const int*)ids, (const int*)own_l,
+      &cfg, round_kernel(true, carry), (const int*)ids, (const int*)own_l,
       (const int*)own_r, (const int*)wid, (const int*)h0, (const int*)h1,
       (const int*)nid, (const int*)rows0, (const int*)rows1, (int*)ids_o,
       (int*)ol_o, (int*)or_o, (unsigned char*)f_o, (int*)h0_o, (int*)h1_o,
       (int*)nid_o, C, S, wide_lg(S), min(reach, C), seed, mask, vec_flags);
   if (st != cudaSuccess) return (int)st;
-  return (int)cudaGetLastError();
-}
-
-extern "C" int tt_merge_round_standalone(void* ids, void* own_l, void* own_r,
-                                         void* wid, void* rows0, void* rows1,
-                                         void* ids_o, void* ol_o, void* or_o,
-                                         void* f_o, void* scratch, int R, int C,
-                                         int reach, unsigned seed,
-                                         unsigned mask, void* stream) {
-  merge_round_standalone_kernel<<<R, NT, 0, (cudaStream_t)stream>>>(
-      (const int*)ids, (const int*)own_l, (const int*)own_r, (const int*)wid,
-      (const int*)rows0, (const int*)rows1, (int*)ids_o, (int*)ol_o,
-      (int*)or_o, (unsigned char*)f_o, (int*)scratch, R, C, reach, seed, mask);
   return (int)cudaGetLastError();
 }

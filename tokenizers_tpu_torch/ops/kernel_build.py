@@ -8,7 +8,8 @@ and kept in `_build/` beside this package (git-ignored;
 is rebuilt and an unchanged one is reused.  `build()` compiles every
 missing library at once, one `nvcc` process per source.  `defines` builds
 a variant of a source with preprocessor macros set (`-D`), kept beside the
-plain build under a name that includes them.
+plain build under a name that includes them.  nvcc's output (ptxas's
+register and spill report) is kept beside each library (`build_log`).
 
 A failed build raises with the compiler's output: there is no fallback.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable, Tuple
@@ -34,9 +36,8 @@ SMEM_MAX = 232448  # dynamic shared memory a block may use on an H100
 PORTABLE_N = 8  # the widest thread-block cluster every Hopper part must hold
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
-LOGS: Dict[str, str] = {}  # nvcc/ptxas output per source (and -D flags), from this process
-# (library, entry, device, slice, cluster size) -> clusters resident at once
-CLUSTERS: Dict[Tuple[str, str, int, int, int], int] = {}
+# (library, entry, device, slice, cluster size, args) -> clusters resident at once
+CLUSTERS: Dict[Tuple[str, str, int, int, int, Tuple[int, ...]], int] = {}
 
 
 def build_dir() -> str:
@@ -74,7 +75,7 @@ def build(sources: Iterable[str] = SOURCES, defines: Tuple[str, ...] = ()) -> Di
     paths = {s: _lib_path(s, defines) for s in sources}
     procs = {}
     for src, path in paths.items():
-        if os.path.exists(path):
+        if os.path.exists(path) and os.path.exists(f"{path}.log"):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, *_d_flags(defines), "-o", tmp, os.path.join(CSRC, src)]
@@ -84,10 +85,12 @@ def build(sources: Iterable[str] = SOURCES, defines: Tuple[str, ...] = ()) -> Di
     errors = []
     for src, (tmp, p) in procs.items():
         out, _ = p.communicate()
-        LOGS[" ".join((src,) + _d_flags(defines))] = out
         if p.returncode != 0:
             errors.append(f"nvcc failed on {src} (exit {p.returncode}):\n{out}")
         else:
+            with open(f"{tmp}.log", "w") as f:
+                f.write(out)
+            os.replace(f"{tmp}.log", f"{paths[src]}.log")
             os.replace(tmp, paths[src])
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -102,6 +105,39 @@ def library(src: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
         lib = ctypes.CDLL(build([src], defines)[src])
         _libs[(src, defines)] = lib
     return lib
+
+
+def build_log(src: str, defines: Tuple[str, ...] = ()) -> str:
+    """nvcc's output (ptxas's `-v` report) from the build of the library of
+    `src` with `defines`, kept beside it; builds it first if needed."""
+    with open(f"{build([src], defines)[src]}.log") as f:
+        return f.read()
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: {"registers", "spill_store_bytes",
+    "spill_load_bytes", "stack_bytes", "static_smem_bytes"}} from the
+    `-Xptxas -v` report of one build (`build_log`)."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return out
 
 
 def check_status(name: str, status: int) -> None:
@@ -142,17 +178,17 @@ def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def max_clusters(lib: ctypes.CDLL, entry: str, dev, S: int, n: int) -> int:
+def max_clusters(lib: ctypes.CDLL, entry: str, dev, S: int, n: int, *args: int) -> int:
     """Clusters of n CTAs with slices of S that the card `dev` holds at
-    once: the library's `entry` (cudaOccupancyMaxActiveClusters), asked
-    once per library, device and shape.  Raises where it is not positive:
-    such a cluster can never launch, and there is no fallback."""
+    once: the library's `entry(S, n, *args)` (cudaOccupancyMaxActiveClusters),
+    asked once per library, device, shape and args.  Raises where it is not
+    positive: such a cluster can never launch, and there is no fallback."""
     import torch
 
-    key = (lib._name, entry, dev.index, S, n)
+    key = (lib._name, entry, dev.index, S, n, args)
     if key not in CLUSTERS:
         with torch.cuda.device(dev):
-            num = getattr(lib, entry)(S, n)
+            num = getattr(lib, entry)(S, n, *args)
         if num <= 0:
             raise RuntimeError(f"{entry}: no cluster of {n} CTAs with slices of {S} fits "
                                f"the card (cudaOccupancyMaxActiveClusters: {num})")

@@ -15,8 +15,10 @@ plain versions; port of `tokenizers_tpu.ops.merge_pallas`.
   up to WIDE_MAX_C (the full-width branch).
 * `merge_round_standalone` (B4, replaces `merge_round_pallas`): one round
   that computes its own keys and carries none out; word segments derive
-  from wid.  Returns (ids, own_l, own_r, f).  Only `bpe_merge2._round`
-  calls it: the merge loops carry keys through B2 and B1.
+  from wid.  Returns (ids, own_l, own_r, f).  B1's two kernels without
+  carried keys, chosen by width as B1's (the cluster one up to
+  WIDE_MAX_C; wider rows raise).  Only `bpe_merge2._round` calls it: the
+  merge loops carry keys through B2 and B1.
 
 A wrapper runs its plain version for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; there is no fallback.  Each
@@ -36,10 +38,10 @@ from .kernel_build import (
 )
 from .merge_table import hash_pair
 
-# every B1 launch counts in "merge_round_fused", the wide kernel's also in
-# "merge_round_fused_wide"
+# every B1 (B4) launch counts in "merge_round_fused" ("merge_round_standalone"),
+# the cluster kernel's also in "merge_round_fused_wide" ("merge_round_standalone_wide")
 LAUNCHES = {"keys": 0, "merge_round_fused": 0, "merge_round_fused_wide": 0,
-            "merge_round_standalone": 0}
+            "merge_round_standalone": 0, "merge_round_standalone_wide": 0}
 ROW_MAX_C = 4096  # widest row of B1's row kernel, widest slice (csrc: ROW_MAX_C)
 WIDE_MAX_C = 65536  # widest row of the wide kernel: packing.MAX_L // 2 (csrc: WIDE_MAX_C)
 WIDE_MAX_N = 16  # CTAs a cluster may have; above 8 non-portable (csrc: WIDE_MAX_N)
@@ -59,13 +61,13 @@ def load(defines=()):
     if not getattr(lib, "_tt_typed", False):
         lib.tt_keys.argtypes = [_P] * 4 + [_I, _I, _I, _U, _U, _I, _P]
         lib.tt_keys.restype = _I
-        lib.tt_merge_round.argtypes = [_P] * 16 + [_I] * 5 + [_U, _U, _I, _P]
+        lib.tt_merge_round.argtypes = [_P] * 16 + [_I] * 5 + [_U, _U, _I, _I, _P]
         lib.tt_merge_round.restype = _I
-        lib.tt_merge_round_max_clusters.argtypes = [_I, _I]
+        lib.tt_merge_round_max_clusters.argtypes = [_I, _I, _I]
         lib.tt_merge_round_max_clusters.restype = _I
         for f in ("max_c", "max_n", "min_s"):
             getattr(lib, f"tt_merge_round_{f}").restype = _I
-        lib.tt_merge_round_row.argtypes = [_P] * 16 + [_I, _I, _I, _U, _U, _I, _P]
+        lib.tt_merge_round_row.argtypes = [_P] * 16 + [_I, _I, _I, _U, _U, _I, _I, _P]
         lib.tt_merge_round_row.restype = _I
         lib.tt_merge_round_row_init.restype = _I
         lib.tt_merge_round_row_smem.argtypes = [_I]
@@ -79,9 +81,6 @@ def load(defines=()):
             if lib.tt_merge_round_row_smem(S) != smem_bytes(S):
                 raise RuntimeError("merge_round.cu and merge_kernels.py disagree on "
                                    "shared memory")
-        lib.tt_merge_round_standalone.argtypes = [_P] * 11 + [_I, _I, _I, _U, _U, _P]
-        lib.tt_merge_round_standalone.restype = _I
-        lib.tt_n_scratch_merge_round.restype = _I
         lib._tt_typed = True
     return lib
 
@@ -136,32 +135,17 @@ def keys(ids, rows0, seed, k_steps=FILL_K):
     return h0, h1, nid
 
 
-def _fused_outputs(name, ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1):
-    """Check B1's inputs on the card; returns (mask, six int32 outputs, f)."""
-    R, C = ids.shape
-    check_cuda_int32(
-        name, (R, C), ids=ids, own_l=own_l, own_r=own_r, wid=wid, h0=h0,
-        h1=h1, nid=nid,
-    )
-    check_cuda_int32(name, None, rows0=rows0, rows1=rows1)
-    mask = _mask(rows0)
-    if rows1.shape != rows0.shape or rows0.shape[1] != 8:
-        raise ValueError(f"{name}: rows0/rows1 must both be [S, 8]")
-    outs = [torch.empty_like(ids) for _ in range(6)]
-    f = torch.empty((R, C), dtype=torch.bool, device=ids.device)
-    return mask, outs, f
-
-
 def _row_init(lib, dev):
-    """Allow both B1 kernels their dynamic shared memory (and the wide one
-    its non-portable clusters), once per library and device."""
+    """Allow the kernels of B1 and B4 their dynamic shared memory (and the
+    cluster ones their non-portable clusters), once per library and
+    device."""
     if (lib._name, dev.index) in _READY:
         return
     with torch.cuda.device(dev):
         st = lib.tt_merge_round_row_init()
     if st != 0:
         raise RuntimeError(
-            "merge_round_fused: cudaFuncSetAttribute(MaxDynamicSharedMemorySize "
+            "merge_round.cu: cudaFuncSetAttribute(MaxDynamicSharedMemorySize "
             f"{smem_bytes(ROW_MAX_C)}, NonPortableClusterSizeAllowed) failed with "
             f"cudaError {st}"
         )
@@ -169,7 +153,7 @@ def _row_init(lib, dev):
 
 
 def smem_bytes(S):
-    """Dynamic shared memory of a B1 block holding S positions (csrc:
+    """Dynamic shared memory of a B1 or B4 block holding S positions (csrc:
     row_smem_bytes): six padded int arrays, three striped ones and three
     byte arrays."""
     nth = ceil_div(ceil_div(S, 4), 32) * 32
@@ -177,14 +161,14 @@ def smem_bytes(S):
 
 
 def cluster_geometry(R, C, sms=SMS):
-    """(S, n) of the wide B1 for R rows of C positions on a card of `sms`
+    """(S, n) of the cluster B1 or B4 for R rows of C positions on a card of `sms`
     SMs: slices of S (a power of two, WIDE_MIN_S .. ROW_MAX_C), n =
     ceil(C / S) CTAs a row.  The widest S whose R * n CTAs fill the SMs,
     with n at most PORTABLE_N; where no S does, the narrowest S with
     n <= PORTABLE_N; where C > PORTABLE_N * ROW_MAX_C, slices of ROW_MAX_C
     in a non-portable cluster.  Raises for rows it does not take."""
     if not 1 <= C <= WIDE_MAX_C:
-        raise ValueError(f"merge_round_fused_wide: takes 1 <= C <= {WIDE_MAX_C}, got C = {C}")
+        raise ValueError(f"the cluster merge round takes 1 <= C <= {WIDE_MAX_C}, got C = {C}")
     if C > PORTABLE_N * ROW_MAX_C:
         return ROW_MAX_C, ceil_div(C, ROW_MAX_C)
     fits = [S for S in (4096, 2048, 1024, 512) if ceil_div(C, S) <= PORTABLE_N]
@@ -193,13 +177,14 @@ def cluster_geometry(R, C, sms=SMS):
     return S, ceil_div(C, S)
 
 
-def max_clusters(S, n, dev=None, lib=None):
-    """Clusters of n CTAs with slices of S the card holds at once
-    (`kernel_build.max_clusters`); raises where there are none."""
+def max_clusters(S, n, dev=None, lib=None, carry=True):
+    """Clusters of n CTAs with slices of S of B1's cluster kernel (B4's
+    where not `carry`) the card holds at once (`kernel_build.max_clusters`);
+    raises where there are none."""
     dev = torch.device("cuda", torch.cuda.current_device()) if dev is None else dev
     lib = load() if lib is None else lib
     _row_init(lib, dev)
-    return kernel_build.max_clusters(lib, "tt_merge_round_max_clusters", dev, S, n)
+    return kernel_build.max_clusters(lib, "tt_merge_round_max_clusters", dev, S, n, int(carry))
 
 
 def row_vec_flags(rows, f, rows0, rows1):
@@ -211,79 +196,81 @@ def row_vec_flags(rows, f, rows0, rows1):
     return int(row_vec) | 2 * int(table_vec)
 
 
+def _launch(geometry, ins, keys, rows0, rows1, seed, k_steps=FILL_K, lib=None):
+    """One launch of the round body on CUDA tensors ins = (ids, own_l,
+    own_r, wid): B1 from keys = (h0, h1, nid), returning (ids, own_l,
+    own_r, f, h0, h1, nid); B4 where keys is None, returning (ids, own_l,
+    own_r, f).  The row kernel where geometry is None, else the cluster
+    kernel in n slices of S, geometry = (S, n).  `lib` from `load` (None:
+    the shipped build).  The wrappers call it with the geometry their width
+    takes; `tools/cluster_sweep.py` and `tools/b1_phases.py` with another
+    geometry or build."""
+    carry = keys is not None
+    name = "merge_round_fused" if carry else "merge_round_standalone"
+    ins = ins + (tuple(keys) if carry else ())
+    R, C = ins[0].shape
+    check_cuda_int32(name, (R, C), **dict(zip(("ids", "own_l", "own_r", "wid", "h0", "h1",
+                                               "nid"), ins)))
+    check_cuda_int32(name, None, rows0=rows0, rows1=rows1)
+    mask = _mask(rows0)
+    if rows1.shape != rows0.shape or rows0.shape[1] != 8:
+        raise ValueError(f"{name}: rows0/rows1 must both be [S, 8]")
+    outs = [torch.empty_like(ins[0]) for _ in range(len(ins) - 1)]
+    f = torch.empty((R, C), dtype=torch.bool, device=ins[0].device)
+    result = (*outs[:3], f, *outs[3:])
+    if ins[0].numel() == 0:
+        return result
+    if lib is None:
+        lib = load()
+    if geometry is None:
+        _row_init(lib, ins[0].device)
+        entry, shape = lib.tt_merge_round_row, ()
+    else:
+        max_clusters(*geometry, ins[0].device, lib, carry)
+        entry, shape = lib.tt_merge_round, geometry
+        LAUNCHES[f"{name}_wide"] += 1
+    LAUNCHES[name] += 1
+    ptr = [t.data_ptr() for t in ins]
+    optr = [t.data_ptr() for t in outs]
+    no_keys = [] if carry else [None] * 3
+    check_status(name, entry(
+        *ptr, *no_keys, rows0.data_ptr(), rows1.data_ptr(), *optr[:3], f.data_ptr(),
+        *optr[3:], *no_keys, R, C, *shape, 1 << k_steps, int(seed) & 0xFFFFFFFF, mask,
+        row_vec_flags(ins + tuple(outs), f, rows0, rows1), int(carry), _stream(ins[0]),
+    ))
+    return result
+
+
+def _cluster(ids):
+    """`cluster_geometry` of the CUDA rows ids [R, C] on their card."""
+    R, C = ids.shape
+    return cluster_geometry(R, C, torch.cuda.get_device_properties(ids.device)
+                            .multi_processor_count)
+
+
 def merge_round_fused(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed,
-                      k_steps=FILL_K, lib=None):
-    """`lib`: the build whose row kernel runs, from `load` (None: the
-    shipped one); `tools/b1_phases.py` passes its timing build."""
+                      k_steps=FILL_K):
+    """B1: the row kernel for C <= ROW_MAX_C, the cluster kernel
+    (`cluster_geometry`) up to WIDE_MAX_C; raises beyond."""
     if device_of("merge_round_fused", ids) == "cpu":
         return merge_round_fused_plain(
             ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps
         )
-    R, C = ids.shape
-    if C > ROW_MAX_C:
-        return merge_round_fused_wide(
-            ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps, lib
-        )
-    ins = (ids, own_l, own_r, wid, h0, h1, nid)
-    mask, outs, f = _fused_outputs("merge_round_fused", *ins, rows0, rows1)
-    if ids.numel() == 0:
-        return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
-    if lib is None:
-        lib = load()
-    _row_init(lib, ids.device)
-    LAUNCHES["merge_round_fused"] += 1
-    check_status("merge_round_fused", lib.tt_merge_round_row(
-        *(t.data_ptr() for t in ins), rows0.data_ptr(), rows1.data_ptr(),
-        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-        f.data_ptr(), outs[3].data_ptr(), outs[4].data_ptr(),
-        outs[5].data_ptr(), R, C, 1 << k_steps, int(seed) & 0xFFFFFFFF, mask,
-        row_vec_flags(ins + tuple(outs), f, rows0, rows1), _stream(ids),
-    ))
-    return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
+    geometry = None if ids.shape[1] <= ROW_MAX_C else _cluster(ids)
+    return _launch(geometry, (ids, own_l, own_r, wid), (h0, h1, nid), rows0, rows1, seed,
+                   k_steps)
 
 
 def merge_round_fused_wide(ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1,
-                           seed, k_steps=FILL_K, lib=None):
-    """B1 through the wide kernel, the row split over a cluster
-    (`cluster_geometry`), C up to WIDE_MAX_C.  `merge_round_fused` takes it
-    for rows wider than ROW_MAX_C.  `lib` as `merge_round_fused`'s."""
+                           seed, k_steps=FILL_K):
+    """B1 through the cluster kernel (`cluster_geometry`) at any width up to
+    WIDE_MAX_C; `merge_round_fused` takes it for rows wider than ROW_MAX_C."""
     if device_of("merge_round_fused_wide", ids) == "cpu":
         return merge_round_fused_plain(
             ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps
         )
-    R, C = ids.shape
-    geometry = cluster_geometry(R, C, torch.cuda.get_device_properties(ids.device)
-                                .multi_processor_count)
-    return _merge_round_cluster(
-        geometry, ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1, seed, k_steps, lib
-    )
-
-
-def _merge_round_cluster(geometry, ids, own_l, own_r, wid, h0, h1, nid, rows0, rows1,
-                         seed, k_steps=FILL_K, lib=None):
-    """The wide kernel with geometry = (S, n): n slices of S positions a
-    row, for CUDA tensors; `merge_round_fused_wide` with the geometry given
-    (`tools/cluster_sweep.py` times each, `tools/b1_phases.py --one-cta`
-    runs S = C)."""
-    R, C = ids.shape
-    S, n = geometry
-    ins = (ids, own_l, own_r, wid, h0, h1, nid)
-    mask, outs, f = _fused_outputs("merge_round_fused_wide", *ins, rows0, rows1)
-    if ids.numel() == 0:
-        return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
-    if lib is None:
-        lib = load()
-    max_clusters(S, n, ids.device, lib)
-    LAUNCHES["merge_round_fused"] += 1
-    LAUNCHES["merge_round_fused_wide"] += 1
-    check_status("merge_round_fused_wide", lib.tt_merge_round(
-        *(t.data_ptr() for t in ins), rows0.data_ptr(), rows1.data_ptr(),
-        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-        f.data_ptr(), outs[3].data_ptr(), outs[4].data_ptr(),
-        outs[5].data_ptr(), R, C, S, n, 1 << k_steps, int(seed) & 0xFFFFFFFF,
-        mask, row_vec_flags(ins + tuple(outs), f, rows0, rows1), _stream(ids),
-    ))
-    return outs[0], outs[1], outs[2], f, outs[3], outs[4], outs[5]
+    return _launch(_cluster(ids), (ids, own_l, own_r, wid), (h0, h1, nid), rows0, rows1,
+                   seed, k_steps)
 
 
 def merge_round_standalone_plain(ids, own_l, own_r, wid, rows0, rows1, seed,
@@ -295,34 +282,11 @@ def merge_round_standalone_plain(ids, own_l, own_r, wid, rows0, rows1, seed,
 
 def merge_round_standalone(ids, own_l, own_r, wid, rows0, rows1, seed,
                            k_steps=FILL_K):
+    """B4: the row kernel for C <= ROW_MAX_C, the cluster kernel
+    (`cluster_geometry`) up to WIDE_MAX_C; raises beyond."""
     if device_of("merge_round_standalone", ids) == "cpu":
         return merge_round_standalone_plain(
             ids, own_l, own_r, wid, rows0, rows1, seed, k_steps
         )
-    R, C = ids.shape
-    check_cuda_int32(
-        "merge_round_standalone", (R, C), ids=ids, own_l=own_l, own_r=own_r,
-        wid=wid,
-    )
-    check_cuda_int32("merge_round_standalone", None, rows0=rows0, rows1=rows1)
-    mask = _mask(rows0)
-    if rows1.shape != rows0.shape or rows0.shape[1] != 8:
-        raise ValueError("merge_round_standalone: rows0/rows1 must both be [S, 8]")
-    outs = [torch.empty_like(ids) for _ in range(3)]
-    f = torch.empty((R, C), dtype=torch.bool, device=ids.device)
-    if ids.numel() == 0:
-        return outs[0], outs[1], outs[2], f
-    lib = load()
-    scratch = torch.empty(
-        (lib.tt_n_scratch_merge_round(), R, C), dtype=torch.int32,
-        device=ids.device,
-    )
-    LAUNCHES["merge_round_standalone"] += 1
-    check_status("merge_round_standalone", lib.tt_merge_round_standalone(
-        ids.data_ptr(), own_l.data_ptr(), own_r.data_ptr(), wid.data_ptr(),
-        rows0.data_ptr(), rows1.data_ptr(), outs[0].data_ptr(),
-        outs[1].data_ptr(), outs[2].data_ptr(), f.data_ptr(),
-        scratch.data_ptr(), R, C, 1 << k_steps, int(seed) & 0xFFFFFFFF, mask,
-        _stream(ids),
-    ))
-    return outs[0], outs[1], outs[2], f
+    geometry = None if ids.shape[1] <= ROW_MAX_C else _cluster(ids)
+    return _launch(geometry, (ids, own_l, own_r, wid), None, rows0, rows1, seed, k_steps)

@@ -26,7 +26,9 @@ those of the `long_parts()` documents, in order, on gpt2
 
 `first_ascii_chunk` and `unique_state` give the merge loop's first state
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
-`tools/b1_phases.py` hold and time B1; `full_width_state` the first state
+`tools/b1_phases.py` hold and time B1; `llama3_unique_state` that of the
+llama-3 path (whole-word bypass applied), where they hold and time B4;
+`full_width_state` the first state
 of the full-width branch, and `full_width_states` the two such states at
 which the tools and `chip_smoke.py` time the wide B1; `corpus_chunk` the
 corpus chunks at which they time the wide B3.  `adversarial_case` builds the
@@ -203,6 +205,40 @@ def unique_state(eng, b, n, inb, layout):
         raise SystemExit("the corpus chunk does not fit its dedup buffer")
     b_u, _uh, inb_u, wid, _we, _up = unique_buffer(ops, b, geom)
     ids = torch.where(inb_u, T["byte2id"][b_u.to(torch.int64)], -1)
+    own_l, own_r = init_own(ids, T["merge_mclr"])
+    return ids, own_l, own_r, wid
+
+
+def llama3_unique_state(eng, device="cuda"):
+    """The merge loop's first state (ids, own_l, own_r, wid) at the llama-3
+    path's unique buffer of the first [256, 8192] ASCII chunk of the 8 KB
+    documents (`build_docs`), the whole-word bypass applied; eng is a
+    llama3 engine."""
+    import torch
+
+    from .ops.bpe_dedup import (
+        H1_MULT, H2_MULT, buffer_geometry, dedup_layout, unique_buffer, whole_word_ids,
+        word_hash_heads,
+    )
+    from .ops.bpe_merge2 import init_own
+    from .ops.layout_kernels import next_boundary
+    from .ops.llama3_presplit import llama3_boundaries
+
+    T = eng.tables
+    b, n, inb = first_ascii_chunk(eng, [eng._prepare(d) for d in build_docs()], device=device)
+    bnd, _ = llama3_boundaries(b, inb, T["cls_table"], ascii_only=True)
+    geom = buffer_geometry(b.numel())
+    fits, ops = dedup_layout(b, bnd, inb, n, next_boundary(bnd), T["seed"], geom)
+    if not fits:
+        raise SystemExit("the llama3 corpus chunk does not fit its dedup buffer")
+    b_u, uhead, inb_u, wid, wend_f, upos_f = unique_buffer(ops, b, geom)
+    ids = torch.where(inb_u, T["byte2id"][b_u.to(torch.int64)], -1)
+    ids = whole_word_ids(
+        ids, uhead, inb_u, word_hash_heads(b_u, uhead, inb_u, H1_MULT),
+        word_hash_heads(b_u, uhead, inb_u, H2_MULT),
+        torch.where(uhead, wend_f - upos_f, 0), T["ww_rows0"], T["ww_rows1"],
+        T["ww_seed"],
+    )
     own_l, own_r = init_own(ids, T["merge_mclr"])
     return ids, own_l, own_r, wid
 

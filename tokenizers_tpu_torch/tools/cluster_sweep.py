@@ -61,7 +61,7 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (R, C), args in full_width_states(eng).items():
         res = _sweep("merge_round_fused_wide", mk, (4096, 2048, 1024, 512), C,
-                     lambda S, nc: mk._merge_round_cluster((S, nc), *args),
+                     lambda S, nc: mk._launch((S, nc), args[:4], args[4:7], *args[7:]),
                      lambda: mk.merge_round_fused_plain(*args))
         print(json.dumps({"kernel": "merge_round_fused_wide", "shape": [R, C],
                           "chosen": mk.cluster_geometry(R, C, sms), "by_slice": res,

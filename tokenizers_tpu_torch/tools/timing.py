@@ -16,11 +16,24 @@ def nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs)
 
 
-def table_bytes(h0, h1, rows0):
-    """Bytes of the merge-table rows a round reads at the keys (h0, h1):
-    each distinct row of either table once, a row being one 32 B sector."""
-    row = rows0.shape[1] * rows0.element_size()
-    return (torch.unique(h0).numel() + torch.unique(h1).numel()) * row
+def table_bytes(ids, wid, h0, h1, rows0, rows1, reach=512):
+    """Bytes of the merge-table rows a round on the rows ids [R, C] (words
+    wid) must read at the keys (h0, h1): only pairs inside one word can
+    merge (the position alive, the next alive within `reach`, both of one
+    word), and for each such pair table 0's row, and table 1's where table
+    0 does not hold the pair; each distinct row once, a row being one
+    32 B sector."""
+    R, C = ids.shape
+    col = torch.arange(C, device=ids.device)
+    at = torch.flip(torch.cummin(torch.flip(torch.where(ids >= 0, col, C), [1]), 1).values, [1])
+    nxt = torch.cat([at[:, 1:], torch.full((R, 1), C, dtype=at.dtype, device=at.device)], 1)
+    j = nxt.clamp(max=C - 1)
+    nid = torch.gather(ids, 1, j)
+    pair = (ids >= 0) & (nxt < C) & (nxt - col <= reach) & (torch.gather(wid, 1, j) == wid)
+    r0 = rows0[h0[pair].long()]
+    in0 = (r0[:, 0] == ids[pair]) & (r0[:, 1] == nid[pair])
+    rows = torch.unique(h0[pair]).numel() + torch.unique(h1[pair][~in0]).numel()
+    return rows * rows0.shape[1] * rows0.element_size()
 
 
 def bound_ms(n_bytes):
