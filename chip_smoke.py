@@ -64,7 +64,22 @@
    [8, 8192] and the dense full-width state [32, 16384]
    (`tools/wide_ab.wide_times`), with each one's slice, cluster size,
    shared memory and resident clusters (cudaOccupancyMaxActiveClusters).
-7. Prints a line of numbers per path, the per-kernel JSON line (with each
+7. The offsets path (`Tokenizer.encode_batch`: ids, char offsets,
+   token strings, word ids; no dedup and no word cache, every chunk
+   merged at full width): first the cluster B1 timed at this path's new
+   shapes, the full-width state of the first [256, 8192] chunk and its
+   5/8 width [256, 5120]; then
+   `encode_batch` on the 512 8 KB documents with the gpt2 and the
+   llama3_128k tokenizer and on the long documents (a) with gpt2, counts
+   set to 0 just before each run, every document against its committed
+   offsets digest (`data/*_offsets_digests.json`); each run once more
+   with every launch of B3, B2 and B1 held bit for bit against its plain
+   version on the inputs the path gave it (`checked_run`: every shape of
+   the path, the compacted widths and ladder rungs included, tallied by
+   kernel and shape), its launches equal to the counted run's; and
+   `encode_batch_byte_offsets` on the first 64 documents of each
+   tokenizer against the port's own host path with byte offsets.
+8. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -467,6 +482,191 @@ def long_path(torch, stats, b3_err, b1_err, counts, numbers):
         print(f"{k} by shape: {json.dumps(by[k])}", flush=True)
 
 
+def checked_run(torch, fn):
+    """fn() with the serving paths' kernel wrappers (B3, B2, B1) replaced
+    by ones that launch the kernel as the path asks, hold its outputs bit
+    for bit against the plain version on the same inputs, and tally each
+    launch by the kernel that ran (the row or the cluster one) and its
+    shape.  Returns (fn's result, {kernel: {"RxC": launches}}, {kernel:
+    max |diff|})."""
+    from tokenizers_tpu_torch.ops import bpe_encode
+    from tokenizers_tpu_torch.ops import layout_kernels as lk
+    from tokenizers_tpu_torch.ops import merge_kernels as mk
+
+    shapes, errs = {}, {}
+
+    def checked(wrapper, plain, counter, name):
+        def run(x, *args, **kw):
+            before = (counter[name], counter.get(f"{name}_wide", 0))
+            got = wrapper(x, *args, **kw)
+            if counter[name] == before[0]:  # an empty input launches nothing
+                return got
+            k = f"{name}_wide" if counter.get(f"{name}_wide", 0) > before[1] else name
+            errs[k] = max(errs.get(k, 0), _check_equal(
+                torch, f"{k} {list(x.shape)} on the path", got, plain(x, *args, **kw)))
+            by = shapes.setdefault(k, {})
+            key = "x".join(str(d) for d in x.shape)
+            by[key] = by.get(key, 0) + 1
+            return got
+        return run
+
+    wrappers = (lk.layout_fused, mk.keys, mk.merge_round_fused)
+    lk.layout_fused = bpe_encode.layout_fused = checked(
+        lk.layout_fused, lk.layout_fused_plain, lk.LAUNCHES, "layout_fused")
+    mk.keys = checked(mk.keys, mk.keys_plain, mk.LAUNCHES, "keys")
+    mk.merge_round_fused = checked(mk.merge_round_fused, mk.merge_round_fused_plain,
+                                   mk.LAUNCHES, "merge_round_fused")
+    try:
+        out = fn()
+    finally:
+        lk.layout_fused = bpe_encode.layout_fused = wrappers[0]
+        mk.keys, mk.merge_round_fused = wrappers[1:]
+    return out, shapes, errs
+
+
+def offsets_run(torch, tok, docs, name, counts, digests, byte_sample=0):
+    """`encode_batch` on `docs`, every launch count set to 0 just before and
+    read just after, timed end to end, in the offsets program and in the
+    host pipeline, each document against its offsets digest; then
+    `encode_batch_byte_offsets` on the first `byte_sample` documents against
+    the port's host path with byte offsets.  Returns the run's numbers."""
+    from tokenizers_tpu_torch.ops import engine_base
+    from tokenizers_tpu_torch.smoke_data import offsets_digest
+
+    eng = tok._get_device_engine()
+    program_s = []
+    run_program = eng._program_offsets
+
+    def timed_program(buf, lengths):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_program(buf, lengths)
+        torch.cuda.synchronize()
+        program_s.append(time.perf_counter() - t)
+        return out
+
+    eng._program_offsets = timed_program
+    host_s = []
+    run_host = tok.encode_host
+
+    def timed_host(*a, **k):
+        t = time.perf_counter()
+        out = run_host(*a, **k)
+        host_s.append(time.perf_counter() - t)
+        return out
+
+    tok.encode_host = timed_host
+    for c in counts.values():
+        for k in c:
+            c[k] = 0
+    engine_base.STATS.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    encs = tok.encode_batch(docs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {k: c[k] for k, c in counts.items()}
+    st = engine_base.STATS.snapshot()
+    eng._program_offsets = run_program
+    tok.encode_host = run_host
+    bad = [i for i, e in enumerate(encs) if offsets_digest(e) != digests[i]]
+    if bad:
+        raise SystemExit(f"offsets {name}: {len(bad)} documents differ from their offsets "
+                         f"digests: {bad[:10]}")
+    sample = docs[:byte_sample]
+    for i, (g, w) in enumerate(zip(tok.encode_batch_byte_offsets(sample),
+                                   [tok.encode_host(d, True, offsets="byte") for d in sample])):
+        if (g.ids, g.offsets, g.tokens, g.words) != (w.ids, w.offsets, w.tokens, w.words):
+            raise SystemExit(f"offsets {name}: document {i}'s byte offsets differ from the "
+                             f"host path's")
+    # the same run again, every launch held against its plain version at
+    # the shape and on the data the path gave it
+    encs2, shapes, errs = checked_run(torch, lambda: tok.encode_batch(docs))
+    for k, n in launches.items():
+        # a wrapper's count holds its cluster kernel's launches too
+        n_checked = sum(shapes.get(k, {}).values()) + (
+            sum(shapes.get(f"{k}_wide", {}).values()) if f"{k}_wide" in launches else 0)
+        if n_checked != n:
+            raise SystemExit(f"offsets {name}: {k} launched {n} times in the counted run and "
+                             f"{n_checked} in the checked one")
+    if [offsets_digest(e) for e in encs2] != digests[:len(docs)]:
+        raise SystemExit(f"offsets {name}: the checked run's documents differ from their "
+                         f"offsets digests")
+    print(f"offsets {name}: every launch bit-equal (tolerance 0) to its plain version; "
+          f"launches by kernel and shape: {json.dumps(shapes)}", flush=True)
+    nbytes = sum(len(d.encode("utf-8")) for d in docs)
+    return {
+        "config": f"offsets_{name}", "docs": len(docs), "bytes": nbytes,
+        "MBps": nbytes / secs / 1e6, "secs": secs, "program_s": sum(program_s),
+        "program_MBps": nbytes / sum(program_s) / 1e6, "chunks": len(program_s),
+        # the host pipeline's share: flagged rows and inputs the card does not take
+        "host_encode_s": sum(host_s),
+        "bad_row_fraction": st["bad_row_fraction"], "bad_rows": st["bad_rows"],
+        "device_rows": st["device_rows"], "host_pre_inputs": st["host_pre_inputs"],
+        "launches": launches, "digests_matched": len(docs),
+        "byte_offsets_checked": len(sample),
+        "checked_shapes": shapes, "checked_max_abs_err": errs,
+    }
+
+
+def offsets_path(torch, tok, tok3, stats, counts, numbers):
+    """Phase 7: the cluster B1 at the offsets path's new shapes, then the
+    offsets path on the gpt2 and llama3_128k 8 KB documents and on the
+    long documents (a).  Adds the cluster B1's shapes to its entry of
+    `stats`, every kernel's `offsets_path_launches` and
+    `offsets_path_shapes`, and `numbers`."""
+    from tokenizers_tpu_torch.ops import merge_kernels as mk
+    from tokenizers_tpu_torch.smoke_data import build_docs, load_digests, long_parts, offsets_states
+    from tokenizers_tpu_torch.tools.timing import bound_ms, median_ms, nbytes, table_bytes
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    by = stats["merge_round_fused_wide"]["by_shape"]
+    err = stats["merge_round_fused_wide"]["max_abs_err"]
+    # timed here; `offsets_run` holds every launch of the path, these shapes
+    # included, against the plain version
+    for (R, C), args in offsets_states(tok._get_device_engine()).items():
+        got, e = b1_checked(torch, mk, f"merge_round_fused_wide {[R, C]}", args)
+        S, nc = mk.cluster_geometry(R, C, sms)
+        by[f"{R}x{C}"] = {
+            "ms": median_ms(lambda: mk.merge_round_fused_wide(*args), 20),
+            "plain_ms": median_ms(lambda: mk.merge_round_fused_plain(*args), 2),
+            "bound_ms": bound_ms(nbytes(*args[:7], *got) + table_bytes(
+                args[0], args[3], *args[4:6], *args[7:9])),
+            "slice": S, "cluster": nc, "smem_bytes": mk.smem_bytes(S),
+            "max_active_clusters": mk.max_clusters(S, nc),
+            "from": "offsets path, first [256, 8192] chunk of the 8 KB documents",
+        }
+        err = max(err, e)
+    stats["merge_round_fused_wide"]["max_abs_err"] = err
+    print("cluster B1 bit-equal (tolerance 0) at the offsets path's [256, 8192] and [256, 5120] "
+          "(first round); by shape: " + json.dumps({k: by[k] for k in ("256x8192",
+                                                                            "256x5120")}),
+          flush=True)
+
+    docs = build_docs()
+    runs = {}
+    for name, tk, part, dig in (
+            ("gpt2", tok, docs, "gpt2_offsets"), ("llama3", tok3, docs, "llama3_offsets"),
+            ("gpt2_long", tok, long_parts()["long"], "gpt2_long_offsets")):
+        runs[name] = offsets_run(torch, tk, part, name, counts, load_digests(dig),
+                                 byte_sample=0 if name == "gpt2_long" else 64)
+        numbers[f"offsets_{name}"] = runs[name]
+        print("numbers " + json.dumps(runs[name]), flush=True)
+    want = {"gpt2": ("layout_fused", "keys", "merge_round_fused", "merge_round_fused_wide"),
+            "llama3": ("keys", "merge_round_fused", "merge_round_fused_wide"),
+            "gpt2_long": ("layout_fused_wide", "keys", "merge_round_fused_wide")}
+    for name, ks in want.items():
+        zero = [k for k in ks if runs[name]["launches"][k] == 0]
+        if zero:
+            raise SystemExit(f"offsets {name}: {zero} never launched")
+    for k, s_ in stats.items():
+        s_["offsets_path_launches"] = {name: r["launches"][k] for name, r in runs.items()}
+        s_["offsets_path_shapes"] = {name: r["checked_shapes"].get(k, {})
+                                     for name, r in runs.items()}
+        s_["max_abs_err"] = max([s_["max_abs_err"]] + [r["checked_max_abs_err"].get(k, 0)
+                                                       for r in runs.values()])
+
+
 def stats_launches(runs, k):
     return sum(r["cold"]["launches"][k] for r in runs.values())
 
@@ -709,6 +909,9 @@ def main() -> int:
     long_path(torch, stats, b3_errs["layout_fused_wide"],
               wide_errs["merge_round_fused_wide"], counts, numbers)
 
+    # ---- 7. the offsets path -------------------------------------------------
+    offsets_path(torch, tok, tok3, stats, counts, numbers)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -740,6 +943,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": TPU_KERNELS[k],
          "launches": s["launches"], "launches_from": s["launches_from"],
          "long_path_launches": s["long_path_launches"],
+         "offsets_path_launches": s["offsets_path_launches"],
+         "offsets_path_shapes": s["offsets_path_shapes"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "shape": s["shape"], **{x: s[x] for x in extra if x in s}}

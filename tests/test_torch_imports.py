@@ -1,5 +1,6 @@
 """The port stands alone: importing it and running one encode loads no
-module of JAX, `regex`, the `tokenizers` wheel or `tokenizers_tpu`, and
+module of JAX, `regex`, the `tokenizers` wheel or `tokenizers_tpu` (with
+and without offsets, the host path included), and
 no source file of the package imports them."""
 
 import os
@@ -18,6 +19,8 @@ from tokenizers_tpu_torch import Tokenizer
 tok = Tokenizer.from_file("tests/fixtures/gpt2/tokenizer.json", device="cpu")
 ids = [e.ids for e in tok.encode_batch_fast(["Hello world! y'all'll've", "序号123", "a<|endoftext|>b"])]
 assert ids[2] == [65, 0, 66], ids
+encs = tok.encode_batch(["Hello world!", "a<|endoftext|>b", "x" * 600])
+assert encs[0].offsets == [(0, 5), (6, 11), (11, 12)] and encs[1].word_ids == [0, 1, 2], encs
 tok = Tokenizer.from_file("tests/fixtures/llama3/tokenizer.json", device="cpu")
 ids = [e.ids for e in tok.encode_batch_fast(["Hello world! Don'ſ 12345\\r\\n", "a<|end_of_text|>b"])]
 assert ids[0][0] == 0 and ids[1] == [0, 66, 1, 67], ids

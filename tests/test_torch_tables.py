@@ -2,7 +2,8 @@
 their references: the two-stage class table from the JAX package's
 `char_class_tables()`, the per-document gpt2 and llama3_128k digests that
 chip_smoke.py checks from the `tokenizers` wheel on the same documents
-(the 8 KB ones and those of the long-document phase),
+(the 8 KB ones and those of the long-document phase; ids, and for the
+offsets phase ids, char offsets and word ids),
 and the engine's tables (gpt2, and llama3 with its whole-word table) from
 the JAX engine's `_program_args()`, array for array."""
 
@@ -18,7 +19,7 @@ from tokenizers_tpu_torch.ops import unicode_tables as tu
 from tokenizers_tpu_torch.ops.bpe_engine import TABLE_KEYS, WW_KEYS
 from tokenizers_tpu_torch.smoke_data import (
     CONFIGS, DENSE_BYTES, DENSE_OVERFLOW_BYTES, build_docs, ids_digest, load_digests,
-    long_parts,
+    long_parts, offsets_digest,
 )
 
 GPT2 = "tests/fixtures/gpt2/tokenizer.json"
@@ -60,6 +61,14 @@ def test_gpt2_long_digests_match_wheel():
     wheel = WheelTokenizer.from_file(CONFIGS["gpt2"])
     encs = wheel.encode_batch_fast(long + dense + dense_16k, add_special_tokens=True)
     assert [ids_digest(e.ids) for e in encs] == load_digests("gpt2_long")
+
+
+@pytest.mark.parametrize("name,config", [
+    ("gpt2_offsets", "gpt2"), ("llama3_offsets", "llama3"), ("gpt2_long_offsets", "gpt2")])
+def test_offsets_digests_match_wheel(name, config):
+    docs = long_parts()["long"] if name == "gpt2_long_offsets" else build_docs()
+    encs = WheelTokenizer.from_file(CONFIGS[config]).encode_batch(docs, add_special_tokens=True)
+    assert [offsets_digest(e) for e in encs] == load_digests(name)
 
 
 def _check_key(args, tables, key):

@@ -8,6 +8,11 @@
   the ids that the `tokenizers` wheel gives for `smoke_data.build_docs()`
   on the gpt2 and llama3_128k fixtures; `gpt2_long_digests.json` for
   the documents of `smoke_data.long_parts()`, in order, on gpt2.
+* `gpt2_offsets_digests.json`, `llama3_offsets_digests.json`: per
+  document, `smoke_data.offsets_digest` of the wheel's `encode_batch`
+  (ids, char offsets, word ids) on the same documents;
+  `gpt2_long_offsets_digests.json` for the long documents (a),
+  `long_parts()["long"]`, on gpt2.
 
 Both references are optional dependencies: they are imported by name here
 only, so the package itself never needs them.
@@ -30,7 +35,9 @@ from ..ops.unicode_tables import (
     PAGE_SIZE,
     TABLE_PATH,
 )
-from ..smoke_data import CONFIGS, build_docs, digests_path, ids_digest, long_parts
+from ..smoke_data import (
+    CONFIGS, build_docs, digests_path, ids_digest, long_parts, offsets_digest,
+)
 
 # Oniguruma \s
 WS_CODEPOINTS = (
@@ -65,12 +72,22 @@ def wheel_digests(config: str = "gpt2", docs=None):
     return [ids_digest(e.ids) for e in encs]
 
 
+def wheel_offsets_digests(config: str = "gpt2", docs=None):
+    wheel = importlib.import_module("tokenizers")
+    ref = wheel.Tokenizer.from_file(CONFIGS[config])
+    encs = ref.encode_batch(build_docs() if docs is None else docs, add_special_tokens=True)
+    return [offsets_digest(e) for e in encs]
+
+
 def main():
     stage1, stage2 = class_tables()
     np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
     print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes")
     digests = {config: wheel_digests(config) for config in CONFIGS}
     digests["gpt2_long"] = wheel_digests("gpt2", sum(long_parts().values(), []))
+    for config in CONFIGS:
+        digests[f"{config}_offsets"] = wheel_offsets_digests(config)
+    digests["gpt2_long_offsets"] = wheel_offsets_digests("gpt2", long_parts()["long"])
     for name, sha in digests.items():
         with open(digests_path(name), "w") as f:
             json.dump({"sha256": sha}, f, indent=0)

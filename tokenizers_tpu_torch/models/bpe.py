@@ -4,7 +4,9 @@ pair merging per word, with a bounded word cache.
 Copy of the merge of `tokenizers_tpu.models.bpe` (`_Word`, the heap loop
 and `_merge_word`) for the options the port's loader admits: vocab,
 merges, an unk token (with fuse_unk), and `ignore_merges`, which looks a
-whole word up in the vocab before merging it.  The host path encodes the
+whole word up in the vocab before merging it.  `tokenize_spans` gives
+each token's span in the word, in chars: a word of the byte-level
+pipelines has one char for each byte of the text.  The host path encodes the
 inputs the device does not take: inputs with added tokens, long inputs
 with no safe seam, and rows the device program flags `row_bad`.
 """
@@ -18,10 +20,6 @@ DEFAULT_CACHE_CAPACITY = 10_000
 MAX_CACHEABLE_LENGTH = 256
 
 
-def _utf8_len(c: str) -> int:
-    return len(c.encode("utf-8"))
-
-
 class Cache:
     """Bounded word cache: insert only while below capacity."""
 
@@ -29,18 +27,19 @@ class Cache:
 
     def __init__(self, capacity: int = DEFAULT_CACHE_CAPACITY):
         self.capacity = capacity
-        self.map: Dict[str, List[int]] = {}
+        self.map: Dict[str, Tuple[List[int], List[int]]] = {}
 
-    def get(self, key: str) -> Optional[List[int]]:
+    def get(self, key: str) -> Optional[Tuple[List[int], List[int]]]:
         return self.map.get(key)
 
-    def set(self, key: str, value: List[int]) -> None:
+    def set(self, key: str, value: Tuple[List[int], List[int]]) -> None:
         if len(self.map) < self.capacity:
             self.map[key] = value
 
 
 class _Word:
-    """Symbol list + merge loop; removed symbols keep byte_len 0."""
+    """Symbol list + merge loop; each symbol's length in chars of the word,
+    0 once merged into its left neighbour."""
 
     __slots__ = ("ids", "lens", "prev", "next")
 
@@ -50,12 +49,12 @@ class _Word:
         self.prev: List[int] = []
         self.next: List[int] = []
 
-    def add(self, id: int, byte_len: int) -> None:
+    def add(self, id: int, n_chars: int) -> None:
         n = len(self.ids)
         if n > 0:
             self.next[n - 1] = n
         self.ids.append(id)
-        self.lens.append(byte_len)
+        self.lens.append(n_chars)
         self.prev.append(n - 1)
         self.next.append(-1)
 
@@ -93,8 +92,9 @@ class _Word:
                 if m is not None:
                     heapq.heappush(heap, (m[0], pos, m[1]))
 
-    def token_ids(self) -> List[int]:
-        return [i for i, n in zip(self.ids, self.lens) if n]
+    def tokens(self) -> Tuple[List[int], List[int]]:
+        """(ids, lengths in chars) of the tokens, in order."""
+        return [i for i, n in zip(self.ids, self.lens) if n], [n for n in self.lens if n]
 
 
 class BPE:
@@ -102,6 +102,7 @@ class BPE:
                  unk_token: Optional[str] = None, fuse_unk: bool = False,
                  ignore_merges: bool = False):
         self.vocab: Dict[str, int] = dict(vocab)
+        self.vocab_r: Dict[int, str] = {v: k for k, v in self.vocab.items()}
         self.unk_token = unk_token
         self.fuse_unk = fuse_unk
         self.ignore_merges = ignore_merges
@@ -113,17 +114,16 @@ class BPE:
                     raise ValueError(f"Merge token out of vocabulary: {t!r}")
             self.merges[(self.vocab[a], self.vocab[b])] = (i, self.vocab[a + b])
 
-    def _merge_word(self, w: str) -> List[int]:
+    def _merge_word(self, w: str) -> Tuple[List[int], List[int]]:
         word = _Word()
-        unk: Optional[Tuple[int, int]] = None  # (unk_id, byte_len)
+        unk: Optional[Tuple[int, int]] = None  # (unk_id, chars)
         for c in w:
-            byte_len = _utf8_len(c)
             tid = self.vocab.get(c)
             if tid is not None:
                 if unk is not None:
                     word.add(*unk)
                     unk = None
-                word.add(tid, byte_len)
+                word.add(tid, 1)
                 continue
             if self.unk_token is None:
                 continue
@@ -131,28 +131,42 @@ class BPE:
             if unk_id is None:
                 raise ValueError(f"Unk token `{self.unk_token}` is out of vocabulary")
             if unk is not None and self.fuse_unk:
-                unk = (unk[0], unk[1] + byte_len)
+                unk = (unk[0], unk[1] + 1)
             else:
                 if unk is not None:
                     word.add(*unk)
-                unk = (unk_id, byte_len)
+                unk = (unk_id, 1)
         if unk is not None:
             word.add(*unk)
         word.merge_all(self.merges)
-        return word.token_ids()
+        return word.tokens()
 
-    def tokenize(self, word: str) -> List[int]:
-        """The ids of one pre-tokenized word."""
-        if not word:
-            return []
+    def _tokens(self, word: str) -> Tuple[List[int], List[int]]:
+        """(ids, lengths in chars) of one pre-tokenized word."""
         if self.ignore_merges:
             tid = self.vocab.get(word)
             if tid is not None:
-                return [tid]
+                return [tid], [len(word)]
         hit = self.cache.get(word)
         if hit is not None:
             return hit
-        ids = self._merge_word(word)
+        toks = self._merge_word(word)
         if len(word) < MAX_CACHEABLE_LENGTH:
-            self.cache.set(word, ids)
-        return ids
+            self.cache.set(word, toks)
+        return toks
+
+    def tokenize(self, word: str) -> List[int]:
+        """The ids of one pre-tokenized word."""
+        return self._tokens(word)[0] if word else []
+
+    def tokenize_spans(self, word: str) -> List[Tuple[int, int, int]]:
+        """(id, start, end) of each token of one pre-tokenized word, the
+        span in chars of the word."""
+        if not word:
+            return []
+        ids, lens = self._tokens(word)
+        out, pos = [], 0
+        for tid, n in zip(ids, lens):
+            out.append((tid, pos, pos + n))
+            pos += n
+        return out

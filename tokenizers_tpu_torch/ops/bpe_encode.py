@@ -16,6 +16,11 @@ Per chunk (`encode_core`):
    entry takes that id and skips the merge (`bpe_dedup.whole_word_ids`).
 3. Expansion to left-packed per-row ids.
 
+The offsets path (`encode_core_offsets`) runs the same boundaries but no
+dedup and no word cache: every chunk merges at full width with each
+token's original byte position riding the merge phases, and comes back
+with each token's start, end and word id in the prepared bytes.
+
 Rows that cannot be encoded on the device (a word longer than WORD_CAP
 bytes, a buffer overflow) come back flagged `row_bad` for the host path.
 
@@ -174,18 +179,8 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False,
     b = torch.where(inb, b, 0)
     seed = tables["seed"]
 
-    hashes = None
-    if boundary == "gpt2" and ascii_only and not whole_word and supported(b.shape):
-        bnd, nxt_bnd, h1k, h2k = layout_fused(b, lengths)
-        hashes = (h1k, h2k)
-    else:
-        if boundary == "gpt2":
-            bnd, _ = gpt2_boundaries(b, inb, tables["cls_table"], ascii_only=ascii_only)
-        elif boundary == "llama3":
-            bnd, _ = llama3_boundaries(b, inb, tables["cls_table"], ascii_only=ascii_only)
-        else:
-            raise ValueError(f"unknown boundary {boundary!r}")
-        nxt_bnd = next_boundary(bnd)
+    bnd, nxt_bnd, hashes = _boundaries(b, inb, lengths, tables, ascii_only, boundary,
+                                       whole_word)
 
     word_id = torch.where(inb, torch.cumsum(bnd.int(), 1, dtype=torch.int32) - 1, -1)
     # word-length guard (fill depth in the merge loop is bounded by WORD_CAP)
@@ -246,22 +241,94 @@ def _whole_word_full(ids0, b, bnd, inb, nxt_bnd, lengths, tables):
 def _branch_full(ids0, word_id, tables, out_w):
     """Small chunks whose words do not dedup into the buffer: the merge at
     full width (plain while tail), left-packed to out_w."""
-    B = ids0.shape[0]
     ids, _w, bad2 = run_merge_phases(
         ids0, word_id, tables["merge_rows0"], tables["merge_rows1"],
         tables["seed"], tables["merge_mclr"], ladder_depth=0,
     )
     alive = ids >= 0
     k = torch.cumsum(alive.int(), 1) - 1
-    ntok = torch.where(alive, k + 1, 0).max(1).values.to(torch.int32)
-    put = alive & (k < out_w)
-    packed = torch.full((B, out_w), -1, dtype=torch.int32, device=ids.device)
-    rows = torch.arange(B, device=ids.device)[:, None].expand_as(ids)
-    packed[rows[put], k[put].to(torch.int64)] = ids[put]
+    ntok = alive.sum(1, dtype=torch.int32)
+    (packed,) = _left_pack((ids,), alive & (k < out_w), out_w)
     # the merge width (5W/8) exceeds out_w: rows with more tokens than
     # out_w are flagged here
     over = ntok > out_w
     return packed, torch.where(over, 0, ntok), bad2 | over
+
+
+def _boundaries(b, inb, lengths, tables, ascii_only, boundary, whole_word):
+    """(bnd, nxt_bnd, hashes): the pre-split boundaries, the next boundary
+    of every position and, from the layout kernel (B3, gpt2 ASCII chunks
+    without the whole-word bypass), the two word hashes (else None)."""
+    if boundary == "gpt2" and ascii_only and not whole_word and supported(b.shape):
+        bnd, nxt_bnd, h1k, h2k = layout_fused(b, lengths)
+        return bnd, nxt_bnd, (h1k, h2k)
+    if boundary == "gpt2":
+        bnd, _ = gpt2_boundaries(b, inb, tables["cls_table"], ascii_only=ascii_only)
+    elif boundary == "llama3":
+        bnd, _ = llama3_boundaries(b, inb, tables["cls_table"], ascii_only=ascii_only)
+    else:
+        raise ValueError(f"unknown boundary {boundary!r}")
+    return bnd, next_boundary(bnd), None
+
+
+def _left_pack(vals, alive, width):
+    """Each of `vals` ([B, C] int32) left-packed over its row's alive
+    positions into [B, width] (at most `width` alive a row), -1
+    elsewhere."""
+    B = alive.shape[0]
+    k = (torch.cumsum(alive.int(), 1) - 1)[alive].to(torch.int64)
+    rows = torch.arange(B, device=alive.device)[:, None].expand_as(alive)[alive]
+    outs = []
+    for v in vals:
+        o = torch.full((B, width), -1, dtype=torch.int32, device=alive.device)
+        o[rows, k] = v[alive].to(torch.int32)
+        outs.append(o)
+    return outs
+
+
+def encode_core_offsets(bytes_u8, lengths, tables, ascii_only=False,
+                        boundary="gpt2", whole_word=False):
+    """The offsets path of one chunk (JAX `_encode_core` with
+    `with_offsets`): uint8[B, L] bytes + int32[B] lengths -> (ids, ntok,
+    row_bad, starts, ends, word ids), each [B, W] int32 left-packed to
+    W = the merge's 1/2 width, -1 past ntok (0 for ends).
+
+    No dedup and no word cache: the chunk merges at full width
+    (`run_merge_phases` with its tail ladder), each token carrying its
+    original byte position, which merges keep from the left token.  A
+    token's start is that position; its end the next token's start where
+    that token is of the same word, else the word's end (its next
+    boundary, at most the row's length), read at the token's start.
+    Starts, ends and word ids index the prepared bytes of the row."""
+    B, L = bytes_u8.shape
+    dev = bytes_u8.device
+    b = bytes_u8.to(torch.int32)
+    pos = torch.arange(L, device=dev, dtype=torch.int32).expand(B, L)
+    inb = pos < lengths[:, None]
+    b = torch.where(inb, b, 0)
+    bnd, nxt_bnd, _h = _boundaries(b, inb, lengths, tables, ascii_only, boundary,
+                                   whole_word)
+    word_id = torch.where(inb, torch.cumsum(bnd.int(), 1, dtype=torch.int32) - 1, -1)
+    wend = torch.minimum(nxt_bnd, lengths[:, None])  # each position's word end
+    row_bad = (bnd & (wend - pos > WORD_CAP)).any(1)
+
+    ids0 = torch.where(inb, take256(b, tables["byte2id"]), -1)
+    if whole_word:
+        ids0 = _whole_word_full(ids0, b, bnd, inb, nxt_bnd, lengths, tables)
+    ids, wid, bad, obp = run_merge_phases(
+        ids0, word_id, tables["merge_rows0"], tables["merge_rows1"],
+        tables["seed"], tables["merge_mclr"], obp=pos.contiguous(),
+    )
+    alive = ids >= 0
+    W = ids.shape[1]
+    ntok = alive.sum(1, dtype=torch.int32)
+    ids_pk, starts, wids = _left_pack((ids, obp, wid), alive, W)
+    in_tok = torch.arange(W, device=dev)[None, :] < ntok[:, None]
+    wend_at = wend.gather(1, starts.clamp(0, L - 1).to(torch.int64))
+    same_word = in_tok & _shift_next(in_tok, False) & (_shift_next(wids, -2) == wids)
+    ends = torch.where(same_word, _shift_next(starts, 0), wend_at)
+    ends = torch.where(in_tok, ends, 0).to(torch.int32)
+    return ids_pk, ntok, row_bad | bad, starts, ends, wids
 
 
 def encode_program_scan(bytes_u8, lengths, tables, cache=None, ascii_only=False,

@@ -13,6 +13,9 @@ cross-batch word cache (`bpe_dedup.WordCache`: 1M direct-mapped rows and a
 16M-token append buffer), which `bpe_encode.encode_program_scan` updates
 in place.  Same-shape chunks of one batch run in order through one
 program call, so each distinct word of the batch is merged once.
+
+The offsets path (`_program_offsets`) runs one chunk at a time through
+`bpe_encode.encode_core_offsets`, with no word cache.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from .bpe_dedup import H1_MULT, H2_MULT, WordCache
-from .bpe_encode import encode_program_scan
+from .bpe_encode import encode_core_offsets, encode_program_scan
 from .engine_base import DeviceEngineBase
 from .merge_table import CuckooMergeTable, consume_mins
 from .unicode_tables import char_class_flat
@@ -83,6 +86,7 @@ def whole_word_table(vocab: dict) -> Optional[CuckooMergeTable]:
 
 
 class ByteLevelBpeEngine(DeviceEngineBase):
+    supports_offsets = True
     WC_SLOTS = 1 << 20
     WC_CAP = 1 << 24
 
@@ -181,3 +185,13 @@ class ByteLevelBpeEngine(DeviceEngineBase):
                 for k, i in enumerate(idxs):
                     out[i] = (ids[k], ntok[k], bad[k])
         return out
+
+    def _program_offsets(self, buf: np.ndarray, lengths: np.ndarray):
+        """One packed chunk through the offsets path: (ids, ntok, row_bad,
+        starts, ends, word ids) on the engine's device."""
+        T = self.tables
+        return encode_core_offsets(
+            torch.from_numpy(buf).to(self.device), torch.from_numpy(lengths).to(self.device),
+            T, ascii_only=self._is_ascii(buf), boundary=T["boundary"],
+            whole_word=T["whole_word"],
+        )

@@ -299,21 +299,24 @@ def _g_excl_cumsum(x):
 
 
 def _tail_ladder(ids, own_l, own_r, f, wid3, seg3, rows0, rows1, seed,
-                 depth=2):
+                 obp=None, depth=2):
     """Data-dependent merge tail on buffers sized to the ACTIVE words.
 
     A word with no merge in a round is finished for good (every round
     merges each word's minimum-rank pair), so after the scheduled rounds
     the still-active words are moved into a buffer of half the rows (then
     1/8 of that, `depth` rungs), merged there until dry, and routed back
-    to their home positions.  Returns ids at the input shape."""
+    to their home positions.  `obp` (each token's original byte position,
+    the offsets path's) rides the moves there and back.  Returns
+    (ids, obp') at the input shape (obp' None without obp)."""
     return _ladder_rung(
-        ids, own_l, own_r, f, wid3, seg3, rows0, rows1, seed, depth=depth
+        ids, own_l, own_r, f, wid3, seg3, rows0, rows1, seed, obp=obp,
+        depth=depth,
     )
 
 
 def _ladder_rung(ids, own_l, own_r, f, wid3, seg3, rows0, rows1, seed,
-                 depth=0, ratio=2):
+                 obp=None, depth=0, ratio=2):
     B3, C3 = ids.shape
     R4 = max(B3 // ratio, 2)
     C4 = C3
@@ -331,7 +334,7 @@ def _ladder_rung(ids, own_l, own_r, f, wid3, seg3, rows0, rows1, seed,
         while any_f:
             st, f2 = step(st)
             any_f = bool(f2.any())
-        return unpack(st)[0]
+        return unpack(st)[0], obp
 
     def act_stats(ids_, f_):
         alive_ = ids_ >= 0
@@ -360,26 +363,31 @@ def _ladder_rung(ids, own_l, own_r, f, wid3, seg3, rows0, rows1, seed,
     b_w = r_d - k_w  # word base = first active position's dense rank
     tgt = (b_w // C4eff) * C4 + (b_w % C4eff) + k_w
     home = rowi * C3 + coli
+    extra = () if obp is None else (obp,)
     routed, live4 = route_to(
-        (ids, own_l, own_r, gw, home), act, torch.where(act, tgt, 0),
-        (-1, 0, 0, -1, 0), wrap=True, n_out=R4 * C4,
+        (ids, own_l, own_r, gw, home) + extra, act, torch.where(act, tgt, 0),
+        (-1, 0, 0, -1, 0) + (0,) * len(extra), wrap=True, n_out=R4 * C4,
     )
-    ids4, ol4, orr4, gw4, home4 = routed
+    ids4, ol4, orr4, gw4, home4 = routed[:5]
     seg4 = _seg_of(gw4)
 
     # ---- recurse: rounds at 1/8 of these rows (and below) until dry ----
-    ids4 = _ladder_rung(
+    ids4, obp4 = _ladder_rung(
         ids4, ol4, orr4, live4, gw4, seg4, rows0, rows1, seed,
-        depth=depth - 1, ratio=8,
+        obp=routed[5] if extra else None, depth=depth - 1, ratio=8,
     )
 
     # ---- route finished tokens back to their home positions ------------
     alive4 = ids4 >= 0
-    (ids_b,), liveb = route_to(
-        (ids4,), alive4, torch.where(alive4, home4, 0), (-1,),
-        wrap=True, n_out=B3 * C3,
+    extra = () if obp is None else (obp4,)
+    backed, liveb = route_to(
+        (ids4,) + extra, alive4, torch.where(alive4, home4, 0),
+        (-1,) + (0,) * len(extra), wrap=True, n_out=B3 * C3,
     )
-    return torch.where(liveb, ids_b, torch.where(act, -1, ids))
+    ids = torch.where(liveb, backed[0], torch.where(act, -1, ids))
+    if obp is not None:
+        obp = torch.where(liveb, backed[1], obp)
+    return ids, obp
 
 
 def _rounds_loop(ids, own_l, own_r, wid, rows0, rows1, seed, n_max):
@@ -406,24 +414,33 @@ def _round_width(W, frac_num, frac_den):
     return max(w, 64)
 
 
-def run_merge_phases(ids, wid, rows0, rows1, seed, mclr, ladder_depth=2):
+def run_merge_phases(ids, wid, rows0, rows1, seed, mclr, ladder_depth=2,
+                     obp=None):
     """Full merge to completion: two rounds at input width, compact to 5/8
     width, two rounds, compact to 1/2 width, two rounds, then the tail
     ladder.  Returns (ids, wid, row_bad) at the 1/2 width; compaction
-    overflow flags row_bad (host fallback)."""
+    overflow flags row_bad (host fallback).
+
+    `obp` (the offsets path's original byte position of each token) rides
+    every compaction and ladder move; merges keep the left token's
+    position, so the kernels never see it.  Given `obp`, the result has
+    obp' as a fourth element."""
     W = ids.shape[1]
+    extra = () if obp is None else (obp,)
     own_l, own_r = init_own(ids, mclr)
     ids, own_l, own_r, f = _rounds_loop(ids, own_l, own_r, wid, rows0, rows1, seed, 2)
 
-    ids, wid2, bad, (own_l, own_r) = compact(ids, wid, _round_width(W, 5, 8), (own_l, own_r))
+    ids, wid2, bad, (own_l, own_r, *extra) = compact(
+        ids, wid, _round_width(W, 5, 8), (own_l, own_r, *extra))
     ids, own_l, own_r, f = _rounds_loop(ids, own_l, own_r, wid2, rows0, rows1, seed, 2)
 
-    ids, wid3, bad3, (own_l, own_r) = compact(ids, wid2, _round_width(W, 1, 2), (own_l, own_r))
+    ids, wid3, bad3, (own_l, own_r, *extra) = compact(
+        ids, wid2, _round_width(W, 1, 2), (own_l, own_r, *extra))
     bad = bad | bad3
     ids, own_l, own_r, f = _rounds_loop(ids, own_l, own_r, wid3, rows0, rows1, seed, 2)
 
-    ids = _tail_ladder(
+    ids, obp = _tail_ladder(
         ids, own_l, own_r, f, wid3, _seg_of(wid3), rows0, rows1, seed,
-        depth=ladder_depth,
+        obp=extra[0] if extra else None, depth=ladder_depth,
     )
-    return ids, wid3, bad
+    return (ids, wid3, bad) + (() if obp is None else (obp,))

@@ -6,6 +6,14 @@ at tokenization-safe seams (`longdoc.py`), packs the rest into chunks
 (`packing.py`), runs the engine's program over them, and re-encodes on
 the host the rows the program flags `row_bad`.  There is no mesh: the
 JAX package's `_shard_chunk` has no counterpart here.
+
+With offsets (`encode_batch_offsets`) the engine's offsets program gives
+each token's span in the prepared bytes of its piece; the pieces of a
+long input are re-based (bytes and word ids), the prefix space is undone,
+and the spans are mapped to the original text's chars or bytes.  Only
+that "prepared bytes" space is ported: the "original chars" and
+"normalized bytes" spaces of the JAX package come with the engines that
+need them.
 """
 
 from __future__ import annotations
@@ -13,12 +21,56 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..encoding import Encoding
 from .longdoc import split_long
 from .packing import MAX_L, pack_batch
 
 CHUNK_TARGET = 1 << 15  # ~32KB device chunks for long documents
+
+
+def _offset_tables(text: str):
+    """(UTF-8 bytes, char index of each byte, byte position of each char)."""
+    data = np.frombuffer(text.encode("utf-8"), np.uint8)
+    is_start = (data & 0xC0) != 0x80
+    cidx = np.cumsum(is_start) - 1 if len(data) else np.zeros(0, np.int64)
+    return data, cidx, np.flatnonzero(is_start)
+
+
+def _bytes_to_chars(text: str, starts: np.ndarray, ends: np.ndarray):
+    """Byte spans of `text` -> char spans, each widened to whole chars: a
+    span that starts or ends inside a char takes the whole char, as the
+    reference's alignments give every byte of a char the char's span."""
+    data, cidx, _ = _offset_tables(text)
+    n = len(data)
+    if n == 0:
+        return starts * 0, ends * 0
+    st = cidx[np.clip(starts, 0, n - 1)]
+    en = np.where(ends > starts, cidx[np.clip(ends - 1, 0, n - 1)] + 1, st)
+    return st.astype(np.int64), en.astype(np.int64)
+
+
+def _expand_bytes(text: str, starts: np.ndarray, ends: np.ndarray):
+    """Byte spans of `text` widened to char boundaries (byte offsets)."""
+    data, cidx, char_pos = _offset_tables(text)
+    n = len(data)
+    if n == 0:
+        return starts * 0, ends * 0
+    st = char_pos[cidx[np.clip(starts, 0, n - 1)]]
+    nxt = cidx[np.clip(ends - 1, 0, n - 1)] + 1
+    en = np.where(nxt < len(char_pos), char_pos[np.clip(nxt, 0, len(char_pos) - 1)], n)
+    en = np.where(ends > starts, en, st)
+    return st.astype(np.int64), en.astype(np.int64)
+
+
+def map_offsets(text: str, starts, ends, kind: str):
+    """Byte spans of `text` as the offsets of `kind`: "char" (char
+    positions, the Python binding's) or "byte" (byte positions widened
+    to whole chars).  Returns a list of (start, end)."""
+    st, en = np.asarray(starts, np.int64), np.asarray(ends, np.int64)
+    st, en = (_bytes_to_chars if kind == "char" else _expand_bytes)(text, st, en)
+    return list(zip(st.tolist(), en.tolist()))
 
 
 class FallbackStats:
@@ -65,7 +117,9 @@ class DeviceEngineBase:
     supports_offsets = False
 
     def _prepare(self, s: str) -> bytes:
-        if self.add_prefix_space and not s.startswith(" "):
+        """UTF-8 bytes of `s`, after the prefix space where the
+        pre-tokenizer adds one (never to an empty input: it has no word)."""
+        if self.add_prefix_space and s and not s.startswith(" "):
             s = " " + s
         return s.encode("utf-8")
 
@@ -133,13 +187,14 @@ class DeviceEngineBase:
         STATS.bad_rows += len(bad)
         return results, bad
 
-    def encode_batch(self, inputs: List[str], add_special_tokens: bool) -> List[Encoding]:
+    def _work_items(self, inputs: List[str]):
+        """(pieces, owner of each piece, inputs for the host): each input
+        without an added token, prepared, split at safe seams when longer
+        than MAX_L // 2 (to the host when it has none)."""
         added = list(self.tokenizer.added)
-        encodings: List[Optional[Encoding]] = [None] * len(inputs)
         piece_strings: List[bytes] = []  # flattened device work items
         piece_owner: List[int] = []  # input index per work item
         host_idx: List[int] = []
-
         for i, s in enumerate(inputs):
             if self._needs_host(s, added):
                 host_idx.append(i)
@@ -152,12 +207,15 @@ class DeviceEngineBase:
                     continue
             else:
                 chunks = [data]
-            for c in chunks:
-                piece_strings.append(c)
-                piece_owner.append(i)
-
+            piece_strings += chunks
+            piece_owner += [i] * len(chunks)
         STATS.total_inputs += len(inputs)
         STATS.host_pre_inputs += len(host_idx)
+        return piece_strings, piece_owner, host_idx
+
+    def encode_batch(self, inputs: List[str], add_special_tokens: bool) -> List[Encoding]:
+        encodings: List[Optional[Encoding]] = [None] * len(inputs)
+        piece_strings, piece_owner, host_idx = self._work_items(inputs)
         if piece_strings:
             results, bad = self._run_device(piece_strings)
             bad_inputs = {piece_owner[j] for j in bad}
@@ -177,3 +235,107 @@ class DeviceEngineBase:
         for i in host_idx:
             encodings[i] = self.tokenizer.encode_host(inputs[i], add_special_tokens)
         return encodings
+
+    # ---------------------------------------------------------- with offsets
+
+    def _run_device_offsets(self, byte_strings: List[bytes]):
+        """-> (per-input (ids, starts, ends, word ids) or None, indices of
+        bad inputs); spans in each input's prepared bytes."""
+        results: List[Optional[tuple]] = [None] * len(byte_strings)
+        bad: List[int] = []
+        for buf, lengths, orig in pack_batch(byte_strings):
+            ids, ntok, row_bad, starts, ends, words = (
+                t.cpu().numpy() for t in self._program_offsets(buf, lengths))
+            for r, i in enumerate(orig):
+                if row_bad[r]:
+                    bad.append(i)
+                    continue
+                n = ntok[r]
+                results[i] = (ids[r, :n], starts[r, :n], ends[r, :n], words[r, :n])
+        STATS.device_rows += len(byte_strings)
+        STATS.bad_rows += len(bad)
+        return results, bad
+
+    def encode_batch_offsets(self, inputs: List[str], add_special_tokens: bool,
+                             kind: str) -> List[Encoding]:
+        """Ids with offsets of `kind` ("char" or "byte", `map_offsets`),
+        token strings and word ids: the reference's `encode_batch` surface.
+        Inputs the device does not take, and rows it flags, run the host
+        pipeline with the same offsets."""
+        encodings: List[Optional[Encoding]] = [None] * len(inputs)
+        piece_strings, piece_owner, host_idx = self._work_items(inputs)
+        if piece_strings:
+            results, bad = self._run_device_offsets(piece_strings)
+            bad_inputs = {piece_owner[j] for j in bad}
+            per_input: dict = {}
+            base: dict = {}  # input -> (byte base, word base) of its next piece
+            for j, res in enumerate(results):
+                owner = piece_owner[j]
+                bbase, wbase = base.get(owner, (0, 0))
+                base[owner] = (bbase + len(piece_strings[j]),
+                               wbase + (int(res[3].max()) + 1 if res is not None
+                                        and len(res[3]) else 0))
+                if owner in bad_inputs or res is None:
+                    continue
+                ids, st, en, wd = res
+                per_input.setdefault(owner, []).append(
+                    (ids, st + bbase, en + bbase, wd + wbase))
+            for i, parts in per_input.items():
+                ids, st, en, wd = (np.concatenate(x) for x in zip(*parts))
+                if self.add_prefix_space and not inputs[i].startswith(" "):
+                    # prepared -> original bytes: undo the prefix space
+                    st, en = np.maximum(st - 1, 0), np.maximum(en - 1, 0)
+                idl = ids.tolist()
+                enc = Encoding(ids=idl, tokens=self._token_strings(idl),
+                               words=wd.tolist(),
+                               offsets=map_offsets(inputs[i], st, en, kind))
+                encodings[i] = self.tokenizer.post_process(enc, add_special_tokens,
+                                                           with_offsets=True)
+            host_idx.extend(sorted(bad_inputs))
+
+        for i in host_idx:
+            encodings[i] = self.tokenizer.encode_host(inputs[i], add_special_tokens,
+                                                      offsets=kind)
+        return encodings
+
+    def _token_strings(self, ids):
+        vr = self.tokenizer.model.vocab_r
+        return [vr[t] for t in ids]
+
+    def encode_batch_arrays(self, inputs: List[str]):
+        """Ids that stay on the device: per packed chunk (ids, ntok,
+        row_bad, (input index, piece index) of each row), from the engine's
+        program.  A long input is split at safe seams as in `encode_batch`
+        into pieces, which may land in different chunks; their ids
+        concatenate in piece order.  Nothing goes to
+        the host: a flagged row's ids are not the input's (the caller
+        re-encodes it; the JAX package's version returns no flags).  The
+        rows of an input holding an added token are flagged too: the
+        program encodes it as plain bytes.  An input over MAX_L // 2 bytes
+        with no safe seam raises ValueError."""
+        added = list(self.tokenizer.added)
+        byte_strings: List[bytes] = []
+        owners: List[tuple] = []
+        host = [self._needs_host(s, added) for s in inputs]
+        for i, s in enumerate(inputs):
+            data = self._prepare(s)
+            chunks = [data]
+            if len(data) > MAX_L // 2:
+                chunks = self._split_long(data, CHUNK_TARGET)
+                if len(chunks) == 1:
+                    raise ValueError(
+                        f"input {i} is {len(data)} bytes with no tokenization-safe "
+                        f"seam (over MAX_L // 2 = {MAX_L // 2}); encode_batch takes it "
+                        f"to the host")
+            byte_strings += chunks
+            owners += [(i, k) for k in range(len(chunks))]
+        out = []
+        chunks = pack_batch(byte_strings)
+        for (_buf, _lens, orig), res in zip(chunks, self._program_many(chunks)):
+            row_owners = [owners[j] for j in orig]
+            row_bad = res[2]
+            if any(host[i] for i, _k in row_owners):
+                row_bad = row_bad | torch.tensor([host[i] for i, _k in row_owners],
+                                                 device=row_bad.device)
+            out.append((res[0], res[1], row_bad, row_owners))
+        return out

@@ -1,6 +1,8 @@
 """ByteLevel pre-tokenizer of the host path: the GPT-2 byte -> printable
 char table (copied from `tokenizers_tpu.pre_tokenizers.byte_level`) and
-the GPT-2 split, which `use_regex=False` leaves out.
+the GPT-2 split, which `use_regex=False` leaves out; and, as a
+post-processor, the trimming of whitespace from token offsets
+(`process_offsets`, copied from the same module).
 
 The split does not run the GPT-2 regex.  It takes the match starts of
 `'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|
@@ -10,7 +12,7 @@ device program uses, run on the CPU over one row as long as the text.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -58,17 +60,28 @@ class ByteLevel:
     def pre_tokenize(self, text: str) -> List[str]:
         """`text` -> its words, each as byte-level chars: the GPT-2 words,
         or without the regex the whole text as one word."""
-        if self.add_prefix_space and not text.startswith(" "):
-            text = " " + text
-        data = text.encode("utf-8")
-        words = gpt2_split(data) if self.use_regex else [data] if data else []
-        return ["".join(BYTES_CHAR[b] for b in w) for w in words]
+        return [w for w, _s, _e in self.pre_tokenize_spans(text)[0]]
+
+    def pre_tokenize_spans(self, text: str) -> Tuple[List[Tuple[str, int, int]], int]:
+        """(words, shift): each word as byte-level chars with its byte span
+        in the prepared text (`text`, after the prefix space when one is
+        added), and shift = 1 when it was (0 else): a prepared byte p is
+        the text's byte max(p - shift, 0)."""
+        shift = int(self.add_prefix_space and not text.startswith(" "))
+        data = (" " * shift + text).encode("utf-8")
+        if self.use_regex:
+            from ..ops.bpe_encode import gpt2_boundaries
+
+            spans = boundary_spans(data, gpt2_boundaries)
+        else:
+            spans = [(0, len(data))] if data else []
+        return [("".join(BYTES_CHAR[b] for b in data[s:e]), s, e) for s, e in spans], shift
 
 
-def split_at_boundaries(data: bytes, boundaries) -> List[bytes]:
-    """The words of UTF-8 bytes, cut at the match starts that
-    `boundaries(b, inb, cls_table, ascii_only)` (a pre-split rule of the
-    device program) finds, run on the CPU over one row."""
+def boundary_spans(data: bytes, boundaries) -> List[Tuple[int, int]]:
+    """The byte spans of the words of UTF-8 bytes, cut at the match starts
+    that `boundaries(b, inb, cls_table, ascii_only)` (a pre-split rule of
+    the device program) finds, run on the CPU over one row."""
     if not data:
         return []
     b = torch.from_numpy(np.frombuffer(data, np.uint8).astype(np.int32))[None]
@@ -78,11 +91,48 @@ def split_at_boundaries(data: bytes, boundaries) -> List[bytes]:
         None if ascii_only else _cpu_cls_table(), ascii_only=ascii_only,
     )
     starts = torch.nonzero(bnd[0]).flatten().tolist()
-    return [data[s:e] for s, e in zip(starts, starts[1:] + [len(data)])]
+    return list(zip(starts, starts[1:] + [len(data)]))
 
 
 def gpt2_split(data: bytes) -> List[bytes]:
     """The GPT-2 words of UTF-8 bytes."""
     from ..ops.bpe_encode import gpt2_boundaries
 
-    return split_at_boundaries(data, gpt2_boundaries)
+    return [data[s:e] for s, e in boundary_spans(data, gpt2_boundaries)]
+
+
+# Oniguruma's \s, which the reference's `char::is_whitespace` matches here
+_WHITESPACE_CPS = frozenset(
+    [0x09, 0x0A, 0x0B, 0x0C, 0x0D, 0x20, 0x85, 0xA0, 0x1680]
+    + list(range(0x2000, 0x200B))
+    + [0x2028, 0x2029, 0x202F, 0x205F, 0x3000]
+)
+_SPACE_CHAR = BYTES_CHAR[ord(" ")]
+
+
+def _is_space(c: str) -> bool:
+    return c == _SPACE_CHAR or ord(c) in _WHITESPACE_CPS
+
+
+def process_offsets(encoding, add_prefix_space: bool) -> None:
+    """Trim leading and trailing spaces (`Ġ` or whitespace) of each token
+    from its offsets, in place (reference `byte_level.rs:202-234`).  A
+    first token (the first, or one at offset 0) keeps one leading space
+    when `add_prefix_space`: that space was added, not in the text."""
+    for i, token in enumerate(encoding.tokens):
+        leading = 0
+        while leading < len(token) and _is_space(token[leading]):
+            leading += 1
+        trailing = 0
+        while trailing < len(token) and _is_space(token[-1 - trailing]):
+            trailing += 1
+        if leading == 0 and trailing == 0:
+            continue
+        start, end = encoding.offsets[i]
+        if leading > 0:
+            if (i == 0 or start == 0) and add_prefix_space and leading == 1:
+                leading = 0
+            start = min(start + leading, end)
+        if trailing > 0 and end >= trailing:
+            end = max(end - trailing, start)
+        encoding.offsets[i] = (start, end)

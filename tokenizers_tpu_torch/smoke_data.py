@@ -20,9 +20,12 @@ the 5/8 width holds, so every row is flagged and the host encodes it.
 per document of the ids the `tokenizers` wheel gives (special tokens
 added) on `tests/fixtures/gpt2/tokenizer.json` and
 `tests/fixtures/llama3_128k/tokenizer.json`; `data/gpt2_long_digests.json`
-those of the `long_parts()` documents, in order, on gpt2
-(`python -m tokenizers_tpu_torch.data.regen` writes them;
-`tests/test_torch_tables.py` re-derives them).
+those of the `long_parts()` documents, in order, on gpt2.  The
+`*_offsets_digests.json` files hold, per document, the SHA-256 of what the
+wheel's `encode_batch` gives: ids, char offsets and word ids
+(`offsets_digest`), for the 8 KB documents and, on gpt2, the long
+documents (a) (`python -m tokenizers_tpu_torch.data.regen` writes them
+all; `tests/test_torch_tables.py` re-derives them).
 
 `first_ascii_chunk` and `unique_state` give the merge loop's first state
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
@@ -30,7 +33,9 @@ at the gpt2 path's unique buffer, where `chip_smoke.py` and
 llama-3 path (whole-word bypass applied), where they hold and time B4;
 `full_width_state` the first state
 of the full-width branch, and `full_width_states` the two such states at
-which the tools and `chip_smoke.py` time the wide B1; `corpus_chunk` the
+which the tools and `chip_smoke.py` time the wide B1; `offsets_states`
+the offsets path's [256, 8192] and [256, 5120] states, where they time
+it too; `corpus_chunk` the
 corpus chunks at which they time the wide B3.  `adversarial_case` builds the
 edge-case merge layouts on which `chip_smoke.py` and the tests hold the
 merge kernels against their plain versions; `adversarial_layout_case` the
@@ -121,6 +126,15 @@ def ids_digest(ids: Sequence[int]) -> str:
     return hashlib.sha256(np.asarray(ids, dtype="<i4").tobytes()).hexdigest()
 
 
+def offsets_digest(enc) -> str:
+    """SHA-256 of an encoding's ids, char offsets and word ids (None as
+    -1), as little-endian int32 in that order."""
+    words = [-1 if w is None else w for w in enc.word_ids]
+    return hashlib.sha256(np.asarray(
+        list(enc.ids) + [x for o in enc.offsets for x in o] + words, dtype="<i4").tobytes()
+    ).hexdigest()
+
+
 def digests_path(config: str = "gpt2") -> str:
     return os.path.join(DATA, f"{config}_digests.json")
 
@@ -172,6 +186,31 @@ def full_width_states(eng, device="cuda"):
         ids, own_l, own_r, wid = full_width_state(eng, b, inb, lk.layout_fused(b, n)[0])
         states[(rows, shape[1])] = (ids, own_l, own_r, wid,
                                     *mk.keys(ids, tabs[0], tabs[2]), *tabs)
+    return states
+
+
+def offsets_states(eng, device="cuda"):
+    """{(R, C): B1's args (ids, own_l, own_r, wid, h0, h1, nid, rows0,
+    rows1, seed)} at the offsets path's two cluster-B1 widths for the first
+    [256, 8192] ASCII chunk of the 8 KB documents (`build_docs`): its
+    full-width state, and the state two rounds on, compacted to the 5/8
+    width 5120 (`bpe_merge2.run_merge_phases`).  Rounds, boundaries and
+    keys come from the kernels of the package this module is loaded in."""
+    from .ops import layout_kernels as lk
+    from .ops import merge_kernels as mk
+    from .ops.bpe_merge2 import compact
+
+    T = eng.tables
+    tabs = (T["merge_rows0"], T["merge_rows1"], T["seed"])
+    b, n, inb = first_ascii_chunk(eng, [eng._prepare(d) for d in build_docs()], device=device)
+    ids, own_l, own_r, wid = full_width_state(eng, b, inb, lk.layout_fused(b, n)[0])
+    args = (ids, own_l, own_r, wid, *mk.keys(ids, tabs[0], tabs[2]), *tabs)
+    states = {(256, 8192): args}
+    for _ in range(2):
+        out = mk.merge_round_fused(*args)
+        args = (*out[:3], wid, *out[4:7], *tabs)
+    ids, wid, _bad, (own_l, own_r) = compact(args[0], wid, 5120, args[1:3])
+    states[(256, 5120)] = (ids, own_l, own_r, wid, *mk.keys(ids, tabs[0], tabs[2]), *tabs)
     return states
 
 

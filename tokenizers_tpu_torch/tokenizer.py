@@ -14,10 +14,13 @@ special added tokens and the ByteLevel decoder (or none):
 Anything else raises `NotImplementedError` naming the later slice of the
 port that brings it.
 
-`encode_batch_fast` runs the device engine (`ops/bpe_engine.py`) on the
-tokenizer's device and the host pipeline for what the device does not
-take.  The device is `cuda` unless the caller asks for `device="cpu"`,
-where every kernel runs its plain PyTorch version.
+`encode_batch_fast` (ids) and `encode_batch` (ids with char offsets,
+token strings and word ids; `encode_batch_byte_offsets` for byte
+offsets) run the device engine (`ops/bpe_engine.py`) on the tokenizer's
+device and the host pipeline for what the device does not take.  The
+device is `cuda` unless the caller asks for `device="cpu"`, where every
+kernel runs its plain PyTorch version.  Pairs and pre-tokenized input
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Iterable, List, Optional, Union
 from . import pick_device
 from .encoding import Encoding
 from .models.bpe import BPE
-from .pre_tokenizers.byte_level import ByteLevel
+from .pre_tokenizers.byte_level import ByteLevel, process_offsets
 from .pre_tokenizers.split import LLAMA3_PATTERN, Sequence, Split
 from .processors.template import TemplateProcessing
 
@@ -38,6 +41,15 @@ _BYTE_LEVEL_KEYS = {"type", "add_prefix_space", "trim_offsets", "use_regex"}
 
 def _unsupported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported yet: it waits for {slice_name}")
+
+
+def _single_sequences(inputs, is_pretokenized: bool) -> List[str]:
+    inputs = list(inputs)
+    if is_pretokenized:
+        _unsupported("pre-tokenized input", "a later slice")
+    if not all(isinstance(s, str) for s in inputs):
+        _unsupported("pairs of sequences", "a later slice")
+    return inputs
 
 
 def _load_model(d: dict, llama3: bool) -> BPE:
@@ -165,6 +177,55 @@ class Tokenizer:
     def encode_fast(self, sequence: str, add_special_tokens: bool = True) -> Encoding:
         return self.encode_batch_fast([sequence], add_special_tokens)[0]
 
+    def _encode_batch(self, inputs, is_pretokenized: bool, add_special_tokens: bool,
+                      offsets: str) -> List[Encoding]:
+        inputs = _single_sequences(inputs, is_pretokenized)
+        engine = self._get_device_engine()
+        if engine is None or not engine.supports_offsets:
+            return [self.encode_host(s, add_special_tokens, offsets=offsets) for s in inputs]
+        return engine.encode_batch_offsets(inputs, add_special_tokens, offsets)
+
+    def encode_batch(self, inputs: Iterable[str], is_pretokenized: bool = False,
+                     add_special_tokens: bool = True) -> List[Encoding]:
+        """Ids with char offsets, token strings and word ids, as the
+        reference's Python binding gives them."""
+        return self._encode_batch(inputs, is_pretokenized, add_special_tokens, "char")
+
+    def encode_batch_char_offsets(self, inputs: Iterable[str], is_pretokenized: bool = False,
+                                  add_special_tokens: bool = True) -> List[Encoding]:
+        return self._encode_batch(inputs, is_pretokenized, add_special_tokens, "char")
+
+    def encode_batch_byte_offsets(self, inputs: Iterable[str], is_pretokenized: bool = False,
+                                  add_special_tokens: bool = True) -> List[Encoding]:
+        """As `encode_batch`, with byte offsets (the reference's Rust
+        default), each widened to whole chars."""
+        return self._encode_batch(inputs, is_pretokenized, add_special_tokens, "byte")
+
+    def _encode(self, sequence, pair, is_pretokenized, add_special_tokens, offsets):
+        if pair is not None:
+            _unsupported("pairs of sequences", "a later slice")
+        return self._encode_batch([sequence], is_pretokenized, add_special_tokens, offsets)[0]
+
+    def encode(self, sequence: str, pair=None, is_pretokenized: bool = False,
+               add_special_tokens: bool = True) -> Encoding:
+        return self._encode(sequence, pair, is_pretokenized, add_special_tokens, "char")
+
+    def encode_char_offsets(self, sequence: str, pair=None, is_pretokenized: bool = False,
+                            add_special_tokens: bool = True) -> Encoding:
+        return self._encode(sequence, pair, is_pretokenized, add_special_tokens, "char")
+
+    def encode_byte_offsets(self, sequence: str, pair=None, is_pretokenized: bool = False,
+                            add_special_tokens: bool = True) -> Encoding:
+        return self._encode(sequence, pair, is_pretokenized, add_special_tokens, "byte")
+
+    def encode_batch_arrays(self, inputs: Iterable[str]):
+        """Per packed chunk (ids, ntok, row_bad, (input, piece) of each row),
+        the ids left on the device (`DeviceEngineBase.encode_batch_arrays`)."""
+        engine = self._get_device_engine()
+        if engine is None:
+            raise RuntimeError("this tokenizer has no device engine")
+        return engine.encode_batch_arrays(_single_sequences(inputs, False))
+
     def token_to_id(self, token: str) -> Optional[int]:
         tid = self.added.get(token)
         return tid if tid is not None else self.model.vocab.get(token)
@@ -180,9 +241,14 @@ class Tokenizer:
             self._engine_built = True
         return self._engine
 
-    def encode_host(self, text: str, add_special_tokens: bool = True) -> Encoding:
+    def encode_host(self, text: str, add_special_tokens: bool = True,
+                    offsets: Optional[str] = None) -> Encoding:
         """The host pipeline: added tokens split out, the pre-tokenizer's
-        split and BPE on each piece between them."""
+        split and BPE on each piece between them.  With `offsets` ("char"
+        or "byte") it also gives each token's offsets, string and word
+        index (an added token is a word of its own); without, ids only."""
+        if offsets is not None:
+            return self._encode_host_offsets(text, add_special_tokens, offsets)
         ids: List[int] = []
         pos = 0
         matches = self._added_re.finditer(text) if self._added_re else ()
@@ -195,11 +261,53 @@ class Tokenizer:
                 pos = m.end()
         return self.post_process(Encoding(ids=ids), add_special_tokens)
 
-    def post_process(self, encoding: Encoding, add_special_tokens: bool = True) -> Encoding:
-        """The template's special tokens and type ids.  The ByteLevel
-        post-processor adds no tokens; it would trim offsets, which the
-        port does not track yet (they stay (0, 0))."""
+    def _encode_host_offsets(self, text: str, add_special_tokens: bool,
+                             offsets: str) -> Encoding:
+        """`encode_host` with offsets.  Spans are taken in the text's bytes,
+        each word's in its piece's prepared bytes with the prefix space
+        undone, and mapped to chars or whole-char bytes as the device's
+        spans are (`engine_base.map_offsets`)."""
+        from .ops.engine_base import map_offsets
+
+        ids, tokens, words, starts, ends = [], [], [], [], []
+        pos = byte_pos = 0  # the next piece's start, in chars and bytes
+
+        def add(tid, token, st, en):
+            ids.append(tid)
+            tokens.append(token)
+            words.append(n_words)
+            starts.append(st)
+            ends.append(en)
+
+        n_words = 0
+        matches = self._added_re.finditer(text) if self._added_re else ()
+        for m in list(matches) + [None]:
+            piece = text[pos : m.start() if m else len(text)]
+            if piece:
+                pre, shift = self.pre_tokenizer.pre_tokenize_spans(piece)
+                for word, ws, _we in pre:
+                    for tid, ts, te in self.model.tokenize_spans(word):
+                        add(tid, self.model.vocab_r[tid],
+                            byte_pos + max(ws + ts - shift, 0), byte_pos + max(ws + te - shift, 0))
+                    n_words += 1
+                byte_pos += len(piece.encode("utf-8"))
+            if m:
+                n = len(m.group().encode("utf-8"))
+                add(self.added[m.group()], m.group(), byte_pos, byte_pos + n)
+                n_words += 1
+                pos, byte_pos = m.end(), byte_pos + n
+        enc = Encoding(ids=ids, tokens=tokens, words=words,
+                       offsets=map_offsets(text, starts, ends, offsets))
+        return self.post_process(enc, add_special_tokens, with_offsets=True)
+
+    def post_process(self, encoding: Encoding, add_special_tokens: bool = True,
+                     with_offsets: bool = False) -> Encoding:
+        """The template's special tokens and type ids; with offsets tracked,
+        the ByteLevel post-processor's trimming of spaces from them
+        (`trim_offsets`).  It adds no tokens."""
         if isinstance(self.post_processor, TemplateProcessing):
             return self.post_processor.process(encoding, add_special_tokens)
+        if with_offsets and self.post_processor is not None and self.post_processor.trim_offsets:
+            process_offsets(encoding, self.post_processor.add_prefix_space)
         encoding.set_sequence_id(0)
         return encoding

@@ -7,8 +7,9 @@ slice size they take: the data behind `layout_kernels.wide_geometry` and
 B3 (`layout_fused_wide`) on `smoke_data.corpus_chunk` at the shapes of
 `wide_ab.B3_SHAPES` ([128, 16384], [64, 32768], [32, 65536]) in slices of
 8192, 4096 and 2048; B1 (`merge_round_fused_wide`) at
-`smoke_data.full_width_states` ([8, 8192], [32, 16384]) in slices of 4096,
-2048, 1024 and 512 (clusters of at most 16 CTAs).  Each geometry runs
+`smoke_data.full_width_states` ([8, 8192], [32, 16384]) and at the offsets
+path's `smoke_data.offsets_states` ([256, 8192], [256, 5120]) in slices of
+4096, 2048, 1024 and 512 (clusters of at most 16 CTAs).  Each geometry runs
 through the kernel's launch with that geometry given and is held bit for
 bit against the plain version first.  Prints one JSON line per kernel and
 shape: per slice size the cluster size, the resident clusters
@@ -25,7 +26,7 @@ import torch
 from .. import Tokenizer
 from ..ops import layout_kernels as lk
 from ..ops import merge_kernels as mk
-from ..smoke_data import GPT2_JSON, corpus_chunk, full_width_states
+from ..smoke_data import GPT2_JSON, corpus_chunk, full_width_states, offsets_states
 from .b1_phases import _smi
 from .timing import median_ms
 from .wide_ab import B3_SHAPES
@@ -59,7 +60,7 @@ def main() -> None:
                           "chosen": lk.wide_geometry(L), "by_slice": res, "card": card}),
               flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for (R, C), args in full_width_states(eng).items():
+    for (R, C), args in {**full_width_states(eng), **offsets_states(eng)}.items():
         res = _sweep("merge_round_fused_wide", mk, (4096, 2048, 1024, 512), C,
                      lambda S, nc: mk._launch((S, nc), args[:4], args[4:7], *args[7:]),
                      lambda: mk.merge_round_fused_plain(*args))
