@@ -79,7 +79,16 @@
    kernel and shape), its launches equal to the counted run's; and
    `encode_batch_byte_offsets` on the first 64 documents of each
    tokenizer against the port's own host path with byte offsets.
-8. Prints a line of numbers per path, the per-kernel JSON line (with each
+8. The bert WordPiece path (`bert_path`), on no kernel of `csrc/`: the
+   bert tokenizer built (its tables timed), `encode_batch_fast` on the
+   512 8 KB documents (two [256, 8192] ASCII chunks on the dedup program,
+   one [32, 8192] chunk on the dense program) and on the long documents
+   (a), each cold and cached, and `encode_batch` on both, every document
+   against `data/bert*_digests.json`; `encode_batch_byte_offsets` on 64
+   documents against the host path; every B1-B4 launch count must stay 0
+   over the phase.  One more cold pass times the unique-word encoder (the
+   longest-match sweep and the doubling) and the program with CUDA events.
+9. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -102,6 +111,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 GPT2 = os.path.join(FIXTURES, "gpt2", "tokenizer.json")
 LLAMA3 = os.path.join(FIXTURES, "llama3_128k", "tokenizer.json")
+BERT = os.path.join(FIXTURES, "bert", "tokenizer.json")
 TPU_KERNELS = {  # file:line of the `pallas_call` each kernel replaces
     "layout_fused": "tokenizers_tpu/ops/layout_pallas.py:176",
     "layout_fused_wide": "tokenizers_tpu/ops/layout_pallas.py:176",
@@ -667,6 +677,118 @@ def offsets_path(torch, tok, tok3, stats, counts, numbers):
                                                        for r in runs.values()])
 
 
+def bert_path(torch, stats, counts, numbers):
+    """Phase 9, the BERT WordPiece path: no kernel of `csrc/` runs on it
+    (the JAX package computes it in plain XLA, the port in torch ops), and
+    every B1-B4 launch count must stay 0 over the whole phase.  Builds the
+    bert tokenizer (its tables timed), then `encode_batch_fast` on the 512
+    8 KB documents cold and cached (two [256, 8192] ASCII chunks on the
+    dedup program, one [32, 8192] chunk on the generic dense program) and
+    on the long documents (a) cold and cached (a new tokenizer: an empty
+    word cache), `encode_batch` on both, every document against its
+    committed digest, `encode_batch_byte_offsets` on 64 documents against
+    the host path, and one more cold pass with CUDA events around the
+    unique-word encoder (the longest-match sweep and the doubling) and the
+    program.  Adds each kernel's `bert_path_launches` to `stats` and the
+    bert numbers to `numbers`."""
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.ops import bert_tables, wordpiece_dedup
+    from tokenizers_tpu_torch.ops.packing import pack_batch
+    from tokenizers_tpu_torch.ops.wordpiece_engine import WordPieceEngine
+    from tokenizers_tpu_torch.smoke_data import build_docs, load_digests, long_parts
+
+    for c in counts.values():
+        for k in c:
+            c[k] = 0
+    tables_cached = bool(os.listdir(bert_tables.cache_dir()))  # a checkout has none
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    tok = Tokenizer.from_file(BERT)
+    eng = tok._get_device_engine()
+    tables_s = time.perf_counter() - t
+    if not isinstance(eng, WordPieceEngine):
+        raise SystemExit(f"bert: the device engine is {type(eng).__name__}")
+    print(f"bert tables {tables_s:.3f} s ({'loaded from' if tables_cached else 'built into'} "
+          f"{bert_tables.cache_dir()})", flush=True)
+    docs = build_docs()
+    long_docs = long_parts()["long"]
+    runs = drive_path(torch, tok, docs, "bert", counts)
+    tok_long = Tokenizer.from_file(BERT)
+    runs_long = drive_path(torch, tok_long, long_docs, "bert_long", counts,
+                           digests=load_digests("bert_long"))
+    offs = offsets_run(torch, tok, docs, "bert", counts, load_digests("bert_offsets"),
+                       byte_sample=64)
+    offs_long = offsets_run(torch, tok_long, long_docs, "bert_long", counts,
+                            load_digests("bert_long_offsets"))
+
+    # one more cold pass: CUDA events around the program and around each
+    # call of the unique-word encoder
+    enc_events, prog_events = [], []
+    base_encoder = wordpiece_dedup.wordpiece_unique_encoder
+    run_program = eng._program_many
+
+    def events(fn, into):
+        def run(*a):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a)
+            e1.record()
+            into.append((e0, e1))
+            return out
+        return run
+
+    wordpiece_dedup.wordpiece_unique_encoder = lambda T: events(base_encoder(T), enc_events)
+    eng._program_many = events(run_program, prog_events)
+    eng._wc = None  # an empty word cache: a cold pass
+    try:
+        tok.encode_batch_fast(docs)
+    finally:
+        wordpiece_dedup.wordpiece_unique_encoder = base_encoder
+        eng._program_many = run_program
+    torch.cuda.synchronize()
+    enc_ms = sum(a.elapsed_time(b) for a, b in enc_events)
+    prog_ms = sum(a.elapsed_time(b) for a, b in prog_events)
+
+    launches = {k: c[k] for k, c in counts.items()}  # the whole phase
+    every = [launches] + [r["launches"] for r in (*runs.values(), *runs_long.values(), offs,
+                                                  offs_long)]
+    if any(n for ls in every for n in ls.values()):
+        raise SystemExit(f"bert: a kernel of csrc/ launched on the bert path: {every}")
+    chunks = pack_batch([eng._prepare(d) for d in docs])
+    nbytes = sum(len(d.encode("utf-8")) for d in docs)
+    long_bytes = sum(len(d.encode("utf-8")) for d in long_docs)
+    numbers["bert"] = {
+        "config": "bert", "docs": len(docs), "bytes": nbytes,
+        "chunks": [list(c[0].shape) + [bool(eng._use_dedup(c[0]))] for c in chunks],
+        "dedup_chunk_share": sum(eng._use_dedup(c[0]) for c in chunks) / len(chunks),
+        **{f"{run}_MBps": nbytes / r["secs"] / 1e6 for run, r in runs.items()},
+        **{f"{run}_program_s": r["program_s"] for run, r in runs.items()},
+        # outside the program: packing, staging, host re-encodes, encodings
+        **{f"{run}_host_s": r["secs"] - r["program_s"] for run, r in runs.items()},
+        **{f"{run}_bad_row_fraction": r["bad_row_fraction"] for run, r in runs.items()},
+        "offsets_MBps": offs["MBps"], "offsets_program_s": offs["program_s"],
+        "offsets_host_encode_s": offs["host_encode_s"],
+        "offsets_bad_row_fraction": offs["bad_row_fraction"],
+        "long_bytes": long_bytes,
+        **{f"long_{run}_MBps": long_bytes / r["secs"] / 1e6 for run, r in runs_long.items()},
+        **{f"long_{run}_bad_row_fraction": r["bad_row_fraction"]
+           for run, r in runs_long.items()},
+        "long_offsets_MBps": offs_long["MBps"],
+        "tables_s": tables_s, "tables_were_cached": tables_cached,
+        "cold_event_program_ms": prog_ms, "cold_unique_encoder_ms": enc_ms,
+        "unique_encoder_share": enc_ms / prog_ms,
+        "unique_encoder_calls": len(enc_events),
+        "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "phase_launches": launches,
+        "digests_matched": len(docs) + len(long_docs),
+        "offsets_digests_matched": len(docs) + len(long_docs),
+        "byte_offsets_checked": offs["byte_offsets_checked"],
+    }
+    print("numbers " + json.dumps(numbers["bert"]), flush=True)
+    for k, s_ in stats.items():
+        s_["bert_path_launches"] = launches[k]
+
+
 def stats_launches(runs, k):
     return sum(r["cold"]["launches"][k] for r in runs.values())
 
@@ -912,6 +1034,9 @@ def main() -> int:
     # ---- 7. the offsets path -------------------------------------------------
     offsets_path(torch, tok, tok3, stats, counts, numbers)
 
+    # ---- 8. the bert WordPiece path -------------------------------------------
+    bert_path(torch, stats, counts, numbers)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -945,6 +1070,7 @@ def main() -> int:
          "long_path_launches": s["long_path_launches"],
          "offsets_path_launches": s["offsets_path_launches"],
          "offsets_path_shapes": s["offsets_path_shapes"],
+         "bert_path_launches": s["bert_path_launches"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "shape": s["shape"], **{x: s[x] for x in extra if x in s}}

@@ -1,7 +1,7 @@
 """The port stands alone: importing it and running one encode loads no
 module of JAX, `regex`, the `tokenizers` wheel or `tokenizers_tpu` (with
-and without offsets, the host path included), and
-no source file of the package imports them."""
+and without offsets, the host path included, for the gpt2, llama3 and
+bert pipelines), and no source file of the package imports them."""
 
 import os
 import re
@@ -24,6 +24,12 @@ assert encs[0].offsets == [(0, 5), (6, 11), (11, 12)] and encs[1].word_ids == [0
 tok = Tokenizer.from_file("tests/fixtures/llama3/tokenizer.json", device="cpu")
 ids = [e.ids for e in tok.encode_batch_fast(["Hello world! Don'ſ 12345\\r\\n", "a<|end_of_text|>b"])]
 assert ids[0][0] == 0 and ids[1] == [0, 66, 1, 67], ids
+tok = Tokenizer.from_file("tests/fixtures/bert/tokenizer.json", device="cpu")
+assert type(tok._get_device_engine()).__name__ == "WordPieceEngine"
+ids = [e.ids for e in tok.encode_batch_fast(["Hello, World! café 中文", "a[SEP]b", "x" * 600])]
+assert ids[1] == [2, 43, 3, 44, 3], ids
+encs = tok.encode_batch(["Hello, World! café", "a[SEP]b"])
+assert encs[0].offsets[1:3] == [(0, 5), (5, 6)] and encs[1].word_ids == [None, 0, 1, 2, None], encs
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

@@ -3,7 +3,7 @@ their references: the two-stage class table from the JAX package's
 `char_class_tables()`, the per-document gpt2 and llama3_128k digests that
 chip_smoke.py checks from the `tokenizers` wheel on the same documents
 (the 8 KB ones and those of the long-document phase; ids, and for the
-offsets phase ids, char offsets and word ids),
+offsets phase ids, char offsets and word ids; bert's too),
 and the engine's tables (gpt2, and llama3 with its whole-word table) from
 the JAX engine's `_program_args()`, array for array."""
 
@@ -51,6 +51,14 @@ def test_llama3_digests_match_wheel():
     _digests_match_wheel("llama3")
 
 
+@pytest.mark.parametrize("name", ["bert", "bert_long"])
+def test_bert_digests_match_wheel(name):
+    docs = long_parts()["long"] if name == "bert_long" else build_docs()
+    encs = WheelTokenizer.from_file(CONFIGS["bert"]).encode_batch_fast(docs,
+                                                                       add_special_tokens=True)
+    assert [ids_digest(e.ids) for e in encs] == load_digests(name)
+
+
 def test_gpt2_long_digests_match_wheel():
     parts = long_parts()
     long, dense, dense_16k = parts["long"], parts["dense"], parts["dense_16k"]
@@ -64,9 +72,10 @@ def test_gpt2_long_digests_match_wheel():
 
 
 @pytest.mark.parametrize("name,config", [
-    ("gpt2_offsets", "gpt2"), ("llama3_offsets", "llama3"), ("gpt2_long_offsets", "gpt2")])
+    ("gpt2_offsets", "gpt2"), ("llama3_offsets", "llama3"), ("gpt2_long_offsets", "gpt2"),
+    ("bert_offsets", "bert"), ("bert_long_offsets", "bert")])
 def test_offsets_digests_match_wheel(name, config):
-    docs = long_parts()["long"] if name == "gpt2_long_offsets" else build_docs()
+    docs = long_parts()["long"] if name.endswith("_long_offsets") else build_docs()
     encs = WheelTokenizer.from_file(CONFIGS[config]).encode_batch(docs, add_special_tokens=True)
     assert [offsets_digest(e) for e in encs] == load_digests(name)
 

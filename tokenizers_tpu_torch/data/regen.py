@@ -4,15 +4,18 @@
 
 * `char_class.npz`: the two-stage codepoint -> class table, derived from
   the `regex` module's \\p{L} and \\p{N} (the classes Oniguruma uses).
-* `gpt2_digests.json`, `llama3_digests.json`: per-document SHA-256 of
-  the ids that the `tokenizers` wheel gives for `smoke_data.build_docs()`
-  on the gpt2 and llama3_128k fixtures; `gpt2_long_digests.json` for
-  the documents of `smoke_data.long_parts()`, in order, on gpt2.
-* `gpt2_offsets_digests.json`, `llama3_offsets_digests.json`: per
-  document, `smoke_data.offsets_digest` of the wheel's `encode_batch`
-  (ids, char offsets, word ids) on the same documents;
-  `gpt2_long_offsets_digests.json` for the long documents (a),
-  `long_parts()["long"]`, on gpt2.
+* `gpt2_digests.json`, `llama3_digests.json`, `bert_digests.json`:
+  per-document SHA-256 of the ids that the `tokenizers` wheel gives for
+  `smoke_data.build_docs()` on the gpt2, llama3_128k and bert fixtures;
+  `gpt2_long_digests.json` for the documents of
+  `smoke_data.long_parts()`, in order, on gpt2; `bert_long_digests.json`
+  for the long documents (a), `long_parts()["long"]`, on bert.
+* `gpt2_offsets_digests.json`, `llama3_offsets_digests.json`,
+  `bert_offsets_digests.json`: per document, `smoke_data.offsets_digest`
+  of the wheel's `encode_batch` (ids, char offsets, word ids) on the same
+  documents; `gpt2_long_offsets_digests.json` and
+  `bert_long_offsets_digests.json` for the long documents (a) on gpt2 and
+  bert.
 
 Both references are optional dependencies: they are imported by name here
 only, so the package itself never needs them.
@@ -85,9 +88,11 @@ def main():
     print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes")
     digests = {config: wheel_digests(config) for config in CONFIGS}
     digests["gpt2_long"] = wheel_digests("gpt2", sum(long_parts().values(), []))
+    digests["bert_long"] = wheel_digests("bert", long_parts()["long"])
     for config in CONFIGS:
         digests[f"{config}_offsets"] = wheel_offsets_digests(config)
-    digests["gpt2_long_offsets"] = wheel_offsets_digests("gpt2", long_parts()["long"])
+    for config in ("gpt2", "bert"):
+        digests[f"{config}_long_offsets"] = wheel_offsets_digests(config, long_parts()["long"])
     for name, sha in digests.items():
         with open(digests_path(name), "w") as f:
             json.dump({"sha256": sha}, f, indent=0)

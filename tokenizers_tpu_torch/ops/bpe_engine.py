@@ -136,11 +136,16 @@ class ByteLevelBpeEngine(DeviceEngineBase):
         """The engine for the tokenizer's pipeline: gpt2 for the ByteLevel
         pre-tokenizer, llama3 for the Sequence of the llama-3 Split and
         ByteLevel (the loader admits no other, and its Split no other
-        pattern).  None when `build_tables` gives none.  On a card it
+        pattern).  None for another model or pre-tokenizer, or when
+        `build_tables` gives none.  On a card it
         builds every kernel first, all at once."""
+        from ..models.bpe import BPE
+        from ..pre_tokenizers.byte_level import ByteLevel
         from ..pre_tokenizers.split import Sequence
 
         pt = tokenizer.pre_tokenizer
+        if not (isinstance(tokenizer.model, BPE) and isinstance(pt, (ByteLevel, Sequence))):
+            return None
         if isinstance(pt, Sequence):
             boundary, add_prefix_space = "llama3", pt.byte_level.add_prefix_space
         else:

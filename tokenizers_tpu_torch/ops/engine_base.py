@@ -8,12 +8,14 @@ the host the rows the program flags `row_bad`.  There is no mesh: the
 JAX package's `_shard_chunk` has no counterpart here.
 
 With offsets (`encode_batch_offsets`) the engine's offsets program gives
-each token's span in the prepared bytes of its piece; the pieces of a
-long input are re-based (bytes and word ids), the prefix space is undone,
-and the spans are mapped to the original text's chars or bytes.  Only
-that "prepared bytes" space is ported: the "original chars" and
-"normalized bytes" spaces of the JAX package come with the engines that
-need them.
+each token's span in its piece, in the engine's `offsets_space`:
+"prepared_bytes" (byte-level BPE: the piece's bytes, a prefix space
+included) or "original_chars" (WordPiece: the chars of the original
+text, tracked through the normalizer on the device).  The pieces of a
+long input are re-based (in bytes or chars, and word ids), the prefix
+space is undone, and the spans are mapped to the original text's chars
+or bytes.  The JAX package's third space, "normalized bytes", comes with
+the engines that need it.
 """
 
 from __future__ import annotations
@@ -64,12 +66,27 @@ def _expand_bytes(text: str, starts: np.ndarray, ends: np.ndarray):
     return st.astype(np.int64), en.astype(np.int64)
 
 
-def map_offsets(text: str, starts, ends, kind: str):
-    """Byte spans of `text` as the offsets of `kind`: "char" (char
-    positions, the Python binding's) or "byte" (byte positions widened
-    to whole chars).  Returns a list of (start, end)."""
+def _chars_to_bytes(text: str, starts: np.ndarray, ends: np.ndarray):
+    """Char spans of `text` -> byte spans."""
+    data, _cidx, char_pos = _offset_tables(text)
+    n = len(data)
+    if n == 0:
+        return starts * 0, ends * 0
+    cp = np.concatenate([char_pos, [n]])
+    m = len(cp) - 1
+    return cp[np.clip(starts, 0, m)].astype(np.int64), cp[np.clip(ends, 0, m)].astype(np.int64)
+
+
+def map_offsets(text: str, starts, ends, kind: str, unit: str = "byte"):
+    """Spans of `text` in `unit`s ("byte" or "char") as the offsets of
+    `kind`: "char" (char positions, the Python binding's) or "byte" (byte
+    positions widened to whole chars).  Returns a list of (start, end)."""
     st, en = np.asarray(starts, np.int64), np.asarray(ends, np.int64)
-    st, en = (_bytes_to_chars if kind == "char" else _expand_bytes)(text, st, en)
+    if unit == "char":
+        if kind == "byte":
+            st, en = _chars_to_bytes(text, st, en)
+    else:
+        st, en = (_bytes_to_chars if kind == "char" else _expand_bytes)(text, st, en)
     return list(zip(st.tolist(), en.tolist()))
 
 
@@ -115,6 +132,7 @@ class DeviceEngineBase:
     tokenizer = None
     add_prefix_space = False
     supports_offsets = False
+    offsets_space = "prepared_bytes"  # or "original_chars"
 
     def _prepare(self, s: str) -> bytes:
         """UTF-8 bytes of `s`, after the prefix space where the
@@ -267,19 +285,21 @@ class DeviceEngineBase:
         if piece_strings:
             results, bad = self._run_device_offsets(piece_strings)
             bad_inputs = {piece_owner[j] for j in bad}
+            chars = self.offsets_space == "original_chars"
             per_input: dict = {}
-            base: dict = {}  # input -> (byte base, word base) of its next piece
+            base: dict = {}  # input -> (span base, word base) of its next piece
             for j, res in enumerate(results):
                 owner = piece_owner[j]
-                bbase, wbase = base.get(owner, (0, 0))
-                base[owner] = (bbase + len(piece_strings[j]),
+                sbase, wbase = base.get(owner, (0, 0))
+                piece = piece_strings[j]
+                base[owner] = (sbase + (len(piece.decode("utf-8")) if chars else len(piece)),
                                wbase + (int(res[3].max()) + 1 if res is not None
                                         and len(res[3]) else 0))
                 if owner in bad_inputs or res is None:
                     continue
                 ids, st, en, wd = res
                 per_input.setdefault(owner, []).append(
-                    (ids, st + bbase, en + bbase, wd + wbase))
+                    (ids, st + sbase, en + sbase, wd + wbase))
             for i, parts in per_input.items():
                 ids, st, en, wd = (np.concatenate(x) for x in zip(*parts))
                 if self.add_prefix_space and not inputs[i].startswith(" "):
@@ -288,7 +308,8 @@ class DeviceEngineBase:
                 idl = ids.tolist()
                 enc = Encoding(ids=idl, tokens=self._token_strings(idl),
                                words=wd.tolist(),
-                               offsets=map_offsets(inputs[i], st, en, kind))
+                               offsets=map_offsets(inputs[i], st, en, kind,
+                                                   "char" if chars else "byte"))
                 encodings[i] = self.tokenizer.post_process(enc, add_special_tokens,
                                                            with_offsets=True)
             host_idx.extend(sorted(bad_inputs))
@@ -335,7 +356,9 @@ class DeviceEngineBase:
             row_owners = [owners[j] for j in orig]
             row_bad = res[2]
             if any(host[i] for i, _k in row_owners):
-                row_bad = row_bad | torch.tensor([host[i] for i, _k in row_owners],
-                                                 device=row_bad.device)
+                # the chunk may hold padding rows past the owned ones
+                flags = [host[i] for i, _k in row_owners]
+                flags += [False] * (row_bad.shape[0] - len(flags))
+                row_bad = row_bad | torch.tensor(flags, device=row_bad.device)
             out.append((res[0], res[1], row_bad, row_owners))
         return out

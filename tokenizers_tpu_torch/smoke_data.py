@@ -16,16 +16,17 @@ distinct random words, whose unique words overflow the dedup buffer
 same at 16 KB, where two rounds at the full width leave more tokens than
 the 5/8 width holds, so every row is flagged and the host encodes it.
 
-`data/gpt2_digests.json` and `data/llama3_digests.json` hold one SHA-256
-per document of the ids the `tokenizers` wheel gives (special tokens
-added) on `tests/fixtures/gpt2/tokenizer.json` and
-`tests/fixtures/llama3_128k/tokenizer.json`; `data/gpt2_long_digests.json`
-those of the `long_parts()` documents, in order, on gpt2.  The
-`*_offsets_digests.json` files hold, per document, the SHA-256 of what the
-wheel's `encode_batch` gives: ids, char offsets and word ids
-(`offsets_digest`), for the 8 KB documents and, on gpt2, the long
-documents (a) (`python -m tokenizers_tpu_torch.data.regen` writes them
-all; `tests/test_torch_tables.py` re-derives them).
+`data/gpt2_digests.json`, `data/llama3_digests.json` and
+`data/bert_digests.json` hold one SHA-256 per document of the ids the
+`tokenizers` wheel gives (special tokens added) on the tokenizer of each
+of `CONFIGS` (gpt2, llama3_128k, bert); `data/gpt2_long_digests.json`
+those of the `long_parts()` documents, in order, on gpt2, and
+`data/bert_long_digests.json` those of the long documents (a) on bert.
+The `*_offsets_digests.json` files hold, per document, the SHA-256 of what
+the wheel's `encode_batch` gives: ids, char offsets and word ids
+(`offsets_digest`), for the 8 KB documents and, on gpt2 and bert, the
+long documents (a) (`python -m tokenizers_tpu_torch.data.regen` writes
+them all; `tests/test_torch_tables.py` re-derives them).
 
 `first_ascii_chunk` and `unique_state` give the merge loop's first state
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
@@ -56,6 +57,7 @@ CORPUS = os.path.join(REPO, "tests", "fixtures", "corpus.txt")
 CONFIGS = {  # config -> its tokenizer.json
     "gpt2": os.path.join(REPO, "tests", "fixtures", "gpt2", "tokenizer.json"),
     "llama3": os.path.join(REPO, "tests", "fixtures", "llama3_128k", "tokenizer.json"),
+    "bert": os.path.join(REPO, "tests", "fixtures", "bert", "tokenizer.json"),
 }
 GPT2_JSON = CONFIGS["gpt2"]
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")

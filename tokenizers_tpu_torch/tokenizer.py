@@ -1,26 +1,31 @@
-"""Tokenizer of the port: loads a `tokenizer.json` of the gpt2 or the
-llama3 shape and encodes batches on the card.
+"""Tokenizer of the port: loads a `tokenizer.json` of the gpt2, the
+llama3 or the bert shape and encodes batches on the card.
 
-The loader admits exactly two pipelines, each with no normalizer, plain
-special added tokens and the ByteLevel decoder (or none):
+The loader admits exactly three pipelines, each with plain special added
+tokens:
 
-* gpt2 (`tests/fixtures/gpt2`): a plain BPE model, the ByteLevel
-  pre-tokenizer with its regex split, the ByteLevel post-processor (or
-  none);
-* llama3 (`tests/fixtures/llama3*`): BPE with `ignore_merges`, the Sequence of the llama-3 Split and ByteLevel without
-  its regex or a prefix space, and a single-sequence TemplateProcessing
-  (or no post-processor).
+* gpt2 (`tests/fixtures/gpt2`): no normalizer, a plain BPE model, the
+  ByteLevel pre-tokenizer with its regex split, the ByteLevel
+  post-processor (or none) and the ByteLevel decoder (or none);
+* llama3 (`tests/fixtures/llama3*`): no normalizer, BPE with
+  `ignore_merges`, the Sequence of the llama-3 Split and ByteLevel
+  without its regex or a prefix space, and a single-sequence
+  TemplateProcessing (or no post-processor);
+* bert (`tests/fixtures/bert`): BertNormalizer, BertPreTokenizer,
+  WordPiece, a single-sequence TemplateProcessing (or none) and the
+  WordPiece decoder (or none); its added tokens are matched on the raw
+  text (`normalized: false`).
 
-Anything else raises `NotImplementedError` naming the later slice of the
-port that brings it.
+Decoders are held, not run: decode is not ported.  Anything else raises
+`NotImplementedError` naming the later slice of the port that brings it.
 
 `encode_batch_fast` (ids) and `encode_batch` (ids with char offsets,
 token strings and word ids; `encode_batch_byte_offsets` for byte
-offsets) run the device engine (`ops/bpe_engine.py`) on the tokenizer's
-device and the host pipeline for what the device does not take.  The
-device is `cuda` unless the caller asks for `device="cpu"`, where every
-kernel runs its plain PyTorch version.  Pairs and pre-tokenized input
-wait for a later slice.
+offsets) run the device engine (`ops/engine.py`: `ops/bpe_engine.py` or
+`ops/wordpiece_engine.py`) on the tokenizer's device and the host
+pipeline for what the device does not take.  The device is `cuda` unless
+the caller asks for `device="cpu"`, where every kernel runs its plain
+PyTorch version.  Pairs and pre-tokenized input wait for a later slice.
 """
 
 from __future__ import annotations
@@ -32,11 +37,18 @@ from typing import Iterable, List, Optional, Union
 from . import pick_device
 from .encoding import Encoding
 from .models.bpe import BPE
+from .models.wordpiece import WordPiece, WordPieceDecoder
+from .normalizers.bert import BertNormalizer
+from .pre_tokenizers.bert import BertPreTokenizer
 from .pre_tokenizers.byte_level import ByteLevel, process_offsets
 from .pre_tokenizers.split import LLAMA3_PATTERN, Sequence, Split
 from .processors.template import TemplateProcessing
 
 _BYTE_LEVEL_KEYS = {"type", "add_prefix_space", "trim_offsets", "use_regex"}
+_BERT_NORMALIZER_KEYS = {"type", "clean_text", "handle_chinese_chars", "strip_accents",
+                         "lowercase"}
+_WORDPIECE_KEYS = {"type", "unk_token", "continuing_subword_prefix",
+                   "max_input_chars_per_word", "vocab"}
 
 
 def _unsupported(what: str, slice_name: str):
@@ -101,11 +113,41 @@ def _load_llama3_sequence(d: dict) -> Sequence:
     return Sequence(Split(), byte_level)
 
 
-def _load_post_processor(d: Optional[dict], llama3: bool):
+def _load_bert(d: dict):
+    """(normalizer, pre-tokenizer, model, decoder) of the BERT pipeline:
+    exactly BertNormalizer, BertPreTokenizer, WordPiece, TemplateProcessing
+    (or no post-processor) and the WordPiece decoder (or none)."""
+    nz = d.get("normalizer")
+    if nz is None or nz.get("type") != "BertNormalizer" or set(nz) - _BERT_NORMALIZER_KEYS:
+        _unsupported("the BertPreTokenizer without its BertNormalizer", "a later slice")
+    if d["pre_tokenizer"] != {"type": "BertPreTokenizer"}:
+        _unsupported("a BertPreTokenizer with options", "a later slice")
+    m = d["model"]
+    if m.get("type") != "WordPiece" or set(m) - _WORDPIECE_KEYS:
+        _unsupported(f"model {m.get('type')!r} in the BERT pipeline", "its engine's slice")
+    pp = d.get("post_processor")
+    if pp is not None and pp.get("type") != "TemplateProcessing":
+        _unsupported(f"post-processor {pp.get('type')!r} in the BERT pipeline", "a later slice")
+    dec = d.get("decoder")
+    if dec is not None and (dec.get("type") != "WordPiece"
+                            or set(dec) - {"type", "prefix", "cleanup"}):
+        _unsupported(f"decoder {dec.get('type')!r} in the BERT pipeline", "a later slice")
+    normalizer = BertNormalizer(nz.get("clean_text", True), nz.get("handle_chinese_chars", True),
+                                nz.get("strip_accents"), nz.get("lowercase", True))
+    model = WordPiece(m.get("vocab", {}), unk_token=m.get("unk_token", "[UNK]"),
+                      continuing_subword_prefix=m.get("continuing_subword_prefix", "##"),
+                      max_input_chars_per_word=int(m.get("max_input_chars_per_word", 100)))
+    decoder = None if dec is None else WordPieceDecoder(dec.get("prefix", "##"),
+                                                        dec.get("cleanup", True))
+    return normalizer, BertPreTokenizer(), model, decoder
+
+
+def _load_post_processor(d: Optional[dict], template_ok: bool):
     if d is None or d.get("type") != "TemplateProcessing":
         return _load_byte_level(d, "post_processor")
-    if not llama3:
-        _unsupported("TemplateProcessing outside the llama-3 pipeline", "a later slice")
+    if not template_ok:
+        _unsupported("TemplateProcessing outside the llama-3 and BERT pipelines",
+                     "a later slice")
     pieces = [next(iter(p)) for p in d.get("single", [])]
     if pieces.count("Sequence") != 1:
         _unsupported("a template without exactly one sequence", "a later slice")
@@ -113,11 +155,14 @@ def _load_post_processor(d: Optional[dict], llama3: bool):
 
 
 class Tokenizer:
-    def __init__(self, model: BPE, pre_tokenizer: Union[ByteLevel, Sequence],
+    def __init__(self, model: Union[BPE, WordPiece],
+                 pre_tokenizer: Union[ByteLevel, Sequence, BertPreTokenizer],
                  added_tokens: Iterable[dict] = (),
                  post_processor: Union[ByteLevel, TemplateProcessing, None] = None,
-                 decoder: Optional[ByteLevel] = None, device=None):
+                 decoder: Union[ByteLevel, WordPieceDecoder, None] = None, device=None,
+                 normalizer: Optional[BertNormalizer] = None):
         self.model = model
+        self.normalizer = normalizer
         self.pre_tokenizer = pre_tokenizer
         self.post_processor = post_processor
         self.decoder = decoder
@@ -133,15 +178,26 @@ class Tokenizer:
     @classmethod
     def from_str(cls, s: str, device=None) -> "Tokenizer":
         d = json.loads(s)
-        if d.get("normalizer") is not None:
-            _unsupported("a normalizer", "the WordPiece and Unigram slices")
+        pt_d = d.get("pre_tokenizer")
+        bert = pt_d is not None and pt_d.get("type") == "BertPreTokenizer"
+        nz_d = d.get("normalizer")
+        if nz_d is not None and not bert:
+            _unsupported("a normalizer other than BertNormalizer, or one outside the BERT "
+                         "pipeline", "the WordLevel, Unigram and CharBPE slices")
         if d.get("truncation") is not None or d.get("padding") is not None:
             _unsupported("truncation and padding", "a later slice")
         added = d.get("added_tokens") or []
         for t in added:
             if not t.get("special") or t.get("single_word") or t.get("lstrip") or t.get("rstrip"):
                 _unsupported(f"added token {t.get('content')!r} with these options", "a later slice")
-        pt_d = d.get("pre_tokenizer")
+            if bert and t.get("normalized"):
+                _unsupported(f"added token {t.get('content')!r} matched on normalized text",
+                             "a later slice")
+        if bert:
+            normalizer, pt, model, decoder = _load_bert(d)
+            return cls(model, pt, added,
+                       post_processor=_load_post_processor(d.get("post_processor"), True),
+                       decoder=decoder, device=device, normalizer=normalizer)
         if pt_d is not None and pt_d.get("type") == "Sequence":
             pt = _load_llama3_sequence(pt_d)
         else:
@@ -243,10 +299,12 @@ class Tokenizer:
 
     def encode_host(self, text: str, add_special_tokens: bool = True,
                     offsets: Optional[str] = None) -> Encoding:
-        """The host pipeline: added tokens split out, the pre-tokenizer's
-        split and BPE on each piece between them.  With `offsets` ("char"
-        or "byte") it also gives each token's offsets, string and word
-        index (an added token is a word of its own); without, ids only."""
+        """The host pipeline: added tokens split out of the raw text, then
+        on each piece between them the normalizer (bert), the
+        pre-tokenizer's split and the model, then the template.  With
+        `offsets` ("char" or "byte") it also gives each token's offsets,
+        string and word index (an added token is a word of its own);
+        without, ids only."""
         if offsets is not None:
             return self._encode_host_offsets(text, add_special_tokens, offsets)
         ids: List[int] = []
@@ -254,6 +312,8 @@ class Tokenizer:
         matches = self._added_re.finditer(text) if self._added_re else ()
         for m in list(matches) + [None]:
             piece = text[pos : m.start() if m else len(text)]
+            if piece and self.normalizer is not None:
+                piece = self.normalizer.normalize(piece)[0]
             for word in self.pre_tokenizer.pre_tokenize(piece) if piece else ():
                 ids.extend(self.model.tokenize(word))
             if m:
@@ -261,16 +321,37 @@ class Tokenizer:
                 pos = m.end()
         return self.post_process(Encoding(ids=ids), add_special_tokens)
 
+    def _word_spans(self, piece: str):
+        """Per word of a piece of text between added tokens, (id, start,
+        end) of each token.  Spans are in the piece's chars for the bert
+        pipeline (through the normalizer's source chars), else in its
+        bytes (each word's in the prepared bytes, the prefix space
+        undone)."""
+        if self.normalizer is not None:
+            norm, src = self.normalizer.normalize(piece)
+            for word, ws, _we in self.pre_tokenizer.pre_tokenize_spans(norm):
+                yield [(tid, src[ws + ts], src[ws + te - 1] + 1)
+                       for tid, ts, te in self.model.tokenize_spans(word)]
+            return
+        pre, shift = self.pre_tokenizer.pre_tokenize_spans(piece)
+        for word, ws, _we in pre:
+            yield [(tid, max(ws + ts - shift, 0), max(ws + te - shift, 0))
+                   for tid, ts, te in self.model.tokenize_spans(word)]
+
     def _encode_host_offsets(self, text: str, add_special_tokens: bool,
                              offsets: str) -> Encoding:
-        """`encode_host` with offsets.  Spans are taken in the text's bytes,
-        each word's in its piece's prepared bytes with the prefix space
-        undone, and mapped to chars or whole-char bytes as the device's
-        spans are (`engine_base.map_offsets`)."""
+        """`encode_host` with offsets.  Spans are taken in the text's chars
+        (bert) or bytes (`_word_spans`) and mapped to chars or whole-char
+        bytes as the device's spans are (`engine_base.map_offsets`)."""
         from .ops.engine_base import map_offsets
 
+        chars = self.normalizer is not None  # the unit of the spans
+
+        def size(s: str) -> int:
+            return len(s) if chars else len(s.encode("utf-8"))
+
         ids, tokens, words, starts, ends = [], [], [], [], []
-        pos = byte_pos = 0  # the next piece's start, in chars and bytes
+        pos = base = 0  # the next piece's start, in chars and in span units
 
         def add(tid, token, st, en):
             ids.append(tid)
@@ -284,20 +365,19 @@ class Tokenizer:
         for m in list(matches) + [None]:
             piece = text[pos : m.start() if m else len(text)]
             if piece:
-                pre, shift = self.pre_tokenizer.pre_tokenize_spans(piece)
-                for word, ws, _we in pre:
-                    for tid, ts, te in self.model.tokenize_spans(word):
-                        add(tid, self.model.vocab_r[tid],
-                            byte_pos + max(ws + ts - shift, 0), byte_pos + max(ws + te - shift, 0))
+                for word in self._word_spans(piece):
+                    for tid, ts, te in word:
+                        add(tid, self.model.vocab_r[tid], base + ts, base + te)
                     n_words += 1
-                byte_pos += len(piece.encode("utf-8"))
+                base += size(piece)
             if m:
-                n = len(m.group().encode("utf-8"))
-                add(self.added[m.group()], m.group(), byte_pos, byte_pos + n)
+                n = size(m.group())
+                add(self.added[m.group()], m.group(), base, base + n)
                 n_words += 1
-                pos, byte_pos = m.end(), byte_pos + n
+                pos, base = m.end(), base + n
         enc = Encoding(ids=ids, tokens=tokens, words=words,
-                       offsets=map_offsets(text, starts, ends, offsets))
+                       offsets=map_offsets(text, starts, ends, offsets,
+                                           "char" if chars else "byte"))
         return self.post_process(enc, add_special_tokens, with_offsets=True)
 
     def post_process(self, encoding: Encoding, add_special_tokens: bool = True,
