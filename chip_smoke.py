@@ -88,7 +88,26 @@
    documents against the host path; every B1-B4 launch count must stay 0
    over the phase.  One more cold pass times the unique-word encoder (the
    longest-match sweep and the doubling) and the program with CUDA events.
-9. Prints a line of numbers per path, the per-kernel JSON line (with each
+9. The WordLevel and char-level BPE paths (`char_level_path`), on the
+   frozen tokenizers of `smoke_data.CHAR_CONFIGS` and the Llama-2 SPM
+   shape derived from sp_bpe (`smoke_data.spm_bf_json`): each built (its
+   tables timed); `encode_batch_fast` cold on the 512 8 KB documents with
+   char_bpe (BertNormalizer, BertPreTokenizer, `</w>`), sp_bpe (NFKC,
+   Metaspace, `fuse_unk`: rows of 2L + 4 = 16,388 positions after the
+   expansion on the card), spm_bf (no pre-tokenizer, byte fallback) and
+   wordlevel, and with sp_bpe on the long documents (a) (pieces of at
+   most 16 KB); `encode_batch` on the 8 KB documents with char_bpe,
+   sp_bpe and wordlevel; every document against its committed digest
+   (`data/{name}*_digests.json`), byte offsets on 64 documents against
+   the host path; counts set to 0 before each run and read after.  Each
+   char-level BPE run again under `checked_run`: every B2 and B1 launch
+   bit for bit against its plain version on the path's own inputs,
+   tallied by kernel and shape (sp_bpe's [256, 16388], its 5/8 and 1/2
+   widths among them), its launches equal to the counted run's; the cold
+   launches of the 8 KB runs must equal CHAR_COLD; the WordLevel runs
+   launch no kernel, and no merge row is wider than 65,536.  The cluster
+   B1 is timed at sp_bpe's first state [256, 16388] on the path's inputs.
+10. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -146,7 +165,15 @@ STATES = ((4096, None), (2560, None), (2048, None), (2048, 37))
 # widths of the adversarial layouts: the row kernel's, then the cluster one's
 ADVERSARIAL_WIDTHS = (64, 256, 1536, 2048, 2560, 4096, 5120, 8192, 16384, 40960, 65536)
 LAYOUT_WIDTHS = (256, 1024, 4096, 8192, 16384, 32768, 65536)  # B3's: row kernel to 8192
+# the char-level phase's tokenizers (smoke_data.CHAR_CONFIGS and spm_bf)
+CHAR_LEVEL = ("char_bpe", "sp_bpe", "spm_bf", "wordlevel")
 # cold launches of the 8 KB paths: no change to a kernel may move them
+CHAR_COLD = {  # the char-level phase's 8 KB runs (each B1 count holds its cluster kernel's)
+    "char_bpe": {"keys": 18, "merge_round_fused": 108, "merge_round_fused_wide": 12},
+    "sp_bpe": {"keys": 22, "merge_round_fused": 357, "merge_round_fused_wide": 357},
+    "spm_bf": {"keys": 20, "merge_round_fused": 399, "merge_round_fused_wide": 399},
+    "wordlevel": {"keys": 0, "merge_round_fused": 0, "merge_round_fused_wide": 0},
+}
 EIGHT_KB_COLD = {
     "gpt2": {"layout_fused": 2, "layout_fused_wide": 0, "keys": 16,
              "merge_round_fused": 79, "merge_round_fused_wide": 0},
@@ -331,9 +358,10 @@ def check_eight_kb(runs, config):
                          f"want {EIGHT_KB_COLD[config]}")
 
 
-def drive_path(torch, tok, docs, config, counts, digests=None):
-    """`encode_batch_fast` on `docs`, cold then on the warm word cache;
-    every launch count set to 0 just before each run and read just after.
+def drive_path(torch, tok, docs, config, counts, digests=None, passes=("cold", "cached")):
+    """`encode_batch_fast` on `docs`, cold then on the warm word cache (the
+    `passes`); every launch count set to 0 just before each run and read
+    just after.
     Returns the runs' numbers; raises on a document that differs from its
     digest (`digests`, else the committed ones of `config`)."""
     from tokenizers_tpu_torch.ops import engine_base
@@ -357,7 +385,7 @@ def drive_path(torch, tok, docs, config, counts, digests=None):
     if digests is None:
         digests = load_digests(config)
     runs = {}
-    for run in ("cold", "cached"):
+    for run in passes:
         for c in counts.values():
             for k in c:
                 c[k] = 0
@@ -492,13 +520,14 @@ def long_path(torch, stats, b3_err, b1_err, counts, numbers):
         print(f"{k} by shape: {json.dumps(by[k])}", flush=True)
 
 
-def checked_run(torch, fn):
+def checked_run(torch, fn, capture=None):
     """fn() with the serving paths' kernel wrappers (B3, B2, B1) replaced
     by ones that launch the kernel as the path asks, hold its outputs bit
     for bit against the plain version on the same inputs, and tally each
     launch by the kernel that ran (the row or the cluster one) and its
-    shape.  Returns (fn's result, {kernel: {"RxC": launches}}, {kernel:
-    max |diff|})."""
+    shape.  `capture` (a dict): the inputs of each kernel's first launch
+    at each shape, by (kernel, "RxC").  Returns (fn's result, {kernel:
+    {"RxC": launches}}, {kernel: max |diff|})."""
     from tokenizers_tpu_torch.ops import bpe_encode
     from tokenizers_tpu_torch.ops import layout_kernels as lk
     from tokenizers_tpu_torch.ops import merge_kernels as mk
@@ -517,6 +546,8 @@ def checked_run(torch, fn):
             by = shapes.setdefault(k, {})
             key = "x".join(str(d) for d in x.shape)
             by[key] = by.get(key, 0) + 1
+            if capture is not None and (k, key) not in capture:
+                capture[(k, key)] = (x, *args)
             return got
         return run
 
@@ -532,6 +563,26 @@ def checked_run(torch, fn):
         lk.layout_fused = bpe_encode.layout_fused = wrappers[0]
         mk.keys, mk.merge_round_fused = wrappers[1:]
     return out, shapes, errs
+
+
+def checked_again(torch, fn, name, launches, digest, digests, capture=None):
+    """fn() once more under `checked_run`: every launch of B3, B2 and B1
+    held bit for bit against its plain version; its launches must equal
+    the counted run's `launches` and its encodings' `digest` the
+    `digests`.  Returns (shapes, errs) of `checked_run`."""
+    encs, shapes, errs = checked_run(torch, fn, capture)
+    for k, n in launches.items():
+        # a wrapper's count holds its cluster kernel's launches too
+        n_checked = sum(shapes.get(k, {}).values()) + (
+            sum(shapes.get(f"{k}_wide", {}).values()) if f"{k}_wide" in launches else 0)
+        if n_checked != n:
+            raise SystemExit(f"{name}: {k} launched {n} times in the counted run and "
+                             f"{n_checked} in the checked one")
+    if [digest(e) for e in encs] != digests:
+        raise SystemExit(f"{name}: the checked run's documents differ from their digests")
+    print(f"{name}: every launch bit-equal (tolerance 0) to its plain version; "
+          f"launches by kernel and shape: {json.dumps(shapes)}", flush=True)
+    return shapes, errs
 
 
 def offsets_run(torch, tok, docs, name, counts, digests, byte_sample=0):
@@ -591,19 +642,8 @@ def offsets_run(torch, tok, docs, name, counts, digests, byte_sample=0):
                              f"host path's")
     # the same run again, every launch held against its plain version at
     # the shape and on the data the path gave it
-    encs2, shapes, errs = checked_run(torch, lambda: tok.encode_batch(docs))
-    for k, n in launches.items():
-        # a wrapper's count holds its cluster kernel's launches too
-        n_checked = sum(shapes.get(k, {}).values()) + (
-            sum(shapes.get(f"{k}_wide", {}).values()) if f"{k}_wide" in launches else 0)
-        if n_checked != n:
-            raise SystemExit(f"offsets {name}: {k} launched {n} times in the counted run and "
-                             f"{n_checked} in the checked one")
-    if [offsets_digest(e) for e in encs2] != digests[:len(docs)]:
-        raise SystemExit(f"offsets {name}: the checked run's documents differ from their "
-                         f"offsets digests")
-    print(f"offsets {name}: every launch bit-equal (tolerance 0) to its plain version; "
-          f"launches by kernel and shape: {json.dumps(shapes)}", flush=True)
+    shapes, errs = checked_again(torch, lambda: tok.encode_batch(docs), f"offsets {name}",
+                                 launches, offsets_digest, digests[:len(docs)])
     nbytes = sum(len(d.encode("utf-8")) for d in docs)
     return {
         "config": f"offsets_{name}", "docs": len(docs), "bytes": nbytes,
@@ -787,6 +827,115 @@ def bert_path(torch, stats, counts, numbers):
     print("numbers " + json.dumps(numbers["bert"]), flush=True)
     for k, s_ in stats.items():
         s_["bert_path_launches"] = launches[k]
+
+
+def char_level_path(torch, stats, counts, numbers):
+    """Phase 10, the WordLevel and char-level BPE paths: the tokenizers of
+    CHAR_LEVEL built (tables timed), `encode_batch_fast` cold on the 8 KB
+    documents with each and on the long documents (a) with sp_bpe,
+    `encode_batch` on the 8 KB documents with char_bpe, sp_bpe and
+    wordlevel (`offsets_run`: byte offsets on 64 documents, and every
+    launch checked), every document against its digest; each char-level
+    BPE `encode_batch_fast` run again under `checked_run`.  Adds each
+    kernel's `char_level_launches` and `char_level_shapes` to `stats` and
+    a numbers line per tokenizer to `numbers`."""
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.ops import merge_kernels as mk
+    from tokenizers_tpu_torch.ops.charbpe_engine import CharBpeEngine
+    from tokenizers_tpu_torch.ops.wordlevel_engine import WordLevelEngine
+    from tokenizers_tpu_torch.smoke_data import (
+        build_docs, config_json, ids_digest, load_digests, long_parts,
+    )
+    from tokenizers_tpu_torch.tools.timing import bound_ms, median_ms, nbytes, table_bytes
+
+    docs = build_docs()
+    long_docs = long_parts()["long"]
+    runs, shapes, fast_shapes, capture = {}, {}, {}, {}
+    for name in CHAR_LEVEL:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok = Tokenizer.from_str(config_json(name))
+        eng = tok._get_device_engine()
+        tables_s = time.perf_counter() - t
+        want = WordLevelEngine if name == "wordlevel" else CharBpeEngine
+        if type(eng) is not want:
+            raise SystemExit(f"{name}: the device engine is {type(eng).__name__}")
+        parts = [("", docs)] + ([("_long", long_docs)] if name == "sp_bpe" else [])
+        for suffix, part in parts:
+            key = name + suffix
+            digests = load_digests(key)
+            cold = drive_path(torch, tok, part, key, counts, digests, passes=("cold",))["cold"]
+            if name != "wordlevel":
+                fast_shapes[key], errs = checked_again(
+                    torch, lambda: tok.encode_batch_fast(part), key, cold["launches"],
+                    lambda e: ids_digest(e.ids), digests, capture if key == "sp_bpe" else None)
+                for k, e in errs.items():
+                    stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], e)
+            size = sum(len(d.encode("utf-8")) for d in part)
+            numbers[key] = {
+                "config": key, "docs": len(part), "bytes": size,
+                "e2e_MBps": size / cold["secs"] / 1e6, "secs": cold["secs"],
+                "program_s": cold["program_s"], "program_MBps": size / cold["program_s"] / 1e6,
+                "bad_row_fraction": cold["bad_row_fraction"], "bad_rows": cold["bad_rows"],
+                "host_pre_inputs": cold["host_pre_inputs"], "launches": cold["launches"],
+                "tables_s": tables_s, "digests_matched": len(part),
+            }
+            runs[key] = cold["launches"]
+        if name != "spm_bf":
+            offs = offsets_run(torch, tok, docs, name, counts, load_digests(f"{name}_offsets"),
+                               byte_sample=64)
+            runs[f"{name}_offsets"] = offs["launches"]
+            shapes[f"{name}_offsets"] = offs["checked_shapes"]
+            for k, e in offs["checked_max_abs_err"].items():
+                stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], e)
+            numbers[name].update({f"offsets_{k}": offs[k] for k in (
+                "MBps", "secs", "program_s", "host_encode_s", "bad_row_fraction",
+                "byte_offsets_checked")})
+        print("numbers " + json.dumps(numbers[name]), flush=True)
+        if name == "sp_bpe":
+            print("numbers " + json.dumps(numbers["sp_bpe_long"]), flush=True)
+    shapes.update(fast_shapes)
+
+    for key, launches in runs.items():
+        merges = sum(launches[k] for k in ("keys", "merge_round_fused"))
+        others = sum(n for k, n in launches.items() if k not in ("keys", "merge_round_fused",
+                                                                 "merge_round_fused_wide"))
+        if key.startswith("wordlevel"):
+            if any(launches.values()):
+                raise SystemExit(f"{key}: a kernel of csrc/ launched on the WordLevel path: "
+                                 f"{launches}")
+        elif merges == 0 or others:
+            raise SystemExit(f"{key}: launches {launches}: B2 and B1 must run, B3 and B4 not")
+    for key, by in shapes.items():
+        widest = max([int(x.split("x")[1]) for k in by.values() for x in k] or [0])
+        if widest > mk.WIDE_MAX_C:
+            raise SystemExit(f"{key}: a merge row of {widest} positions")
+    meta = fast_shapes["sp_bpe"].get("merge_round_fused_wide", {})
+    if not all(any(x.endswith(f"x{w}") for x in meta) for w in (16388, 10368, 8320)):
+        raise SystemExit(f"sp_bpe: the metaspace widths were not all launched: {meta}")
+    cold = {name: {k: runs[name][k] for k in CHAR_COLD[name]} for name in CHAR_COLD}
+    if cold != CHAR_COLD:
+        raise SystemExit(f"char-level cold launches {cold}, want {CHAR_COLD}")
+    # the cluster B1 timed at sp_bpe's first state, [256, 16388] (a last CTA of
+    # 4 positions), on the inputs the path gave it
+    args = capture[("merge_round_fused_wide", "256x16388")]
+    got = mk.merge_round_fused_wide(*args)
+    S, nc = mk.cluster_geometry(256, 16388, torch.cuda.get_device_properties(0)
+                                .multi_processor_count)
+    stats["merge_round_fused_wide"]["by_shape"]["256x16388"] = {
+        "ms": median_ms(lambda: mk.merge_round_fused_wide(*args), 20),
+        "plain_ms": median_ms(lambda: mk.merge_round_fused_plain(*args), 2),
+        "bound_ms": bound_ms(nbytes(*args[:7], *got) + table_bytes(
+            args[0], args[3], *args[4:6], *args[7:9])),
+        "slice": S, "cluster": nc, "smem_bytes": mk.smem_bytes(S),
+        "max_active_clusters": mk.max_clusters(S, nc),
+        "from": "sp_bpe path, first [256, 8192] chunk expanded by Metaspace",
+    }
+    print("cluster B1 at sp_bpe's [256, 16388]: " + json.dumps(
+        stats["merge_round_fused_wide"]["by_shape"]["256x16388"]), flush=True)
+    for k, s_ in stats.items():
+        s_["char_level_launches"] = {key: launches[k] for key, launches in runs.items()}
+        s_["char_level_shapes"] = {key: by.get(k, {}) for key, by in shapes.items()}
 
 
 def stats_launches(runs, k):
@@ -1037,6 +1186,9 @@ def main() -> int:
     # ---- 8. the bert WordPiece path -------------------------------------------
     bert_path(torch, stats, counts, numbers)
 
+    # ---- 9. the WordLevel and char-level BPE paths -----------------------------
+    char_level_path(torch, stats, counts, numbers)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -1071,6 +1223,8 @@ def main() -> int:
          "offsets_path_launches": s["offsets_path_launches"],
          "offsets_path_shapes": s["offsets_path_shapes"],
          "bert_path_launches": s["bert_path_launches"],
+         "char_level_launches": s["char_level_launches"],
+         "char_level_shapes": s["char_level_shapes"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "shape": s["shape"], **{x: s[x] for x in extra if x in s}}

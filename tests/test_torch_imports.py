@@ -1,7 +1,8 @@
 """The port stands alone: importing it and running one encode loads no
 module of JAX, `regex`, the `tokenizers` wheel or `tokenizers_tpu` (with
-and without offsets, the host path included, for the gpt2, llama3 and
-bert pipelines), and no source file of the package imports them."""
+and without offsets, the host path included, for the gpt2, llama3,
+bert, WordLevel and char-level BPE pipelines), and no source file of the
+package imports them."""
 
 import os
 import re
@@ -30,6 +31,16 @@ ids = [e.ids for e in tok.encode_batch_fast(["Hello, World! café 中文", "a[SE
 assert ids[1] == [2, 43, 3, 44, 3], ids
 encs = tok.encode_batch(["Hello, World! café", "a[SEP]b"])
 assert encs[0].offsets[1:3] == [(0, 5), (5, 6)] and encs[1].word_ids == [None, 0, 1, 2, None], encs
+from tokenizers_tpu_torch.smoke_data import config_json
+for name, engine in (("wordlevel", "WordLevelEngine"), ("char_bpe", "CharBpeEngine"),
+                     ("sp_bpe", "CharBpeEngine"), ("spm_bf", "CharBpeEngine")):
+    tok = Tokenizer.from_str(config_json(name), device="cpu")
+    assert type(tok._get_device_engine()).__name__ == engine, name
+    texts = ["Hello world! café ﬁle", "naïve 序号 x", "x<unk>y [UNK]"]
+    fast = [e.ids for e in tok.encode_batch_fast(texts)]
+    encs = tok.encode_batch(texts)
+    assert [e.ids for e in encs] == fast and all(fast), (name, fast)
+    assert encs[0].offsets[-1][1] == len(texts[0].rstrip()), (name, encs[0].offsets)
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

@@ -3,7 +3,9 @@ their references: the two-stage class table from the JAX package's
 `char_class_tables()`, the per-document gpt2 and llama3_128k digests that
 chip_smoke.py checks from the `tokenizers` wheel on the same documents
 (the 8 KB ones and those of the long-document phase; ids, and for the
-offsets phase ids, char offsets and word ids; bert's too),
+offsets phase ids, char offsets and word ids; bert's too, and those of
+the char-level phase's frozen tokenizers), the committed WordLevel class
+tables from the JAX package's `wordlevel_class_tables()`,
 and the engine's tables (gpt2, and llama3 with its whole-word table) from
 the JAX engine's `_program_args()`, array for array."""
 
@@ -13,13 +15,15 @@ import pytest
 from tokenizers import Tokenizer as WheelTokenizer
 
 from tokenizers_tpu.ops import unicode_tables as ju
+from tokenizers_tpu.ops.wordlevel_encode import wordlevel_class_tables as j_wl_tables
 from tokenizers_tpu.tokenizer import Tokenizer as JaxTokenizer
 from tokenizers_tpu_torch import Tokenizer
 from tokenizers_tpu_torch.ops import unicode_tables as tu
 from tokenizers_tpu_torch.ops.bpe_engine import TABLE_KEYS, WW_KEYS
+from tokenizers_tpu_torch.ops.wordlevel_encode import class_table_path
 from tokenizers_tpu_torch.smoke_data import (
-    CONFIGS, DENSE_BYTES, DENSE_OVERFLOW_BYTES, build_docs, ids_digest, load_digests,
-    long_parts, offsets_digest,
+    CONFIGS, DENSE_BYTES, DENSE_OVERFLOW_BYTES, build_docs, config_json, ids_digest,
+    load_digests, long_parts, offsets_digest,
 )
 
 GPT2 = "tests/fixtures/gpt2/tokenizer.json"
@@ -33,6 +37,30 @@ def test_class_table_matches_jax():
     np.testing.assert_array_equal(tu.char_class_flat(), ju.char_class_flat())
     for name in ("CLS_O", "CLS_L", "CLS_N", "CLS_SP", "CLS_WS", "CLS_END", "PAGE_BITS", "MAX_CP"):
         assert getattr(tu, name) == getattr(ju, name)
+
+
+@pytest.mark.parametrize("kind", ["whitespace", "whitespace_split"])
+def test_wordlevel_class_table_matches_jax(kind):
+    with np.load(class_table_path(kind)) as z:
+        for got, want in zip((z["s1"], z["s2"]), j_wl_tables(kind)):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["char_bpe", "sp_bpe", "spm_bf", "wordlevel", "sp_bpe_long"])
+def test_char_level_digests_match_wheel(name):
+    config = name.replace("_long", "")
+    docs = long_parts()["long"] if name.endswith("_long") else build_docs()
+    encs = WheelTokenizer.from_str(config_json(config)).encode_batch_fast(
+        docs, add_special_tokens=True)
+    assert [ids_digest(e.ids) for e in encs] == load_digests(name)
+
+
+@pytest.mark.parametrize("config", ["char_bpe", "sp_bpe", "wordlevel"])
+def test_char_level_offsets_digests_match_wheel(config):
+    encs = WheelTokenizer.from_str(config_json(config)).encode_batch(
+        build_docs(), add_special_tokens=True)
+    assert [offsets_digest(e) for e in encs] == load_digests(f"{config}_offsets")
 
 
 def _digests_match_wheel(config):

@@ -1,6 +1,6 @@
 """Regenerate the committed data files of this directory.
 
-    python -m tokenizers_tpu_torch.data.regen
+    python -m tokenizers_tpu_torch.data.regen [--retrain]
 
 * `char_class.npz`: the two-stage codepoint -> class table, derived from
   the `regex` module's \\p{L} and \\p{N} (the classes Oniguruma uses).
@@ -17,6 +17,17 @@
   `bert_long_offsets_digests.json` for the long documents (a) on gpt2 and
   bert.
 
+* `char_bpe.json`, `sp_bpe.json`, `wordlevel.json`: the char-level
+  phase's tokenizers, trained by the wheel from `tests/fixtures/corpus.txt`
+  (`CharBPETokenizer()`, `SentencePieceBPETokenizer(fuse_unk=True)` and a
+  WordLevel with Sequence[NFD, StripAccents, Lowercase] and Whitespace,
+  each at vocab_size 30,000) only where the file is missing or with
+  `--retrain`: the wheel's suffix-BPE trainer differs from process to
+  process, so the committed files are the source.  Their digests (ids of
+  the 8 KB documents for each and for `smoke_data.spm_bf_json()`, of the
+  long documents (a) for sp_bpe, and offsets digests of the 8 KB
+  documents for the three files) follow the files.
+
 Both references are optional dependencies: they are imported by name here
 only, so the package itself never needs them.
 """
@@ -26,6 +37,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -38,8 +50,10 @@ from ..ops.unicode_tables import (
     PAGE_SIZE,
     TABLE_PATH,
 )
+from ..ops.wordlevel_encode import class_table_path
 from ..smoke_data import (
-    CONFIGS, build_docs, digests_path, ids_digest, long_parts, offsets_digest,
+    CHAR_CONFIGS, CONFIGS, CORPUS, build_docs, config_json, digests_path, ids_digest,
+    long_parts, offsets_digest,
 )
 
 # Oniguruma \s
@@ -67,18 +81,64 @@ def class_tables():
     return stage1.reshape(-1).astype(np.int32), uniq.reshape(-1).astype(np.int8)
 
 
-def wheel_digests(config: str = "gpt2", docs=None):
+def wordlevel_class_table(kind: str):
+    """(s1 int32, s2 int8) of the "whitespace" or "whitespace_split"
+    pre-split: \\w per the `regex` module (V0) against the rest, and
+    whitespace; the construction of the JAX package's
+    `wordlevel_class_tables`."""
+    from ..ops.wordlevel_encode import WL_A, WL_B, WL_WS
+
+    cls = np.full(MAX_CP, WL_A, np.int8)
+    if kind == "whitespace":
+        re_mod = importlib.import_module("regex")
+        cps = np.concatenate(
+            [np.arange(0, 0xD800, dtype=np.int64), np.arange(0xE000, MAX_CP, dtype=np.int64)])
+        hits = re_mod.compile(r"\w", re_mod.V0).findall("".join(map(chr, cps.tolist())))
+        cls[:] = WL_B
+        cls[np.array([ord(c) for c in hits], dtype=np.int64)] = WL_A
+    cls[np.array(WS_CODEPOINTS, dtype=np.int64)] = WL_WS
+    uniq, s1 = np.unique(cls.reshape(-1, PAGE_SIZE), axis=0, return_inverse=True)
+    return s1.reshape(-1).astype(np.int32), uniq.reshape(-1).astype(np.int8)
+
+
+def train_char_configs(retrain: bool = False):
+    """Train and write the CHAR_CONFIGS tokenizers that are missing (all
+    with `retrain`)."""
     wheel = importlib.import_module("tokenizers")
-    ref = wheel.Tokenizer.from_file(CONFIGS[config])
-    encs = ref.encode_batch_fast(build_docs() if docs is None else docs,
-                                 add_special_tokens=True)
+    for name, path in CHAR_CONFIGS.items():
+        if os.path.exists(path) and not retrain:
+            continue
+        if name == "char_bpe":
+            tok = wheel.CharBPETokenizer()
+            tok.train([CORPUS], vocab_size=30000, show_progress=False)
+        elif name == "sp_bpe":
+            tok = wheel.SentencePieceBPETokenizer(fuse_unk=True)
+            tok.train([CORPUS], vocab_size=30000, special_tokens=["<unk>"], show_progress=False)
+        else:
+            tok = wheel.Tokenizer(wheel.models.WordLevel(unk_token="[UNK]"))
+            n = wheel.normalizers
+            tok.normalizer = n.Sequence([n.NFD(), n.StripAccents(), n.Lowercase()])
+            tok.pre_tokenizer = wheel.pre_tokenizers.Whitespace()
+            tok.train([CORPUS], wheel.trainers.WordLevelTrainer(
+                vocab_size=30000, special_tokens=["[UNK]"], show_progress=False))
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(tok.to_str())
+        print("wrote", path, os.path.getsize(path), "bytes")
+
+
+def _wheel(config: str):
+    return importlib.import_module("tokenizers").Tokenizer.from_str(config_json(config))
+
+
+def wheel_digests(config: str = "gpt2", docs=None):
+    encs = _wheel(config).encode_batch_fast(build_docs() if docs is None else docs,
+                                            add_special_tokens=True)
     return [ids_digest(e.ids) for e in encs]
 
 
 def wheel_offsets_digests(config: str = "gpt2", docs=None):
-    wheel = importlib.import_module("tokenizers")
-    ref = wheel.Tokenizer.from_file(CONFIGS[config])
-    encs = ref.encode_batch(build_docs() if docs is None else docs, add_special_tokens=True)
+    encs = _wheel(config).encode_batch(build_docs() if docs is None else docs,
+                                       add_special_tokens=True)
     return [offsets_digest(e) for e in encs]
 
 
@@ -86,10 +146,16 @@ def main():
     stage1, stage2 = class_tables()
     np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
     print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes")
-    digests = {config: wheel_digests(config) for config in CONFIGS}
+    for kind in ("whitespace", "whitespace_split"):
+        s1, s2 = wordlevel_class_table(kind)
+        np.savez_compressed(class_table_path(kind), s1=s1, s2=s2)
+        print("wrote", class_table_path(kind), os.path.getsize(class_table_path(kind)), "bytes")
+    train_char_configs("--retrain" in sys.argv)
+    digests = {config: wheel_digests(config) for config in (*CONFIGS, *CHAR_CONFIGS, "spm_bf")}
+    digests["sp_bpe_long"] = wheel_digests("sp_bpe", long_parts()["long"])
     digests["gpt2_long"] = wheel_digests("gpt2", sum(long_parts().values(), []))
     digests["bert_long"] = wheel_digests("bert", long_parts()["long"])
-    for config in CONFIGS:
+    for config in (*CONFIGS, *CHAR_CONFIGS):
         digests[f"{config}_offsets"] = wheel_offsets_digests(config)
     for config in ("gpt2", "bert"):
         digests[f"{config}_long_offsets"] = wheel_offsets_digests(config, long_parts()["long"])

@@ -2,13 +2,20 @@
 pair merging per word, with a bounded word cache.
 
 Copy of the merge of `tokenizers_tpu.models.bpe` (`_Word`, the heap loop
-and `_merge_word`) for the options the port's loader admits: vocab,
-merges, an unk token (with fuse_unk), and `ignore_merges`, which looks a
-whole word up in the vocab before merging it.  `tokenize_spans` gives
-each token's span in the word, in chars: a word of the byte-level
-pipelines has one char for each byte of the text.  The host path encodes the
-inputs the device does not take: inputs with added tokens, long inputs
-with no safe seam, and rows the device program flags `row_bad`.
+and `_merge_word`, reference `models/bpe/model.rs:382-460`) for the
+options the port's loader admits: vocab, merges, an unk token (with
+fuse_unk; without one an unknown char is dropped), `ignore_merges`, which
+looks a whole word up in the vocab before merging it, and for the
+char-level pipelines `continuing_subword_prefix` (on every char but a
+word's first), `end_of_word_suffix` (on its last) and `byte_fallback`
+(an unknown char as its bytes' `<0xXX>` tokens when all exist).
+`tokenize_spans` gives each token's span in the word: in chars when
+`byte_spans` is False (a word of the byte-level pipelines has one char
+for each byte of the text), else in UTF-8 bytes of the word (the
+char-level pipelines, whose spans map through the normalizer's byte
+alignments).  The host path encodes the inputs the device does not
+take: inputs with added tokens, long inputs with no safe seam, and rows
+the device program flags `row_bad`.
 """
 
 from __future__ import annotations
@@ -100,42 +107,64 @@ class _Word:
 class BPE:
     def __init__(self, vocab: Dict[str, int], merges: List[Tuple[str, str]],
                  unk_token: Optional[str] = None, fuse_unk: bool = False,
-                 ignore_merges: bool = False):
+                 ignore_merges: bool = False, continuing_subword_prefix: Optional[str] = None,
+                 end_of_word_suffix: Optional[str] = None, byte_fallback: bool = False,
+                 byte_spans: bool = False):
         self.vocab: Dict[str, int] = dict(vocab)
         self.vocab_r: Dict[int, str] = {v: k for k, v in self.vocab.items()}
         self.unk_token = unk_token
         self.fuse_unk = fuse_unk
         self.ignore_merges = ignore_merges
+        self.continuing_subword_prefix = continuing_subword_prefix
+        self.end_of_word_suffix = end_of_word_suffix
+        self.byte_fallback = byte_fallback
+        self.byte_spans = byte_spans
         self.cache = Cache()
         self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        n_prefix = len((continuing_subword_prefix or "").encode("utf-8"))
         for i, (a, b) in enumerate(merges):
-            for t in (a, b, a + b):
+            # the merged token drops the right member's prefix (model.rs:174-192)
+            new = a + b.encode("utf-8")[n_prefix:].decode("utf-8")
+            for t in (a, b, new):
                 if t not in self.vocab:
                     raise ValueError(f"Merge token out of vocabulary: {t!r}")
-            self.merges[(self.vocab[a], self.vocab[b])] = (i, self.vocab[a + b])
+            self.merges[(self.vocab[a], self.vocab[b])] = (i, self.vocab[new])
 
     def _merge_word(self, w: str) -> Tuple[List[int], List[int]]:
         word = _Word()
-        unk: Optional[Tuple[int, int]] = None  # (unk_id, chars)
-        for c in w:
-            tid = self.vocab.get(c)
+        unk: Optional[Tuple[int, int]] = None  # (unk_id, length)
+        prefix, suffix = self.continuing_subword_prefix, self.end_of_word_suffix
+        for i, c in enumerate(w):
+            n = len(c.encode("utf-8")) if self.byte_spans else 1
+            s = prefix + c if prefix and i else c
+            if suffix and i == len(w) - 1:
+                s += suffix
+            tid = self.vocab.get(s)
             if tid is not None:
                 if unk is not None:
                     word.add(*unk)
                     unk = None
-                word.add(tid, 1)
+                word.add(tid, n)
                 continue
+            if self.byte_fallback:
+                codes = [self.vocab.get("<0x%02X>" % b) for b in s.encode("utf-8")]
+                if all(t is not None for t in codes):
+                    # the reference does not flush a pending unk here
+                    # (model.rs:419-433), and neither does this copy
+                    for t in codes:
+                        word.add(t, 1)
+                    continue
             if self.unk_token is None:
                 continue
             unk_id = self.vocab.get(self.unk_token)
             if unk_id is None:
                 raise ValueError(f"Unk token `{self.unk_token}` is out of vocabulary")
             if unk is not None and self.fuse_unk:
-                unk = (unk[0], unk[1] + 1)
+                unk = (unk[0], unk[1] + n)
             else:
                 if unk is not None:
                     word.add(*unk)
-                unk = (unk_id, 1)
+                unk = (unk_id, n)
         if unk is not None:
             word.add(*unk)
         word.merge_all(self.merges)
@@ -146,7 +175,7 @@ class BPE:
         if self.ignore_merges:
             tid = self.vocab.get(word)
             if tid is not None:
-                return [tid], [len(word)]
+                return [tid], [len(word.encode("utf-8")) if self.byte_spans else len(word)]
         hit = self.cache.get(word)
         if hit is not None:
             return hit
@@ -161,7 +190,7 @@ class BPE:
 
     def tokenize_spans(self, word: str) -> List[Tuple[int, int, int]]:
         """(id, start, end) of each token of one pre-tokenized word, the
-        span in chars of the word."""
+        span in chars of the word (in its UTF-8 bytes with `byte_spans`)."""
         if not word:
             return []
         ids, lens = self._tokens(word)

@@ -11,9 +11,12 @@ the device tables (`ops/bert_tables.py`) are built from the same
 function, so host and device agree byte for byte.  NFD's canonical
 reordering only permutes the Mn marks that strip_accents then drops.
 
-`normalize` gives the normalized text and, per normalized char, the
-index of the source char it came from, through which offsets map back
-to the original text.
+`normalize_chars` gives the normalized text and, per normalized char,
+the index of the source char it came from, through which the WordPiece
+path maps offsets back to the original text.  `normalize` applies the
+same map to a `NormalizedString` (each output char aligned to its source
+char, as the reference's chain of filter, map, NFD and lowercase aligns
+it), for the pipelines whose offsets map through alignments.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ WHITESPACE_CPS = frozenset(
     + list(range(0x2000, 0x200B))
     + [0x2028, 0x2029, 0x202F, 0x205F, 0x3000]
 )
+WHITESPACE = "".join(map(chr, sorted(WHITESPACE_CPS)))
 
 
 def is_whitespace(c: str) -> bool:
@@ -59,6 +63,18 @@ def is_chinese_char(cp: int) -> bool:
     )
 
 
+class _CharTable(dict):
+    """codepoint -> normalized string, each computed at its first lookup."""
+
+    def __init__(self, char_map):
+        super().__init__()
+        self.char_map = char_map
+
+    def __missing__(self, cp: int) -> str:
+        self[cp] = out = self.char_map(chr(cp))
+        return out
+
+
 class BertNormalizer:
     def __init__(self, clean_text: bool = True, handle_chinese_chars: bool = True,
                  strip_accents: Optional[bool] = None, lowercase: bool = True):
@@ -67,6 +83,7 @@ class BertNormalizer:
         self.strip_accents = strip_accents
         self.lowercase = bool(lowercase)
         self.char_map = functools.lru_cache(maxsize=1 << 16)(self._char_map)
+        self._table = _CharTable(self._char_map)  # `str.translate`'s, filled as met
 
     @property
     def flags(self) -> Tuple[bool, bool, Optional[bool], bool]:
@@ -92,7 +109,7 @@ class BertNormalizer:
             s = "".join(ch.lower() for ch in s)
         return s
 
-    def normalize(self, text: str) -> Tuple[str, List[int]]:
+    def normalize_chars(self, text: str) -> Tuple[str, List[int]]:
         """(normalized text, source char index of each normalized char)."""
         out: List[str] = []
         src: List[int] = []
@@ -102,3 +119,19 @@ class BertNormalizer:
                 out.append(s)
                 src += [i] * len(s)
         return "".join(out), src
+
+    def normalize_str(self, text: str) -> str:
+        return text.translate(self._table)
+
+    def normalize(self, ns) -> None:
+        """Normalize the NormalizedString `ns` in place: drop the chars that
+        map to nothing, then replace each other char by its string."""
+        text = ns.get()
+        if text.isascii():
+            mapped = text.translate(self._table)
+            if len(mapped) == len(text):  # one char for one: the alignments stay
+                ns.normalized = mapped
+                return
+        ns.filter(lambda c: bool(self.char_map(c)))
+        ns.transform([(o, 1 if k else 0) for c in ns.get()
+                      for k, o in enumerate(self.char_map(c))])

@@ -105,23 +105,30 @@ def _to_i32(x):
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
-def rolling_hash(b, bnd, mult):
+def rolling_hash(b, bnd, mult, keep=None):
     """h_i = h_{i-1} * mult + (b_i + 1) mod 2^32, restarting at each
-    boundary (and at the row start), as int64 in [0, 2^32).
+    boundary (and at the row start), as int64 in [0, 2^32).  With `keep`,
+    only the bytes it marks enter; the others leave h as it was (the JAX
+    WordLevel program's segmented scan, whose whitespace is its identity).
 
     A closed form instead of a scan: mult is odd, so invertible mod 2^32,
-    and h_i = mult^i * (S_i - S_{s-1}) with S_i = sum_{k<=i} c_k mult^-k
-    and s the segment start."""
+    and h_i = mult^n_i * (S_i - S_{s-1}) with S_i = sum_{k<=i} c_k
+    mult^-n_k, n_k the count of entering bytes before or at k (the
+    position without `keep`) and s the segment start."""
     B, L = b.shape
     dev = b.device
-    pw = torch.from_numpy(_powers(mult, L)).to(dev)
-    pinv = torch.from_numpy(_powers(pow(mult, -1, 1 << 32), L)).to(dev)
-    c = b.to(torch.int64) + 1
-    S = torch.cumsum(mul32(c, pinv), 1)
+    pw = torch.from_numpy(_powers(mult, L + 1)).to(dev)
+    pinv = torch.from_numpy(_powers(pow(mult, -1, 1 << 32), L + 1)).to(dev)
+    if keep is None:
+        n, c = torch.arange(L, device=dev), b.to(torch.int64) + 1  # n broadcasts over rows
+    else:
+        n = torch.cumsum(keep.to(torch.int64), 1)
+        c = torch.where(keep, b.to(torch.int64) + 1, 0)
+    S = torch.cumsum(mul32(c, pinv[n]), 1)
     pos = torch.arange(L, device=dev).expand(B, L)
     start = torch.cummax(torch.where(bnd, pos, -1), 1).values
     base = torch.where(start >= 1, S.gather(1, (start - 1).clamp(min=0)), 0)
-    return mul32((S - base) & _M32, pw)
+    return mul32((S - base) & _M32, pw[n])
 
 
 def word_hash_heads(b, bnd, inb, mult):

@@ -10,12 +10,19 @@ JAX package's `_shard_chunk` has no counterpart here.
 With offsets (`encode_batch_offsets`) the engine's offsets program gives
 each token's span in its piece, in the engine's `offsets_space`:
 "prepared_bytes" (byte-level BPE: the piece's bytes, a prefix space
-included) or "original_chars" (WordPiece: the chars of the original
-text, tracked through the normalizer on the device).  The pieces of a
-long input are re-based (in bytes or chars, and word ids), the prefix
-space is undone, and the spans are mapped to the original text's chars
-or bytes.  The JAX package's third space, "normalized bytes", comes with
-the engines that need it.
+included), "original_chars" (WordPiece: the chars of the original text,
+tracked through the normalizer on the device) or "normalized_bytes"
+(WordLevel, char-level BPE: the bytes of the text as normalized on the
+host, `_prepare_aligned`, whose NormalizedString maps each span back to
+the original bytes: its start from the first byte's alignment, its end
+from the last byte's, as the reference's `convert_offsets` does).  The
+pieces of a long input are re-based (in bytes or chars, and word ids),
+the prefix space is undone, and the spans are mapped to the original
+text's chars or bytes.
+
+An engine may take pieces narrower than MAX_L // 2 (`_piece_max`): a
+longer input is split at safe seams into pieces of at most that, and one
+with a piece still longer goes to the host.
 """
 
 from __future__ import annotations
@@ -132,7 +139,19 @@ class DeviceEngineBase:
     tokenizer = None
     add_prefix_space = False
     supports_offsets = False
-    offsets_space = "prepared_bytes"  # or "original_chars"
+    offsets_space = "prepared_bytes"  # or "original_chars", "normalized_bytes"
+
+    def _piece_max(self, offsets: bool) -> int:
+        """The longest prepared piece the program takes (of the offsets
+        program where `offsets`)."""
+        return MAX_L // 2
+
+    def _prepare_aligned(self, s: str):
+        """(prepared bytes, NormalizedString or None): the offsets path's
+        preparation in the "normalized_bytes" space, whose spans map back
+        through the NormalizedString (None: the prepared text is the
+        original)."""
+        return self._prepare(s), None
 
     def _prepare(self, s: str) -> bytes:
         """UTF-8 bytes of `s`, after the prefix space where the
@@ -205,35 +224,50 @@ class DeviceEngineBase:
         STATS.bad_rows += len(bad)
         return results, bad
 
-    def _work_items(self, inputs: List[str]):
-        """(pieces, owner of each piece, inputs for the host): each input
-        without an added token, prepared, split at safe seams when longer
-        than MAX_L // 2 (to the host when it has none)."""
+    def _pieces(self, data: bytes, offsets: bool) -> Optional[List[bytes]]:
+        """The prepared input `data` as the program's pieces: whole, or
+        split at safe seams when longer than `_piece_max`; None when it
+        has no seam or a piece is still too long (the host takes it)."""
+        limit = self._piece_max(offsets)
+        if len(data) <= limit:
+            return [data]
+        chunks = self._split_long(data, min(CHUNK_TARGET, limit))
+        if len(chunks) == 1 or max(map(len, chunks)) > limit:
+            return None
+        return chunks
+
+    def _work_items(self, inputs: List[str], offsets: bool = False):
+        """(pieces, owner of each piece, inputs for the host, the
+        NormalizedString of each input in the "normalized_bytes" space
+        with `offsets`): each input without an added token, prepared, in
+        pieces (`_pieces`; to the host when it has none)."""
         added = list(self.tokenizer.added)
         piece_strings: List[bytes] = []  # flattened device work items
         piece_owner: List[int] = []  # input index per work item
         host_idx: List[int] = []
+        aligned = offsets and self.offsets_space == "normalized_bytes"
+        input_ns: dict = {}
         for i, s in enumerate(inputs):
             if self._needs_host(s, added):
                 host_idx.append(i)
                 continue
-            data = self._prepare(s)
-            if len(data) > MAX_L // 2:
-                chunks = self._split_long(data, CHUNK_TARGET)
-                if len(chunks) == 1:  # no safe seam: host path
-                    host_idx.append(i)
-                    continue
+            if aligned:
+                data, input_ns[i] = self._prepare_aligned(s)
             else:
-                chunks = [data]
+                data = self._prepare(s)
+            chunks = self._pieces(data, offsets)
+            if chunks is None:
+                host_idx.append(i)
+                continue
             piece_strings += chunks
             piece_owner += [i] * len(chunks)
         STATS.total_inputs += len(inputs)
         STATS.host_pre_inputs += len(host_idx)
-        return piece_strings, piece_owner, host_idx
+        return piece_strings, piece_owner, host_idx, input_ns
 
     def encode_batch(self, inputs: List[str], add_special_tokens: bool) -> List[Encoding]:
         encodings: List[Optional[Encoding]] = [None] * len(inputs)
-        piece_strings, piece_owner, host_idx = self._work_items(inputs)
+        piece_strings, piece_owner, host_idx, _ = self._work_items(inputs)
         if piece_strings:
             results, bad = self._run_device(piece_strings)
             bad_inputs = {piece_owner[j] for j in bad}
@@ -281,7 +315,7 @@ class DeviceEngineBase:
         Inputs the device does not take, and rows it flags, run the host
         pipeline with the same offsets."""
         encodings: List[Optional[Encoding]] = [None] * len(inputs)
-        piece_strings, piece_owner, host_idx = self._work_items(inputs)
+        piece_strings, piece_owner, host_idx, input_ns = self._work_items(inputs, True)
         if piece_strings:
             results, bad = self._run_device_offsets(piece_strings)
             bad_inputs = {piece_owner[j] for j in bad}
@@ -305,6 +339,13 @@ class DeviceEngineBase:
                 if self.add_prefix_space and not inputs[i].startswith(" "):
                     # prepared -> original bytes: undo the prefix space
                     st, en = np.maximum(st - 1, 0), np.maximum(en - 1, 0)
+                ns = input_ns.get(i)
+                if ns is not None and len(ns):
+                    # normalized -> original bytes through the alignments
+                    a = np.asarray(ns.alignments, np.int64)
+                    st0 = a[np.clip(st, 0, len(a) - 1), 0]
+                    en = np.where(en > st, a[np.clip(en - 1, 0, len(a) - 1), 1], st0)
+                    st = st0
                 idl = ids.tolist()
                 enc = Encoding(ids=idl, tokens=self._token_strings(idl),
                                words=wd.tolist(),
@@ -332,22 +373,20 @@ class DeviceEngineBase:
         the host: a flagged row's ids are not the input's (the caller
         re-encodes it; the JAX package's version returns no flags).  The
         rows of an input holding an added token are flagged too: the
-        program encodes it as plain bytes.  An input over MAX_L // 2 bytes
-        with no safe seam raises ValueError."""
+        program encodes it as plain bytes.  An input that `_pieces` cannot
+        cut into the program's pieces raises ValueError."""
         added = list(self.tokenizer.added)
         byte_strings: List[bytes] = []
         owners: List[tuple] = []
         host = [self._needs_host(s, added) for s in inputs]
         for i, s in enumerate(inputs):
             data = self._prepare(s)
-            chunks = [data]
-            if len(data) > MAX_L // 2:
-                chunks = self._split_long(data, CHUNK_TARGET)
-                if len(chunks) == 1:
-                    raise ValueError(
-                        f"input {i} is {len(data)} bytes with no tokenization-safe "
-                        f"seam (over MAX_L // 2 = {MAX_L // 2}); encode_batch takes it "
-                        f"to the host")
+            chunks = self._pieces(data, False)
+            if chunks is None:
+                raise ValueError(
+                    f"input {i} is {len(data)} bytes with no tokenization-safe seam "
+                    f"into pieces of at most {self._piece_max(False)}; encode_batch "
+                    f"takes it to the host")
             byte_strings += chunks
             owners += [(i, k) for k in range(len(chunks))]
         out = []

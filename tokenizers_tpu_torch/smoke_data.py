@@ -16,6 +16,15 @@ distinct random words, whose unique words overflow the dedup buffer
 same at 16 KB, where two rounds at the full width leave more tokens than
 the 5/8 width holds, so every row is flagged and the host encodes it.
 
+`CHAR_CONFIGS` are the char-level phase's tokenizers, trained once from
+the corpus with the wheel and committed in `data/` (`char_bpe.json`: the
+`CharBPETokenizer` recipe; `sp_bpe.json`: `SentencePieceBPETokenizer`
+with `fuse_unk`; `wordlevel.json`: WordLevel with NFD, StripAccents,
+Lowercase and Whitespace), and `spm_bf_json` derives the Llama-2 SPM
+shape from sp_bpe; their digests are `data/{char_bpe,sp_bpe,spm_bf,
+wordlevel}_digests.json`, `data/sp_bpe_long_digests.json` (the long
+documents (a)) and `data/{char_bpe,sp_bpe,wordlevel}_offsets_digests.json`.
+
 `data/gpt2_digests.json`, `data/llama3_digests.json` and
 `data/bert_digests.json` hold one SHA-256 per document of the ids the
 `tokenizers` wheel gives (special tokens added) on the tokenizer of each
@@ -61,6 +70,14 @@ CONFIGS = {  # config -> its tokenizer.json
 }
 GPT2_JSON = CONFIGS["gpt2"]
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+# the char-level phase's tokenizers, trained once from the corpus with the
+# `tokenizers` wheel and committed (`data/regen.py`); spm_bf is derived
+# from sp_bpe at run time (`spm_bf_json`)
+CHAR_CONFIGS = {
+    "char_bpe": os.path.join(DATA, "char_bpe.json"),
+    "sp_bpe": os.path.join(DATA, "sp_bpe.json"),
+    "wordlevel": os.path.join(DATA, "wordlevel.json"),
+}
 DOC_BYTES = 8 * 1024
 TARGET_BYTES = 4 << 20
 LONG_DOC_BYTES = 32 * 1024
@@ -122,6 +139,33 @@ def long_parts() -> Dict[str, List[str]]:
     `data/gpt2_long_digests.json`."""
     return {"long": long_docs(), "dense": dense_docs(),
             "dense_16k": dense_docs(nbytes=DENSE_OVERFLOW_BYTES)}
+
+
+def spm_bf_json() -> str:
+    """The Llama-2 SPM shape from `data/sp_bpe.json`: the 256 `<0xXX>`
+    tokens appended to the vocab, the normalizer Sequence[Prepend("▁"),
+    Replace(" ", "▁")], no pre-tokenizer, `byte_fallback` and `fuse_unk`."""
+    with open(CHAR_CONFIGS["sp_bpe"], encoding="utf-8") as f:
+        d = json.load(f)
+    vocab = d["model"]["vocab"]
+    base = max(vocab.values()) + 1
+    for bb in range(256):
+        vocab.setdefault(f"<0x{bb:02X}>", base + bb)
+    d["model"].update(byte_fallback=True, fuse_unk=True)
+    d["normalizer"] = {"type": "Sequence", "normalizers": [
+        {"type": "Prepend", "prepend": "▁"},
+        {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]}
+    d["pre_tokenizer"] = None
+    return json.dumps(d, ensure_ascii=False)
+
+
+def config_json(config: str) -> str:
+    """The tokenizer.json text of a config of CONFIGS, CHAR_CONFIGS or
+    "spm_bf"."""
+    if config == "spm_bf":
+        return spm_bf_json()
+    with open({**CONFIGS, **CHAR_CONFIGS}[config], encoding="utf-8") as f:
+        return f.read()
 
 
 def ids_digest(ids: Sequence[int]) -> str:

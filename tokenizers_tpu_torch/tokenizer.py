@@ -1,7 +1,7 @@
-"""Tokenizer of the port: loads a `tokenizer.json` of the gpt2, the
-llama3 or the bert shape and encodes batches on the card.
+"""Tokenizer of the port: loads a `tokenizer.json` of the shapes below and
+encodes batches on the card.
 
-The loader admits exactly three pipelines, each with plain special added
+The loader admits exactly these pipelines, each with plain special added
 tokens:
 
 * gpt2 (`tests/fixtures/gpt2`): no normalizer, a plain BPE model, the
@@ -14,18 +14,29 @@ tokens:
 * bert (`tests/fixtures/bert`): BertNormalizer, BertPreTokenizer,
   WordPiece, a single-sequence TemplateProcessing (or none) and the
   WordPiece decoder (or none); its added tokens are matched on the raw
-  text (`normalized: false`).
+  text (`normalized: false`);
+* WordLevel with Whitespace, WhitespaceSplit or BertPreTokenizer, and
+  char-level BPE (unk token, `fuse_unk`, `byte_fallback`,
+  `continuing_subword_prefix`, `end_of_word_suffix`) with those, with
+  Metaspace (replacement `▁`, split) or with no pre-tokenizer; either
+  with no normalizer or one of `normalizers.from_json` (Lowercase, NFD,
+  NFKD, NFC, NFKC, StripAccents, Strip, Replace of a string, Prepend,
+  BertNormalizer, a Sequence of them), a single-sequence
+  TemplateProcessing (or none) and the BPEDecoder or Metaspace decoder
+  (or none); added tokens `normalized: false`.  This covers the
+  `CharBPETokenizer`, `SentencePieceBPETokenizer` and WordLevel recipes
+  and the Llama-2 SPM shape.
 
 Decoders are held, not run: decode is not ported.  Anything else raises
 `NotImplementedError` naming the later slice of the port that brings it.
 
 `encode_batch_fast` (ids) and `encode_batch` (ids with char offsets,
 token strings and word ids; `encode_batch_byte_offsets` for byte
-offsets) run the device engine (`ops/engine.py`: `ops/bpe_engine.py` or
-`ops/wordpiece_engine.py`) on the tokenizer's device and the host
-pipeline for what the device does not take.  The device is `cuda` unless
-the caller asks for `device="cpu"`, where every kernel runs its plain
-PyTorch version.  Pairs and pre-tokenized input wait for a later slice.
+offsets) run the device engine (`ops/engine.py`) on the tokenizer's
+device and the host pipeline for what the device does not take.  The
+device is `cuda` unless the caller asks for `device="cpu"`, where every
+kernel runs its plain PyTorch version.  Pairs and pre-tokenized input
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -37,11 +48,16 @@ from typing import Iterable, List, Optional, Union
 from . import pick_device
 from .encoding import Encoding
 from .models.bpe import BPE
+from .models.wordlevel import WordLevel
 from .models.wordpiece import WordPiece, WordPieceDecoder
+from .normalized import NormalizedString, char_to_byte_offsets
+from .normalizers import from_json as normalizer_from_json
 from .normalizers.bert import BertNormalizer
 from .pre_tokenizers.bert import BertPreTokenizer
 from .pre_tokenizers.byte_level import ByteLevel, process_offsets
+from .pre_tokenizers.metaspace import Metaspace
 from .pre_tokenizers.split import LLAMA3_PATTERN, Sequence, Split
+from .pre_tokenizers.whitespace import Whitespace, WhitespaceSplit
 from .processors.template import TemplateProcessing
 
 _BYTE_LEVEL_KEYS = {"type", "add_prefix_space", "trim_offsets", "use_regex"}
@@ -49,6 +65,20 @@ _BERT_NORMALIZER_KEYS = {"type", "clean_text", "handle_chinese_chars", "strip_ac
                          "lowercase"}
 _WORDPIECE_KEYS = {"type", "unk_token", "continuing_subword_prefix",
                    "max_input_chars_per_word", "vocab"}
+_CHAR_BPE_KEYS = {"type", "dropout", "unk_token", "continuing_subword_prefix",
+                  "end_of_word_suffix", "fuse_unk", "byte_fallback", "ignore_merges", "vocab",
+                  "merges"}
+_CLASS_SPLITS = {"Whitespace": Whitespace, "WhitespaceSplit": WhitespaceSplit,
+                 "BertPreTokenizer": BertPreTokenizer}
+_METASPACE_KEYS = {"type", "replacement", "prepend_scheme", "split"}
+
+
+class HeldDecoder:
+    """A decoder's settings (BPEDecoder, Metaspace), held as the loader
+    read them: decode is not ported."""
+
+    def __init__(self, d: dict):
+        self.settings = dict(d)
 
 
 def _unsupported(what: str, slice_name: str):
@@ -76,9 +106,7 @@ def _load_model(d: dict, llama3: bool) -> BPE:
         _unsupported("BPE subword prefix/suffix", "the CharBPE slice")
     if d.get("byte_fallback"):
         _unsupported("BPE byte_fallback", "the CharBPE/SPM slice")
-    merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
-              for m in d.get("merges", [])]
-    return BPE(d.get("vocab", {}), merges, unk_token=d.get("unk_token"),
+    return BPE(d.get("vocab", {}), _merges(d), unk_token=d.get("unk_token"),
                fuse_unk=bool(d.get("fuse_unk", False)),
                ignore_merges=bool(d.get("ignore_merges", False)))
 
@@ -142,6 +170,61 @@ def _load_bert(d: dict):
     return normalizer, BertPreTokenizer(), model, decoder
 
 
+def _merges(d: dict):
+    return [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
+            for m in d.get("merges", [])]
+
+
+def _load_aligned(d: dict):
+    """(normalizer, pre-tokenizer, model, post-processor, decoder) of a
+    WordLevel or char-level BPE pipeline, whose offsets map through the
+    normalizer's alignments."""
+    nz = d.get("normalizer")
+    normalizer = None if nz is None else normalizer_from_json(nz)
+    pt_d, m = d.get("pre_tokenizer"), d["model"]
+    if pt_d is None:
+        pt = None
+    elif pt_d.get("type") in _CLASS_SPLITS and set(pt_d) == {"type"}:
+        pt = _CLASS_SPLITS[pt_d["type"]]()
+    elif pt_d.get("type") == "Metaspace" and set(pt_d) <= _METASPACE_KEYS:
+        if pt_d.get("replacement", "▁") != "▁" or not pt_d.get("split", True):
+            _unsupported("Metaspace with a replacement other than '▁' or without its split",
+                         "a later slice")
+        pt = Metaspace(pt_d.get("prepend_scheme", "always"))
+    else:
+        _unsupported(f"pre-tokenizer {pt_d.get('type')!r} with these options", "a later slice")
+    if m.get("type") == "WordLevel":
+        if set(m) - {"type", "vocab", "unk_token"} or not isinstance(
+                pt, (Whitespace, WhitespaceSplit, BertPreTokenizer)):
+            _unsupported("WordLevel with these options or this pre-tokenizer", "a later slice")
+        model = WordLevel(m.get("vocab", {}), m.get("unk_token", "<unk>"))
+    else:
+        if set(m) - _CHAR_BPE_KEYS:
+            _unsupported(f"BPE options {sorted(set(m) - _CHAR_BPE_KEYS)}", "a later slice")
+        if m.get("dropout") not in (None, 0.0):
+            _unsupported("BPE dropout", "a later slice")
+        if m.get("ignore_merges"):
+            _unsupported("BPE ignore_merges outside the llama-3 pipeline", "a later slice")
+        model = BPE(m.get("vocab", {}), _merges(m), unk_token=m.get("unk_token"),
+                    fuse_unk=bool(m.get("fuse_unk", False)),
+                    continuing_subword_prefix=m.get("continuing_subword_prefix"),
+                    end_of_word_suffix=m.get("end_of_word_suffix"),
+                    byte_fallback=bool(m.get("byte_fallback", False)), byte_spans=True)
+    pp = d.get("post_processor")
+    if pp is not None and pp.get("type") != "TemplateProcessing":
+        _unsupported(f"post-processor {pp.get('type')!r} behind a "
+                     f"{'no' if pt_d is None else pt_d.get('type')} pre-tokenizer",
+                     "a later slice")
+    dec = d.get("decoder")
+    if dec is not None and not (
+            (dec.get("type") == "BPEDecoder" and set(dec) <= {"type", "suffix"})
+            or (dec.get("type") == "Metaspace" and set(dec) <= _METASPACE_KEYS)):
+        _unsupported(f"decoder {dec.get('type')!r} in a WordLevel or char-level BPE "
+                     f"pipeline", "a later slice")
+    return (normalizer, pt, model, _load_post_processor(pp, True),
+            None if dec is None else HeldDecoder(dec))
+
+
 def _load_post_processor(d: Optional[dict], template_ok: bool):
     if d is None or d.get("type") != "TemplateProcessing":
         return _load_byte_level(d, "post_processor")
@@ -155,13 +238,15 @@ def _load_post_processor(d: Optional[dict], template_ok: bool):
 
 
 class Tokenizer:
-    def __init__(self, model: Union[BPE, WordPiece],
-                 pre_tokenizer: Union[ByteLevel, Sequence, BertPreTokenizer],
+    def __init__(self, model: Union[BPE, WordPiece, WordLevel], pre_tokenizer,
                  added_tokens: Iterable[dict] = (),
                  post_processor: Union[ByteLevel, TemplateProcessing, None] = None,
-                 decoder: Union[ByteLevel, WordPieceDecoder, None] = None, device=None,
-                 normalizer: Optional[BertNormalizer] = None):
+                 decoder: Union[ByteLevel, WordPieceDecoder, HeldDecoder, None] = None,
+                 device=None, normalizer=None):
         self.model = model
+        # WordLevel and char-level BPE: offsets through the alignments
+        self.aligned = isinstance(model, WordLevel) or (
+            isinstance(model, BPE) and not isinstance(pre_tokenizer, (ByteLevel, Sequence)))
         self.normalizer = normalizer
         self.pre_tokenizer = pre_tokenizer
         self.post_processor = post_processor
@@ -179,20 +264,27 @@ class Tokenizer:
     def from_str(cls, s: str, device=None) -> "Tokenizer":
         d = json.loads(s)
         pt_d = d.get("pre_tokenizer")
-        bert = pt_d is not None and pt_d.get("type") == "BertPreTokenizer"
+        pt_type = None if pt_d is None else pt_d.get("type")
+        m_type = d["model"].get("type", "BPE")
+        bert = pt_type == "BertPreTokenizer" and m_type == "WordPiece"
+        aligned = m_type == "WordLevel" or (m_type == "BPE" and pt_type in (
+            None, "Whitespace", "WhitespaceSplit", "BertPreTokenizer", "Metaspace"))
         nz_d = d.get("normalizer")
-        if nz_d is not None and not bert:
-            _unsupported("a normalizer other than BertNormalizer, or one outside the BERT "
-                         "pipeline", "the WordLevel, Unigram and CharBPE slices")
+        if nz_d is not None and not (bert or aligned):
+            _unsupported("a normalizer in a byte-level pipeline", "a later slice")
         if d.get("truncation") is not None or d.get("padding") is not None:
             _unsupported("truncation and padding", "a later slice")
         added = d.get("added_tokens") or []
         for t in added:
             if not t.get("special") or t.get("single_word") or t.get("lstrip") or t.get("rstrip"):
                 _unsupported(f"added token {t.get('content')!r} with these options", "a later slice")
-            if bert and t.get("normalized"):
+            if (bert or aligned) and t.get("normalized"):
                 _unsupported(f"added token {t.get('content')!r} matched on normalized text",
                              "a later slice")
+        if aligned:
+            normalizer, pt, model, pp, decoder = _load_aligned(d)
+            return cls(model, pt, added, post_processor=pp, decoder=decoder, device=device,
+                       normalizer=normalizer)
         if bert:
             normalizer, pt, model, decoder = _load_bert(d)
             return cls(model, pt, added,
@@ -300,11 +392,10 @@ class Tokenizer:
     def encode_host(self, text: str, add_special_tokens: bool = True,
                     offsets: Optional[str] = None) -> Encoding:
         """The host pipeline: added tokens split out of the raw text, then
-        on each piece between them the normalizer (bert), the
-        pre-tokenizer's split and the model, then the template.  With
-        `offsets` ("char" or "byte") it also gives each token's offsets,
-        string and word index (an added token is a word of its own);
-        without, ids only."""
+        on each piece between them the normalizer, the pre-tokenizer's
+        split and the model, then the template.  With `offsets` ("char" or
+        "byte") it also gives each token's offsets, string and word index
+        (an added token is a word of its own); without, ids only."""
         if offsets is not None:
             return self._encode_host_offsets(text, add_special_tokens, offsets)
         ids: List[int] = []
@@ -312,23 +403,54 @@ class Tokenizer:
         matches = self._added_re.finditer(text) if self._added_re else ()
         for m in list(matches) + [None]:
             piece = text[pos : m.start() if m else len(text)]
-            if piece and self.normalizer is not None:
-                piece = self.normalizer.normalize(piece)[0]
-            for word in self.pre_tokenizer.pre_tokenize(piece) if piece else ():
-                ids.extend(self.model.tokenize(word))
+            if piece and self.aligned:
+                for word in self._aligned_word_spans(piece, pos == 0):
+                    ids.extend(t for t, _s, _e in word)
+            elif piece:
+                if self.normalizer is not None:
+                    piece = self.normalizer.normalize_chars(piece)[0]
+                for word in self.pre_tokenizer.pre_tokenize(piece):
+                    ids.extend(self.model.tokenize(word))
             if m:
                 ids.append(self.added[m.group()])
                 pos = m.end()
         return self.post_process(Encoding(ids=ids), add_special_tokens)
 
-    def _word_spans(self, piece: str):
+    def _aligned_word_spans(self, piece: str, first: bool):
+        """`_word_spans` of the WordLevel and char-level BPE pipelines: the
+        normalizer (and Metaspace's replacement and prepend; `first`: the
+        piece starts the text) on a NormalizedString, the pre-tokenizer's
+        words in its text, each token's byte span in its word mapped to the
+        piece's original bytes through the alignments."""
+        ns = NormalizedString(piece)
+        if self.normalizer is not None:
+            self.normalizer.normalize(ns)
+        pt, text = self.pre_tokenizer, ns.get()
+        if isinstance(pt, Metaspace):
+            pt.apply(ns, first)
+            text = ns.get()
+            spans = pt.word_spans(text)
+        elif pt is None:
+            spans = [(0, len(text))] if text else []
+        else:
+            spans = [(ws, we) for _w, ws, we in pt.pre_tokenize_spans(text)]
+        cb, al = char_to_byte_offsets(text), ns.alignments
+        for ws, we in spans:
+            yield [(tid, al[cb[ws] + ts][0], al[cb[ws] + te - 1][1])
+                   for tid, ts, te in self.model.tokenize_spans(text[ws:we])]
+
+    def _word_spans(self, piece: str, first: bool):
         """Per word of a piece of text between added tokens, (id, start,
         end) of each token.  Spans are in the piece's chars for the bert
         pipeline (through the normalizer's source chars), else in its
         bytes (each word's in the prepared bytes, the prefix space
-        undone)."""
+        undone; through the alignments for WordLevel and char-level
+        BPE)."""
+        if self.aligned:
+            yield from self._aligned_word_spans(piece, first)
+            return
         if self.normalizer is not None:
-            norm, src = self.normalizer.normalize(piece)
+            norm, src = self.normalizer.normalize_chars(piece)
             for word, ws, _we in self.pre_tokenizer.pre_tokenize_spans(norm):
                 yield [(tid, src[ws + ts], src[ws + te - 1] + 1)
                        for tid, ts, te in self.model.tokenize_spans(word)]
@@ -345,7 +467,7 @@ class Tokenizer:
         bytes as the device's spans are (`engine_base.map_offsets`)."""
         from .ops.engine_base import map_offsets
 
-        chars = self.normalizer is not None  # the unit of the spans
+        chars = isinstance(self.model, WordPiece)  # the unit of the spans
 
         def size(s: str) -> int:
             return len(s) if chars else len(s.encode("utf-8"))
@@ -365,7 +487,7 @@ class Tokenizer:
         for m in list(matches) + [None]:
             piece = text[pos : m.start() if m else len(text)]
             if piece:
-                for word in self._word_spans(piece):
+                for word in self._word_spans(piece, pos == 0):
                     for tid, ts, te in word:
                         add(tid, self.model.vocab_r[tid], base + ts, base + te)
                     n_words += 1
