@@ -107,7 +107,20 @@
    launches of the 8 KB runs must equal CHAR_COLD; the WordLevel runs
    launch no kernel, and no merge row is wider than 65,536.  The cluster
    B1 is timed at sp_bpe's first state [256, 16388] on the path's inputs.
-10. Prints a line of numbers per path, the per-kernel JSON line (with each
+10. The Unigram (SentencePiece) path (`unigram_path`), on no kernel of
+   `csrc/` (torch ops, as the JAX package runs it in plain XLA): the
+   `unigram` and `unigram_bf` fixtures built (tables timed);
+   `encode_batch_fast` with unigram on the 512 8 KB documents cold and
+   cached (the deduplicated compensated-f32 Viterbi with the word cache,
+   near ties and words over 128 bytes spliced from the host as per-word
+   patch records) and cold on the long documents (a) with a new
+   tokenizer, `encode_batch` on the 8 KB documents (the packed f64
+   program); with unigram_bf `encode_batch_fast` cold and `encode_batch`;
+   every document against `data/unigram*_digests.json`, byte offsets on
+   64 documents against the host path; every B1-B4 count 0 over the
+   phase.  One more cold pass times the program and the unique encoder's
+   forward scan and backtrack with CUDA events.
+11. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -131,6 +144,8 @@ FIXTURES = os.path.join(REPO, "tests", "fixtures")
 GPT2 = os.path.join(FIXTURES, "gpt2", "tokenizer.json")
 LLAMA3 = os.path.join(FIXTURES, "llama3_128k", "tokenizer.json")
 BERT = os.path.join(FIXTURES, "bert", "tokenizer.json")
+UNIGRAM = os.path.join(FIXTURES, "unigram", "tokenizer.json")
+UNIGRAM_BF = os.path.join(FIXTURES, "unigram_bf", "tokenizer.json")
 TPU_KERNELS = {  # file:line of the `pallas_call` each kernel replaces
     "layout_fused": "tokenizers_tpu/ops/layout_pallas.py:176",
     "layout_fused_wide": "tokenizers_tpu/ops/layout_pallas.py:176",
@@ -829,6 +844,176 @@ def bert_path(torch, stats, counts, numbers):
         s_["bert_path_launches"] = launches[k]
 
 
+def patch_tally(eng):
+    """Wrap `eng._program_many` to tally, per call of `take()`, the patch
+    records of its chunks: near ties (words within the dedup buffer's
+    slack, whose Viterbi comparison was too close for compensated f32)
+    and words over the slack.  Returns (take, restore)."""
+    from tokenizers_tpu_torch.ops.unigram_dedup import UD_SLACK
+
+    run_program = eng._program_many
+    tally = {"near_tie_words": 0, "long_words": 0, "patch_overflow_chunks": 0}
+
+    def tallied(chunks_):
+        out = run_program(chunks_)
+        for res in out:
+            ptab, nflag = res[3]
+            n = int(nflag)
+            if n > ptab.shape[0]:
+                tally["patch_overflow_chunks"] += 1
+            wlen = ptab[:min(n, ptab.shape[0]), 2]
+            tally["near_tie_words"] += int((wlen <= UD_SLACK).sum())
+            tally["long_words"] += int((wlen > UD_SLACK).sum())
+        return out
+
+    def take():
+        got = dict(tally)
+        for k in tally:
+            tally[k] = 0
+        return got
+
+    def restore():
+        eng._program_many = run_program
+
+    eng._program_many = tallied
+    return take, restore
+
+
+def unigram_path(torch, stats, counts, numbers):
+    """Phase 10, the Unigram path: no kernel of `csrc/` runs on it (the JAX
+    package computes it in plain XLA, the port in torch ops), and every
+    B1-B4 launch count must stay 0 over the whole phase.  Builds both
+    fixtures (tables timed); with unigram `encode_batch_fast` on the 512
+    8 KB documents cold and cached, on the long documents (a) cold with a
+    new tokenizer (an empty word cache), and `encode_batch` on the 8 KB
+    documents; with unigram_bf `encode_batch_fast` cold and `encode_batch`;
+    every document against its committed digest, byte offsets on 64
+    documents against the host path; one more cold pass with CUDA events
+    around the program and the unique encoder's forward scan and
+    backtrack.  Adds each kernel's `unigram_path_launches` to `stats` and
+    a numbers line per fixture to `numbers`."""
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.ops import unigram_dedup
+    from tokenizers_tpu_torch.ops.unigram_engine import UnigramEngine
+    from tokenizers_tpu_torch.smoke_data import build_docs, load_digests, long_parts
+
+    for c in counts.values():
+        for k in c:
+            c[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    docs = build_docs()
+    long_docs = long_parts()["long"]
+    nbytes = sum(len(d.encode("utf-8")) for d in docs)
+    long_bytes = sum(len(d.encode("utf-8")) for d in long_docs)
+    every = []
+
+    def build(path):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok = Tokenizer.from_file(path)
+        eng = tok._get_device_engine()
+        torch.cuda.synchronize()
+        if not isinstance(eng, UnigramEngine):
+            raise SystemExit(f"{path}: the device engine is {type(eng).__name__}")
+        return tok, eng, time.perf_counter() - t
+
+    def fast(tok, eng, part, name, digests, passes):
+        take, restore = patch_tally(eng)
+        out = {}
+        try:
+            for run in passes:
+                r = drive_path(torch, tok, part, name, counts, digests, passes=(run,))[run]
+                size = long_bytes if part is long_docs else nbytes
+                out[run] = {
+                    "e2e_MBps": size / r["secs"] / 1e6, "secs": r["secs"],
+                    "program_s": r["program_s"], "host_s": r["secs"] - r["program_s"],
+                    "bad_row_fraction": r["bad_row_fraction"], "bad_rows": r["bad_rows"],
+                    "host_pre_inputs": r["host_pre_inputs"],
+                    "patched_words": r["patched_words"], **take()}
+                every.append(r["launches"])
+        finally:
+            restore()
+        return out
+
+    def offsets(tok, name):
+        r = offsets_run(torch, tok, docs, name, counts, load_digests(f"{name}_offsets"),
+                        byte_sample=64)
+        every.append(r["launches"])
+        return {k: r[k] for k in ("MBps", "secs", "program_s", "host_encode_s",
+                                  "bad_row_fraction", "bad_rows", "host_pre_inputs",
+                                  "byte_offsets_checked")}
+
+    tok, eng, tables_s = build(UNIGRAM)
+    runs = fast(tok, eng, docs, "unigram", load_digests("unigram"), ("cold", "cached"))
+    tok_long, eng_long, _ = build(UNIGRAM)
+    runs_long = fast(tok_long, eng_long, long_docs, "unigram_long",
+                     load_digests("unigram_long"), ("cold",))
+    offs = offsets(tok, "unigram")
+    tok_bf, eng_bf, tables_bf_s = build(UNIGRAM_BF)
+    runs_bf = fast(tok_bf, eng_bf, docs, "unigram_bf", load_digests("unigram_bf"), ("cold",))
+    offs_bf = offsets(tok_bf, "unigram_bf")
+
+    # one more cold pass: CUDA events around the program and around the
+    # unique encoder's forward scan and backtrack
+    enc_events, prog_events = [], []
+    base = (unigram_dedup.forward_dp, unigram_dedup.backtrack)
+    run_program = eng._program_many
+
+    def events(fn, into, name):
+        def run(*a):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a)
+            e1.record()
+            into.append((name, e0, e1))
+            return out
+        return run
+
+    unigram_dedup.forward_dp = events(base[0], enc_events, "forward")
+    unigram_dedup.backtrack = events(base[1], enc_events, "backtrack")
+    eng._program_many = events(run_program, prog_events, "program")
+    eng._wc = None  # an empty word cache: a cold pass
+    try:
+        tok.encode_batch_fast(docs)
+    finally:
+        unigram_dedup.forward_dp, unigram_dedup.backtrack = base
+        eng._program_many = run_program
+    torch.cuda.synchronize()
+    prog_ms = sum(a.elapsed_time(b) for _n, a, b in prog_events)
+    fwd_ms = sum(a.elapsed_time(b) for n, a, b in enc_events if n == "forward")
+    bt_ms = sum(a.elapsed_time(b) for n, a, b in enc_events if n == "backtrack")
+
+    launches = {k: c[k] for k, c in counts.items()}  # the whole phase
+    if any(n for ls in [launches] + every for n in ls.values()):
+        raise SystemExit(f"unigram: a kernel of csrc/ launched on the Unigram path: "
+                         f"{[launches] + every}")
+    numbers["unigram"] = {
+        "config": "unigram", "docs": len(docs), "bytes": nbytes,
+        "tables_s": tables_s, **{f"{run}_{k}": v for run, r in runs.items()
+                                 for k, v in r.items()},
+        "long_docs": len(long_docs), "long_bytes": long_bytes,
+        **{f"long_cold_{k}": v for k, v in runs_long["cold"].items()},
+        **{f"offsets_{k}": v for k, v in offs.items()},
+        "cold_event_program_ms": prog_ms, "cold_forward_scan_ms": fwd_ms,
+        "cold_backtrack_ms": bt_ms, "dp_share_of_program": (fwd_ms + bt_ms) / prog_ms,
+        "encoder_calls": len(enc_events) // 2,
+        "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "phase_launches": launches,
+        "digests_matched": 2 * len(docs) + len(long_docs),
+        "offsets_digests_matched": len(docs),
+    }
+    numbers["unigram_bf"] = {
+        "config": "unigram_bf", "docs": len(docs), "bytes": nbytes, "tables_s": tables_bf_s,
+        **{f"cold_{k}": v for k, v in runs_bf["cold"].items()},
+        **{f"offsets_{k}": v for k, v in offs_bf.items()},
+        "digests_matched": len(docs), "offsets_digests_matched": len(docs),
+    }
+    for name in ("unigram", "unigram_bf"):
+        print("numbers " + json.dumps(numbers[name]), flush=True)
+    for k, s_ in stats.items():
+        s_["unigram_path_launches"] = launches[k]
+
+
 def char_level_path(torch, stats, counts, numbers):
     """Phase 10, the WordLevel and char-level BPE paths: the tokenizers of
     CHAR_LEVEL built (tables timed), `encode_batch_fast` cold on the 8 KB
@@ -1189,6 +1374,9 @@ def main() -> int:
     # ---- 9. the WordLevel and char-level BPE paths -----------------------------
     char_level_path(torch, stats, counts, numbers)
 
+    # ---- 10. the Unigram path ------------------------------------------------
+    unigram_path(torch, stats, counts, numbers)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -1223,6 +1411,7 @@ def main() -> int:
          "offsets_path_launches": s["offsets_path_launches"],
          "offsets_path_shapes": s["offsets_path_shapes"],
          "bert_path_launches": s["bert_path_launches"],
+         "unigram_path_launches": s["unigram_path_launches"],
          "char_level_launches": s["char_level_launches"],
          "char_level_shapes": s["char_level_shapes"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],

@@ -1,8 +1,8 @@
 """The port stands alone: importing it and running one encode loads no
 module of JAX, `regex`, the `tokenizers` wheel or `tokenizers_tpu` (with
 and without offsets, the host path included, for the gpt2, llama3,
-bert, WordLevel and char-level BPE pipelines), and no source file of the
-package imports them."""
+bert, WordLevel, char-level BPE and Unigram pipelines), and no source
+file of the package imports them."""
 
 import os
 import re
@@ -41,6 +41,14 @@ for name, engine in (("wordlevel", "WordLevelEngine"), ("char_bpe", "CharBpeEngi
     encs = tok.encode_batch(texts)
     assert [e.ids for e in encs] == fast and all(fast), (name, fast)
     assert encs[0].offsets[-1][1] == len(texts[0].rstrip()), (name, encs[0].offsets)
+for name in ("unigram", "unigram_bf"):
+    tok = Tokenizer.from_str(config_json(name), device="cpu")
+    assert type(tok._get_device_engine()).__name__ == "UnigramEngine", name
+    texts = ["Hello  world!\t café ☃ 'Ve'll....", "日本語 x" * 3, "x<unk>y", "x" * 200]
+    fast = [e.ids for e in tok.encode_batch_fast(texts)]
+    encs = tok.encode_batch(texts)
+    assert [e.ids for e in encs] == fast and all(fast), (name, fast)
+    assert encs[2].ids[1] == 0 and encs[0].offsets[-1][1] == len(texts[0]), (name, encs[0].offsets)
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

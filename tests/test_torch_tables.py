@@ -3,8 +3,9 @@ their references: the two-stage class table from the JAX package's
 `char_class_tables()`, the per-document gpt2 and llama3_128k digests that
 chip_smoke.py checks from the `tokenizers` wheel on the same documents
 (the 8 KB ones and those of the long-document phase; ids, and for the
-offsets phase ids, char offsets and word ids; bert's too, and those of
-the char-level phase's frozen tokenizers), the committed WordLevel class
+offsets phase ids, char offsets and word ids; bert's too, those of
+the char-level phase's frozen tokenizers and of the Unigram fixtures),
+the committed WordLevel class
 tables from the JAX package's `wordlevel_class_tables()`,
 and the engine's tables (gpt2, and llama3 with its whole-word table) from
 the JAX engine's `_program_args()`, array for array."""
@@ -58,6 +59,21 @@ def test_char_level_digests_match_wheel(name):
 
 @pytest.mark.parametrize("config", ["char_bpe", "sp_bpe", "wordlevel"])
 def test_char_level_offsets_digests_match_wheel(config):
+    encs = WheelTokenizer.from_str(config_json(config)).encode_batch(
+        build_docs(), add_special_tokens=True)
+    assert [offsets_digest(e) for e in encs] == load_digests(f"{config}_offsets")
+
+
+@pytest.mark.parametrize("name", ["unigram", "unigram_bf", "unigram_long"])
+def test_unigram_digests_match_wheel(name):
+    docs = long_parts()["long"] if name.endswith("_long") else build_docs()
+    encs = WheelTokenizer.from_str(config_json(name.replace("_long", ""))).encode_batch_fast(
+        docs, add_special_tokens=True)
+    assert [ids_digest(e.ids) for e in encs] == load_digests(name)
+
+
+@pytest.mark.parametrize("config", ["unigram", "unigram_bf"])
+def test_unigram_offsets_digests_match_wheel(config):
     encs = WheelTokenizer.from_str(config_json(config)).encode_batch(
         build_docs(), add_special_tokens=True)
     assert [offsets_digest(e) for e in encs] == load_digests(f"{config}_offsets")

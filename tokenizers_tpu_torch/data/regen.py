@@ -27,6 +27,11 @@
   the 8 KB documents for each and for `smoke_data.spm_bf_json()`, of the
   long documents (a) for sp_bpe, and offsets digests of the 8 KB
   documents for the three files) follow the files.
+* `unigram_digests.json`, `unigram_bf_digests.json` (ids of the 8 KB
+  documents), `unigram_long_digests.json` (the long documents (a)) and
+  `unigram_offsets_digests.json`, `unigram_bf_offsets_digests.json`
+  (offsets digests of the 8 KB documents), on the fixtures of
+  `smoke_data.UNIGRAM_CONFIGS`.
 
 Both references are optional dependencies: they are imported by name here
 only, so the package itself never needs them.
@@ -52,7 +57,7 @@ from ..ops.unicode_tables import (
 )
 from ..ops.wordlevel_encode import class_table_path
 from ..smoke_data import (
-    CHAR_CONFIGS, CONFIGS, CORPUS, build_docs, config_json, digests_path, ids_digest,
+    CHAR_CONFIGS, CONFIGS, CORPUS, UNIGRAM_CONFIGS, build_docs, config_json, digests_path, ids_digest,
     long_parts, offsets_digest,
 )
 
@@ -151,11 +156,13 @@ def main():
         np.savez_compressed(class_table_path(kind), s1=s1, s2=s2)
         print("wrote", class_table_path(kind), os.path.getsize(class_table_path(kind)), "bytes")
     train_char_configs("--retrain" in sys.argv)
-    digests = {config: wheel_digests(config) for config in (*CONFIGS, *CHAR_CONFIGS, "spm_bf")}
+    digests = {config: wheel_digests(config)
+               for config in (*CONFIGS, *CHAR_CONFIGS, "spm_bf", *UNIGRAM_CONFIGS)}
     digests["sp_bpe_long"] = wheel_digests("sp_bpe", long_parts()["long"])
     digests["gpt2_long"] = wheel_digests("gpt2", sum(long_parts().values(), []))
     digests["bert_long"] = wheel_digests("bert", long_parts()["long"])
-    for config in (*CONFIGS, *CHAR_CONFIGS):
+    digests["unigram_long"] = wheel_digests("unigram", long_parts()["long"])
+    for config in (*CONFIGS, *CHAR_CONFIGS, *UNIGRAM_CONFIGS):
         digests[f"{config}_offsets"] = wheel_offsets_digests(config)
     for config in ("gpt2", "bert"):
         digests[f"{config}_long_offsets"] = wheel_offsets_digests(config, long_parts()["long"])

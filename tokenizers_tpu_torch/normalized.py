@@ -16,6 +16,7 @@ All ranges here are byte offsets.
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Iterable, List, Optional, Tuple
 
 from . import unicode_norm as _un
@@ -155,28 +156,50 @@ class NormalizedString:
                         for i, lc in enumerate(c.lower())])
         return self
 
-    def replace(self, pattern: str, content: str) -> "NormalizedString":
-        """Replace every match of the literal `pattern` by `content`
-        (reference `normalizer.rs:571`): the content's chars are
-        insertions that take the alignment of the match's last byte.
-        Matched on the UTF-8 bytes (a valid pattern only matches whole
-        chars), with the alignments spliced by slices."""
-        if not pattern:
+    def map(self, f: Callable[[str], str]) -> "NormalizedString":
+        """Each char replaced by the one char `f` gives; it takes the
+        alignment of the char it replaces (reference `normalizer.rs:522`)."""
+        al, out, out_al, p = self.alignments, [], [], 0
+        for c in self.normalized:
+            m = f(c)
+            out.append(m)
+            out_al.extend([al[p]] * utf8_len(m))
+            p += utf8_len(c)
+        self.normalized, self.alignments = "".join(out), out_al
+        return self
+
+    def replace(self, pattern, content: str) -> "NormalizedString":
+        """Replace every match of `pattern` by `content` (reference
+        `normalizer.rs:571`): the content's chars are insertions that take
+        the alignment of the match's last byte.  `pattern` is a literal
+        string or a compiled bytes regex; either is matched on the UTF-8
+        bytes (a valid literal only matches whole chars; the port's one
+        regex, `" {2,}"`, only spaces), with the alignments spliced by
+        slices."""
+        nb = self.normalized.encode("utf-8")
+        if isinstance(pattern, re.Pattern):
+            spans = [m.span() for m in pattern.finditer(nb)]
+        elif pattern:
+            pb, spans = pattern.encode("utf-8"), []
+            start = nb.find(pb)
+            while start >= 0:
+                spans.append((start, start + len(pb)))
+                start = nb.find(pb, start + len(pb))
+        else:
             return self
-        nb, pb = self.normalized.encode("utf-8"), pattern.encode("utf-8")
-        n_content = len(content.encode("utf-8"))
-        al, out = self.alignments, []
-        pos, start = 0, nb.find(pb)
-        if start < 0:
+        if not spans:
             return self
-        while start >= 0:
-            end = start + len(pb)
+        cb = content.encode("utf-8")
+        al, out, parts, pos = self.alignments, [], [], 0
+        for start, end in spans:
             out.extend(al[pos:start])
-            out.extend([al[end - 1]] * n_content)
-            pos, start = end, nb.find(pb, end)
+            out.extend([al[end - 1]] * len(cb))
+            parts += [nb[pos:start], cb]
+            pos = end
         out.extend(al[pos:])
+        parts.append(nb[pos:])
         self.alignments = out
-        self.normalized = self.normalized.replace(pattern, content)
+        self.normalized = b"".join(parts).decode("utf-8")
         return self
 
     def prepend(self, s: str) -> "NormalizedString":

@@ -144,12 +144,15 @@ def word_hash_heads(b, bnd, inb, mult):
 
 
 def dedup_layout(b, bnd, inb, lengths, nxt_bnd, seed, geom, cache=None,
-                 hashes=None):
+                 hashes=None, max_wlen=None):
     """Word records, representative election, unique-buffer layout.
 
     `cache`: optional (cache_rows [Sc, 4], reset bool); cached words are
     kept out of the merge buffer.  `hashes`: the head-delivered word hashes
-    when the layout kernel already made them.
+    when the layout kernel already made them.  `max_wlen`: words longer
+    than this stay out of the unique buffer and never hit the cache; they
+    get no device tokens and become patch records (`dedup_finish`'s
+    `patch_cap`), so one long word does not send its row to the host.
 
     Returns (fits, ops), `ops` the operand tuple of `dedup_finish`."""
     nw_cap, wc, uc, uceff, ru = geom
@@ -217,7 +220,9 @@ def dedup_layout(b, bnd, inb, lengths, nxt_bnd, seed, geom, cache=None,
         ct0 = crow[..., 2]
         ccnt = crow[..., 3]
 
-    in_buf = is_rep & ~hit  # uncached representatives get merged
+    long_w = wvalid & (wlen_w > max_wlen) if max_wlen is not None else torch.zeros_like(wvalid)
+    hit = hit & ~long_w
+    in_buf = is_rep & ~hit & ~long_w  # uncached representatives get merged
     ulen = torch.where(in_buf, wlen_w, 0)
     uoff = g_excl_cumsum(ulen)
     total_u = int(ulen.sum())
@@ -307,7 +312,8 @@ def whole_word_ids(ids0, head, inb, wh1, wh2, wlen, ww_rows0, ww_rows1, ww_seed)
 
 def dedup_finish(ops, b, byte2id, rows0, rows1, seed, mclr, out_w, geom,
                  cache_state=None, encode_fn=None, ladder_depth=2,
-                 whole_word=False, ww_rows0=None, ww_rows1=None, ww_seed=0):
+                 whole_word=False, ww_rows0=None, ww_rows1=None, ww_seed=0,
+                 max_wlen=None, patch_cap=0):
     """The fast branch: encode unique words, expand to per-row output.
 
     `cache_state`: the `WordCache`, already epoch-reset by the caller;
@@ -315,8 +321,10 @@ def dedup_finish(ops, b, byte2id, rows0, rows1, seed, mclr, out_w, geom,
     upos_f) -> (ids, wid2, bad)`: another per-unique-word encoder over the
     unique buffer (default: the byte-level BPE merge).  `whole_word`: the
     `ignore_merges` bypass over the unique buffer (`whole_word_ids`).
+    `max_wlen`, `patch_cap`: as in `_finish_expand`.
 
-    Returns (ids[B, out_w], ntok[B], row_bad[B])."""
+    Returns (ids[B, out_w], ntok[B], row_bad[B]), and with `patch_cap`
+    also (patch_tab int32[patch_cap, 5], n_patch int)."""
     nw_cap, wc, uc, uceff, ru = geom
     total_u = ops[3]
     b_u, uhead, inb_u, wid_u, wend_f, upos_f = unique_buffer(ops, b, geom)
@@ -355,13 +363,21 @@ def dedup_finish(ops, b, byte2id, rows0, rows1, seed, mclr, out_w, geom,
         # row's positions so only input rows with words there fall back
         bad_m = bad[:, None].expand(ids_u.shape)
     return _finish_expand(ids_u, wid_u2, bad_m, ops, geom, b.shape, out_w,
-                          cache_state)
+                          cache_state, max_wlen=max_wlen, patch_cap=patch_cap)
 
 
 def _finish_expand(ids_u, wid_u2, bad_m, ops, geom, b_shape, out_w,
-                   cache_state):
+                   cache_state, max_wlen=None, patch_cap=0):
     """Per-unique-word token counts, token storage (batch-local or the
-    persistent cache), and the routed per-input-row packed output."""
+    persistent cache), and the routed per-input-row packed output.
+
+    `patch_cap` > 0: flagged words (the encoder's per-word flags, words
+    over `max_wlen`, dropped words) become per-word patch records instead
+    of sending their rows to the host: (row, col, wlen, tok_off, tok_cnt)
+    in word-table order, the first `patch_cap` of them, and their count
+    n_patch.  The host re-encodes each word and splices its ids at
+    tok_off in place of the device's tok_cnt tokens.  Rows become
+    row_bad from word flags only when n_patch > patch_cap."""
     nw_cap, wc, uc, uceff, ru = geom
     wr = nw_cap // wc
     (rep, in_buf, uoff, total_u, wpos_w, wlen_w, wvalid, nw, hit, ct0, ccnt,
@@ -453,6 +469,13 @@ def _finish_expand(ids_u, wid_u2, bad_m, ops, geom, b_shape, out_w,
         _insert_last_wins(crows, cslot, ins_ok, rowvals)
         cache_state.p = p + (new_tok if ok_ins else 0)
 
+    if max_wlen is not None:
+        # long words never entered the unique buffer: no device tokens,
+        # always flagged (their rep-derived counts are another word's)
+        long_w = wvalid & (wlen_w > max_wlen)
+        k_w = torch.where(long_w, 0, k_w)
+        wbad_w = wbad_w | long_w
+
     roww = torch.where(wvalid, wpos_w // L, B)
     roww_f = roww.reshape(-1)
     prevw = torch.cat([roww_f.new_full((1,), -1), roww_f[:-1]]).reshape(wr, wc)
@@ -493,8 +516,21 @@ def _finish_expand(ids_u, wid_u2, bad_m, ops, geom, b_shape, out_w,
     row_over = ntok > out_w
     any_bad = False if word_level_bad else bool(bad_m.any())
     ntok = torch.where(row_over, 0, ntok)
-    row_bad = row_over | any_bad | (tie_rows > 0)
-    return ids_out, ntok, row_bad
+    row_bad = row_over | any_bad
+    if not patch_cap:
+        return ids_out, ntok, row_bad | (tie_rows > 0)
+    # flagged words -> patch records; only a table overflow sends their
+    # rows to the host
+    rank = g_excl_cumsum(wbad_w.to(torch.int32))
+    nflag = int(wbad_w.sum())
+    col_w = wpos_w - torch.where(wvalid, wpos_w // L, 0) * L
+    recs = torch.stack([roww, col_w, wlen_w, ooff, k_w], -1)
+    sel = wbad_w & (rank < patch_cap)
+    patch_tab = torch.zeros((patch_cap, 5), dtype=torch.int32, device=dev)
+    patch_tab[rank[sel].to(torch.int64)] = recs[sel].to(torch.int32)
+    if nflag > patch_cap:
+        row_bad = row_bad | (tie_rows > 0)
+    return ids_out, ntok, row_bad, patch_tab, nflag
 
 
 def _insert_last_wins(crows, cslot, ins_ok, rowvals):

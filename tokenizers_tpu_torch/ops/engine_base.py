@@ -347,7 +347,7 @@ class DeviceEngineBase:
                     en = np.where(en > st, a[np.clip(en - 1, 0, len(a) - 1), 1], st0)
                     st = st0
                 idl = ids.tolist()
-                enc = Encoding(ids=idl, tokens=self._token_strings(idl),
+                enc = Encoding(ids=idl, tokens=self._token_strings(idl, inputs[i], st, en),
                                words=wd.tolist(),
                                offsets=map_offsets(inputs[i], st, en, kind,
                                                    "char" if chars else "byte"))
@@ -360,7 +360,10 @@ class DeviceEngineBase:
                                                       offsets=kind)
         return encodings
 
-    def _token_strings(self, ids):
+    def _token_strings(self, ids, text=None, st=None, en=None):
+        """Token strings of `ids`; `st`, `en`: the tokens' spans in `text`
+        (chars in the "original_chars" space), for engines whose token
+        strings depend on the text (Unigram's unk)."""
         vr = self.tokenizer.model.vocab_r
         return [vr[t] for t in ids]
 
@@ -373,7 +376,9 @@ class DeviceEngineBase:
         the host: a flagged row's ids are not the input's (the caller
         re-encodes it; the JAX package's version returns no flags).  The
         rows of an input holding an added token are flagged too: the
-        program encodes it as plain bytes.  An input that `_pieces` cannot
+        program encodes it as plain bytes; so are rows with per-word patch
+        records (Unigram), which lack the host's ids of those words.  An
+        input that `_pieces` cannot
         cut into the program's pieces raises ValueError."""
         added = list(self.tokenizer.added)
         byte_strings: List[bytes] = []
@@ -394,6 +399,12 @@ class DeviceEngineBase:
         for (_buf, _lens, orig), res in zip(chunks, self._program_many(chunks)):
             row_owners = [owners[j] for j in orig]
             row_bad = res[2]
+            if len(res) > 3 and res[3] is not None:
+                # rows with patch records lack the host's ids of those words
+                ptab, nflag = res[3]
+                patched = torch.zeros_like(row_bad)
+                patched[ptab[:min(int(nflag), ptab.shape[0]), 0].to(torch.int64)] = True
+                row_bad = row_bad | patched
             if any(host[i] for i, _k in row_owners):
                 # the chunk may hold padding rows past the owned ones
                 flags = [host[i] for i, _k in row_owners]

@@ -34,8 +34,12 @@ those of the `long_parts()` documents, in order, on gpt2, and
 The `*_offsets_digests.json` files hold, per document, the SHA-256 of what
 the wheel's `encode_batch` gives: ids, char offsets and word ids
 (`offsets_digest`), for the 8 KB documents and, on gpt2 and bert, the
-long documents (a) (`python -m tokenizers_tpu_torch.data.regen` writes
-them all; `tests/test_torch_tables.py` re-derives them).
+long documents (a).  `UNIGRAM_CONFIGS` are the fixtures of the Unigram
+phase: `data/unigram_digests.json`, `unigram_long_digests.json` (the
+long documents (a)), `unigram_offsets_digests.json`,
+`unigram_bf_digests.json` and `unigram_bf_offsets_digests.json`
+(`python -m tokenizers_tpu_torch.data.regen` writes them all;
+`tests/test_torch_tables.py` re-derives them).
 
 `first_ascii_chunk` and `unique_state` give the merge loop's first state
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
@@ -77,6 +81,12 @@ CHAR_CONFIGS = {
     "char_bpe": os.path.join(DATA, "char_bpe.json"),
     "sp_bpe": os.path.join(DATA, "sp_bpe.json"),
     "wordlevel": os.path.join(DATA, "wordlevel.json"),
+}
+# the Unigram phase's tokenizers: the repo's fixtures (xlnet style, the
+# reference's `unigram_benchmark.rs` config; and with byte fallback)
+UNIGRAM_CONFIGS = {
+    "unigram": os.path.join(REPO, "tests", "fixtures", "unigram", "tokenizer.json"),
+    "unigram_bf": os.path.join(REPO, "tests", "fixtures", "unigram_bf", "tokenizer.json"),
 }
 DOC_BYTES = 8 * 1024
 TARGET_BYTES = 4 << 20
@@ -160,11 +170,11 @@ def spm_bf_json() -> str:
 
 
 def config_json(config: str) -> str:
-    """The tokenizer.json text of a config of CONFIGS, CHAR_CONFIGS or
-    "spm_bf"."""
+    """The tokenizer.json text of a config of CONFIGS, CHAR_CONFIGS,
+    UNIGRAM_CONFIGS or "spm_bf"."""
     if config == "spm_bf":
         return spm_bf_json()
-    with open({**CONFIGS, **CHAR_CONFIGS}[config], encoding="utf-8") as f:
+    with open({**CONFIGS, **CHAR_CONFIGS, **UNIGRAM_CONFIGS}[config], encoding="utf-8") as f:
         return f.read()
 
 

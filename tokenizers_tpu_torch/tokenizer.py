@@ -25,7 +25,18 @@ tokens:
   TemplateProcessing (or none) and the BPEDecoder or Metaspace decoder
   (or none); added tokens `normalized: false`.  This covers the
   `CharBPETokenizer`, `SentencePieceBPETokenizer` and WordLevel recipes
-  and the Llama-2 SPM shape.
+  and the Llama-2 SPM shape;
+* Unigram (`tests/fixtures/unigram`, `unigram_bf`: an unk id, with or
+  without `byte_fallback`) with no normalizer or one of
+  `normalizers.from_json`, Nmt and the `" {2,}"` regex Replace among
+  them (the fixtures' Sequence; these two are admitted in this pipeline
+  only), Metaspace (replacement `▁`, prepend scheme "always", split), no
+  post-processor or a single-sequence TemplateProcessing and the
+  Metaspace decoder (or none); added tokens `normalized: false`.
+
+Floats are parsed as the wheel's serde_json parses them
+(`utils.serde_float.serde_f64`): Unigram's Viterbi ties turn on the last
+ulp of its scores.
 
 Decoders are held, not run: decode is not ported.  Anything else raises
 `NotImplementedError` naming the later slice of the port that brings it.
@@ -48,9 +59,12 @@ from typing import Iterable, List, Optional, Union
 from . import pick_device
 from .encoding import Encoding
 from .models.bpe import BPE
+from .models.unigram import Unigram
 from .models.wordlevel import WordLevel
 from .models.wordpiece import WordPiece, WordPieceDecoder
 from .normalized import NormalizedString, char_to_byte_offsets
+from .normalizers import Nmt, Replace
+from .normalizers import Sequence as NormalizerSequence
 from .normalizers import from_json as normalizer_from_json
 from .normalizers.bert import BertNormalizer
 from .pre_tokenizers.bert import BertPreTokenizer
@@ -59,6 +73,7 @@ from .pre_tokenizers.metaspace import Metaspace
 from .pre_tokenizers.split import LLAMA3_PATTERN, Sequence, Split
 from .pre_tokenizers.whitespace import Whitespace, WhitespaceSplit
 from .processors.template import TemplateProcessing
+from .utils.serde_float import serde_f64
 
 _BYTE_LEVEL_KEYS = {"type", "add_prefix_space", "trim_offsets", "use_regex"}
 _BERT_NORMALIZER_KEYS = {"type", "clean_text", "handle_chinese_chars", "strip_accents",
@@ -71,6 +86,7 @@ _CHAR_BPE_KEYS = {"type", "dropout", "unk_token", "continuing_subword_prefix",
 _CLASS_SPLITS = {"Whitespace": Whitespace, "WhitespaceSplit": WhitespaceSplit,
                  "BertPreTokenizer": BertPreTokenizer}
 _METASPACE_KEYS = {"type", "replacement", "prepend_scheme", "split"}
+_UNIGRAM_KEYS = {"type", "unk_id", "vocab", "byte_fallback"}
 
 
 class HeldDecoder:
@@ -177,8 +193,8 @@ def _merges(d: dict):
 
 def _load_aligned(d: dict):
     """(normalizer, pre-tokenizer, model, post-processor, decoder) of a
-    WordLevel or char-level BPE pipeline, whose offsets map through the
-    normalizer's alignments."""
+    WordLevel, char-level BPE or Unigram pipeline, whose host offsets map
+    through the normalizer's alignments."""
     nz = d.get("normalizer")
     normalizer = None if nz is None else normalizer_from_json(nz)
     pt_d, m = d.get("pre_tokenizer"), d["model"]
@@ -193,7 +209,15 @@ def _load_aligned(d: dict):
         pt = Metaspace(pt_d.get("prepend_scheme", "always"))
     else:
         _unsupported(f"pre-tokenizer {pt_d.get('type')!r} with these options", "a later slice")
-    if m.get("type") == "WordLevel":
+    if m.get("type") == "Unigram":
+        if set(m) - _UNIGRAM_KEYS or m.get("unk_id") is None:
+            _unsupported("Unigram without an unk id or with these options", "a later slice")
+        if not (isinstance(pt, Metaspace) and pt.prepend_scheme == "always"):
+            _unsupported("Unigram without the Metaspace pre-tokenizer (prepend scheme "
+                         "'always')", "a later slice")
+        model = Unigram([(t, s) for t, s in m.get("vocab", [])], unk_id=int(m["unk_id"]),
+                        byte_fallback=bool(m.get("byte_fallback", False)))
+    elif m.get("type") == "WordLevel":
         if set(m) - {"type", "vocab", "unk_token"} or not isinstance(
                 pt, (Whitespace, WhitespaceSplit, BertPreTokenizer)):
             _unsupported("WordLevel with these options or this pre-tokenizer", "a later slice")
@@ -221,8 +245,17 @@ def _load_aligned(d: dict):
             or (dec.get("type") == "Metaspace" and set(dec) <= _METASPACE_KEYS)):
         _unsupported(f"decoder {dec.get('type')!r} in a WordLevel or char-level BPE "
                      f"pipeline", "a later slice")
+    if not isinstance(model, Unigram) and _unigram_only(normalizer):
+        _unsupported("Nmt or a regex Replace outside the Unigram pipeline", "a later slice")
     return (normalizer, pt, model, _load_post_processor(pp, True),
             None if dec is None else HeldDecoder(dec))
+
+
+def _unigram_only(normalizer) -> bool:
+    """Whether `normalizer` holds Nmt or a regex Replace: ported with the
+    Unigram pipeline and held against the wheel only there."""
+    parts = normalizer.normalizers if isinstance(normalizer, NormalizerSequence) else [normalizer]
+    return any(isinstance(n, Nmt) or (isinstance(n, Replace) and n.regex) for n in parts)
 
 
 def _load_post_processor(d: Optional[dict], template_ok: bool):
@@ -238,14 +271,14 @@ def _load_post_processor(d: Optional[dict], template_ok: bool):
 
 
 class Tokenizer:
-    def __init__(self, model: Union[BPE, WordPiece, WordLevel], pre_tokenizer,
+    def __init__(self, model: Union[BPE, WordPiece, WordLevel, Unigram], pre_tokenizer,
                  added_tokens: Iterable[dict] = (),
                  post_processor: Union[ByteLevel, TemplateProcessing, None] = None,
                  decoder: Union[ByteLevel, WordPieceDecoder, HeldDecoder, None] = None,
                  device=None, normalizer=None):
         self.model = model
-        # WordLevel and char-level BPE: offsets through the alignments
-        self.aligned = isinstance(model, WordLevel) or (
+        # WordLevel, char-level BPE and Unigram: offsets through the alignments
+        self.aligned = isinstance(model, (WordLevel, Unigram)) or (
             isinstance(model, BPE) and not isinstance(pre_tokenizer, (ByteLevel, Sequence)))
         self.normalizer = normalizer
         self.pre_tokenizer = pre_tokenizer
@@ -262,12 +295,12 @@ class Tokenizer:
 
     @classmethod
     def from_str(cls, s: str, device=None) -> "Tokenizer":
-        d = json.loads(s)
+        d = json.loads(s, parse_float=serde_f64)
         pt_d = d.get("pre_tokenizer")
         pt_type = None if pt_d is None else pt_d.get("type")
         m_type = d["model"].get("type", "BPE")
         bert = pt_type == "BertPreTokenizer" and m_type == "WordPiece"
-        aligned = m_type == "WordLevel" or (m_type == "BPE" and pt_type in (
+        aligned = m_type in ("WordLevel", "Unigram") or (m_type == "BPE" and pt_type in (
             None, "Whitespace", "WhitespaceSplit", "BertPreTokenizer", "Metaspace"))
         nz_d = d.get("normalizer")
         if nz_d is not None and not (bert or aligned):
@@ -405,7 +438,7 @@ class Tokenizer:
             piece = text[pos : m.start() if m else len(text)]
             if piece and self.aligned:
                 for word in self._aligned_word_spans(piece, pos == 0):
-                    ids.extend(t for t, _s, _e in word)
+                    ids.extend(t[0] for t in word)
             elif piece:
                 if self.normalizer is not None:
                     piece = self.normalizer.normalize_chars(piece)[0]
@@ -417,11 +450,13 @@ class Tokenizer:
         return self.post_process(Encoding(ids=ids), add_special_tokens)
 
     def _aligned_word_spans(self, piece: str, first: bool):
-        """`_word_spans` of the WordLevel and char-level BPE pipelines: the
-        normalizer (and Metaspace's replacement and prepend; `first`: the
-        piece starts the text) on a NormalizedString, the pre-tokenizer's
-        words in its text, each token's byte span in its word mapped to the
-        piece's original bytes through the alignments."""
+        """`_word_spans` of the WordLevel, char-level BPE and Unigram
+        pipelines: the normalizer (and Metaspace's replacement and prepend;
+        `first`: the piece starts the text) on a NormalizedString, the
+        pre-tokenizer's words in its text, each token's byte span in its
+        word mapped to the piece's original bytes through the alignments.
+        A Unigram token also carries its string (an unk token's is the text
+        it covers)."""
         ns = NormalizedString(piece)
         if self.normalizer is not None:
             self.normalizer.normalize(ns)
@@ -436,8 +471,8 @@ class Tokenizer:
             spans = [(ws, we) for _w, ws, we in pt.pre_tokenize_spans(text)]
         cb, al = char_to_byte_offsets(text), ns.alignments
         for ws, we in spans:
-            yield [(tid, al[cb[ws] + ts][0], al[cb[ws] + te - 1][1])
-                   for tid, ts, te in self.model.tokenize_spans(text[ws:we])]
+            yield [(t[0], al[cb[ws] + t[1]][0], al[cb[ws] + t[2] - 1][1]) + t[3:]
+                   for t in self.model.tokenize_spans(text[ws:we])]
 
     def _word_spans(self, piece: str, first: bool):
         """Per word of a piece of text between added tokens, (id, start,
@@ -488,8 +523,9 @@ class Tokenizer:
             piece = text[pos : m.start() if m else len(text)]
             if piece:
                 for word in self._word_spans(piece, pos == 0):
-                    for tid, ts, te in word:
-                        add(tid, self.model.vocab_r[tid], base + ts, base + te)
+                    for t in word:
+                        add(t[0], t[3] if len(t) > 3 else self.model.vocab_r[t[0]],
+                            base + t[1], base + t[2])
                     n_words += 1
                 base += size(piece)
             if m:
