@@ -120,7 +120,22 @@
    64 documents against the host path; every B1-B4 count 0 over the
    phase.  One more cold pass times the program and the unique encoder's
    forward scan and backtrack with CUDA events.
-11. Prints a line of numbers per path, the per-kernel JSON line (with each
+11. Training (`train_path`), on no kernel of `csrc/` (torch ops, as the
+   JAX package trains in plain XLA): BPE on `bench.py`'s `train` config
+   (1 MB, vocab 512, the dense whole-loop trainer) and on the whole
+   corpus at 16,000 (the dense trainer's widest count matrix), both
+   against the wheel's merges and vocab digests (`data/
+   train_digests.json`); the SentencePiece BPE recipe at 30,000 through
+   `Tokenizer.train` (the per-round registry trainer), equal to the frozen
+   `data/sp_bpe.json`, whose trained tokenizer then encodes the 8 KB
+   documents against the sp_bpe digests with the frozen one's cold
+   launches; WordPiece at 2,000 against the port's host BpeTrainer;
+   WordLevel against `data/wordlevel.json`.  Every B1-B4 count stays 0
+   over the training runs; each run prints its path, feed, packing and
+   device-loop seconds, merges per second, host reads per merge (counted
+   by the trainer) and host syncs per merge (measured: CUDA sync-debug
+   warnings) and peak memory.
+12. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -138,6 +153,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
@@ -1123,6 +1139,171 @@ def char_level_path(torch, stats, counts, numbers):
         s_["char_level_shapes"] = {key: by.get(k, {}) for key, by in shapes.items()}
 
 
+def train_path(torch, stats, counts, numbers):
+    """Phase 11, BPE, WordPiece and WordLevel training on the card, in
+    torch ops on no kernel of `csrc/` (the JAX package trains in plain
+    XLA): every B1-B4 count must stay 0 over the training runs.  (a)
+    `bench.py`'s `train` config (the first 1 MB of the corpus, its lines'
+    Whitespace words, vocab 512: the dense trainer) and (c) the whole
+    corpus at vocab 16,000 (the dense trainer's widest run: a 16,001 x
+    16,128 count matrix) against the wheel's merges and vocab digests
+    (`data/train_digests.json`); (b) the SentencePieceBPETokenizer recipe
+    (NFKC, Metaspace, `fuse_unk`; vocab 30,000, min_frequency 2,
+    limit_alphabet 1000, `<unk>`: the per-round registry trainer)
+    through `Tokenizer.train` on the corpus, whose vocab and 29,807 merges
+    must equal the frozen `data/sp_bpe.json`, then `encode_batch_fast` of
+    the 8 KB documents with the tokenizer it trained against the sp_bpe
+    digests, with the frozen tokenizer's cold launches (CHAR_COLD); (d)
+    the WordPieceTrainer (`##`) on (a)'s words at vocab 2,000 (dense)
+    against the port's host BpeTrainer with the same prefix in this run;
+    (e) the WordLevelTrainer (host only) on `data/wordlevel.json`'s
+    pipeline against its vocab.  Prints, per run, the path, the seconds of
+    feed, packing and tables and the device loop, merges per second, host
+    reads per merge (counted by the trainer where it reads), host syncs
+    per merge (measured: every synchronizing CUDA call of the run warns
+    under `torch.cuda.set_sync_debug_mode("warn")` and is counted) and
+    peak memory.  Adds each kernel's `train_path_launches` to `stats`."""
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.models.bpe import BPE
+    from tokenizers_tpu_torch.models.wordpiece import WordPiece
+    from tokenizers_tpu_torch.parallel import DistributedBpeTrainer
+    from tokenizers_tpu_torch.pre_tokenizers.whitespace import Whitespace
+    from tokenizers_tpu_torch.smoke_data import (
+        CORPUS, TRAIN_RUNS, build_docs, config_json, load_digests, load_train_digests,
+        merges_digest, recipe_json, train_lines, vocab_digest,
+    )
+    from tokenizers_tpu_torch.trainers import BpeTrainer, WordLevelTrainer, WordPieceTrainer
+
+    def zero():
+        for c in counts.values():
+            for k in c:
+                c[k] = 0
+
+    def read():
+        return {k: c[k] for k, c in counts.items()}
+
+    zero()
+    want = load_train_digests()
+    ws = Whitespace()
+    runs = {}
+
+    def timed(fn):
+        """(seconds, synchronizing CUDA calls) of fn()."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        syncs = [0]
+
+        def count(message, *args, **kwargs):
+            syncs[0] += "synchronizing" in str(message)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = count
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t = time.perf_counter()
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, syncs[0]
+
+    def record(name, trainer, timing, path):
+        st = trainer.stats
+        secs, syncs = timing
+        if st.get("path") != path:
+            raise SystemExit(f"train {name}: path {st.get('path')} (want {path})")
+        merges = st.get("merges")
+        r = {"path": path, "secs": secs, "feed_s": st["feed_s"], "words": st["words"],
+             "prepare_s": st.get("prepare_s"), "pack_and_tables_s": st.get("pack_s"),
+             "device_loop_s": st.get("loop_s", st.get("train_s")), "merges": merges,
+             "merges_per_s": merges / st["loop_s"] if merges else None,
+             "host_reads_per_merge": st["host_reads"] / merges if merges else None,
+             "host_syncs": syncs, "host_syncs_per_merge": syncs / merges if merges else None,
+             "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+             **{k: st[k] for k in ("shape", "words_shape", "v_cap", "v_pad", "p_cap",
+                                   "registry_pairs", "registry_grown", "host_upsert_s",
+                                   "mean_rows_per_round", "packed_rounds", "k_steps")
+                if k in st}}
+        runs[name] = r
+        print("train " + json.dumps({"run": name, **r}), flush=True)
+
+    def against_wheel(name, model):
+        got = {"merges_sha256": merges_digest(model.merges_list),
+               "n_merges": len(model.merges_list), "vocab_sha256": vocab_digest(model.vocab),
+               "vocab_size": len(model.vocab)}
+        if got != want[name]:
+            raise SystemExit(f"train {name}: {got}, the wheel's {want[name]}")
+
+    def bpe_run(name, path):
+        nchars, vocab_size = TRAIN_RUNS[name]
+        trainer = DistributedBpeTrainer(vocab_size=vocab_size)
+        model = BPE({}, [])
+        timing = timed(lambda: (trainer.feed(train_lines(nchars), ws.pre_tokenize),
+                                trainer.train(model)))
+        record(name, trainer, timing, path)
+        against_wheel(name, model)
+
+    # (a) bench.py's train config, on the dense trainer
+    bpe_run("bench_512", "dense")
+
+    # (b) the sp_bpe recipe at full size, on the per-round trainer
+    tok = Tokenizer.from_str(recipe_json("sp_bpe"))
+    trainer = BpeTrainer(vocab_size=30000, min_frequency=2, limit_alphabet=1000,
+                         special_tokens=["<unk>"])
+    record("sp_bpe_30000", trainer, timed(lambda: tok.train([CORPUS], trainer)), "per_round")
+    frozen = json.loads(config_json("sp_bpe"))["model"]
+    merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
+              for m in frozen["merges"]]
+    if (tok.model.vocab, tok.model.merges_list, tok.added) != (frozen["vocab"], merges,
+                                                               {"<unk>": 0}):
+        raise SystemExit(f"train sp_bpe_30000: {len(tok.model.vocab)} vocab entries and "
+                         f"{len(tok.model.merges_list)} merges unlike data/sp_bpe.json's")
+    launches = read()
+    enc = drive_path(torch, tok, build_docs(), "sp_bpe trained", counts, load_digests("sp_bpe"),
+                     passes=("cold",))["cold"]
+    cold = {k: enc["launches"][k] for k in CHAR_COLD["sp_bpe"]}
+    if cold != CHAR_COLD["sp_bpe"]:
+        raise SystemExit(f"the trained sp_bpe's cold launches {cold}, want {CHAR_COLD['sp_bpe']}")
+    runs["sp_bpe_30000"]["encode"] = {"docs_matched": len(build_docs()), "secs": enc["secs"],
+                                      "program_s": enc["program_s"], "launches": enc["launches"]}
+    zero()
+
+    # (c) the dense trainer at its widest
+    bpe_run("corpus_16000", "dense")
+
+    # (d) WordPiece (the ## prefix) on the dense trainer, against the host loop
+    lines = train_lines(TRAIN_RUNS["bench_512"][0])
+    wp = WordPieceTrainer(vocab_size=2000)
+    model = WordPiece({})
+    record("wordpiece_2000", wp, timed(lambda: (wp.feed(lines, ws.pre_tokenize),
+                                                 wp.train(model))), "dense")
+    host = BpeTrainer(vocab_size=2000, continuing_subword_prefix="##", device="cpu")
+    host.feed(lines, ws.pre_tokenize)
+    host_model = BPE({}, [], continuing_subword_prefix="##")
+    t = time.perf_counter()
+    host.do_train_host(host.words, host_model)
+    runs["wordpiece_2000"]["host_loop_s"] = time.perf_counter() - t
+    if model.vocab != host_model.vocab:
+        raise SystemExit("train wordpiece_2000: the vocab differs from the host BpeTrainer's")
+
+    # (e) WordLevel (host only) on data/wordlevel.json's pipeline
+    tok_wl = Tokenizer.from_str(recipe_json("wordlevel"))
+    wl = WordLevelTrainer(vocab_size=30000, special_tokens=["[UNK]"])
+    record("wordlevel_30000", wl, timed(lambda: tok_wl.train([CORPUS], wl)), "host")
+    if tok_wl.model.vocab != json.loads(config_json("wordlevel"))["model"]["vocab"]:
+        raise SystemExit("train wordlevel_30000: the vocab differs from data/wordlevel.json's")
+
+    for k, n in read().items():
+        launches[k] += n
+    if any(launches.values()):
+        raise SystemExit(f"train: a kernel of csrc/ launched while training: {launches}")
+    numbers["train"] = {"runs": runs, "phase_launches": launches}
+    print("numbers " + json.dumps(numbers["train"]), flush=True)
+    for k, s_ in stats.items():
+        s_["train_path_launches"] = launches[k]
+
+
 def stats_launches(runs, k):
     return sum(r["cold"]["launches"][k] for r in runs.values())
 
@@ -1377,6 +1558,9 @@ def main() -> int:
     # ---- 10. the Unigram path ------------------------------------------------
     unigram_path(torch, stats, counts, numbers)
 
+    # ---- 11. training ------------------------------------------------------------
+    train_path(torch, stats, counts, numbers)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -1412,6 +1596,7 @@ def main() -> int:
          "offsets_path_shapes": s["offsets_path_shapes"],
          "bert_path_launches": s["bert_path_launches"],
          "unigram_path_launches": s["unigram_path_launches"],
+         "train_path_launches": s["train_path_launches"],
          "char_level_launches": s["char_level_launches"],
          "char_level_shapes": s["char_level_shapes"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],

@@ -1,8 +1,10 @@
-"""The port stands alone: importing it and running one encode loads no
-module of JAX, `regex`, the `tokenizers` wheel or `tokenizers_tpu` (with
-and without offsets, the host path included, for the gpt2, llama3,
-bert, WordLevel, char-level BPE and Unigram pipelines), and no source
-file of the package imports them."""
+"""The port stands alone: importing it, running one encode and training
+loads no module of JAX, `regex`, the `tokenizers` wheel or
+`tokenizers_tpu` (with and without offsets, the host path included, for
+the gpt2, llama3, bert, WordLevel, char-level BPE and Unigram pipelines;
+BPE training on the dense and the per-round path, WordPiece and WordLevel
+training, `Tokenizer.train_from_iterator`), and no source file of the
+package imports them."""
 
 import os
 import re
@@ -49,6 +51,35 @@ for name in ("unigram", "unigram_bf"):
     encs = tok.encode_batch(texts)
     assert [e.ids for e in encs] == fast and all(fast), (name, fast)
     assert encs[2].ids[1] == 0 and encs[0].offsets[-1][1] == len(texts[0]), (name, encs[0].offsets)
+from tokenizers_tpu_torch.models.bpe import BPE
+from tokenizers_tpu_torch.models.wordpiece import WordPiece
+from tokenizers_tpu_torch.parallel import DistributedBpeTrainer
+from tokenizers_tpu_torch.parallel.bpe_train import train_per_round
+from tokenizers_tpu_torch.smoke_data import recipe_json
+from tokenizers_tpu_torch.trainers import BpeTrainer, WordLevelTrainer, WordPieceTrainer
+lines = ["low lower lowest newer newest wider\\n", "the quick brown fox jumps over the lazy dog\\n",
+         "aaaa abab ababab hugging face tokenizers\\n"] * 3
+tok = Tokenizer.from_str(recipe_json("sp_bpe"), device="cpu")
+trainer = BpeTrainer(vocab_size=60, special_tokens=["<unk>"], device="cpu")
+tok.train_from_iterator(lines, trainer)
+assert trainer.stats["path"] == "dense" and tok.added == {"<unk>": 0}, (trainer.stats, tok.added)
+ids = tok.encode_batch_fast(["the lowest tokenizers"])[0].ids
+assert ids and all(i < 60 for i in ids), ids
+cfg = BpeTrainer(vocab_size=60, special_tokens=["<unk>"], device="cpu")
+w2i, i2w, words, counts = cfg.prepare(trainer.words)
+merges = train_per_round(cfg, w2i, i2w, words, counts, "cpu")
+assert [(i2w[a], i2w[b]) for (a, b), _ in merges] == tok.model.merges_list, merges
+dev = DistributedBpeTrainer(device="cpu", vocab_size=60, continuing_subword_prefix="##")
+dev.feed(lines, str.split)
+dev.train(BPE({}, []))
+wp = WordPieceTrainer(vocab_size=60, device="cpu")
+wp.feed(lines, str.split)
+model = WordPiece({})
+wp.train(model)
+assert "##s" in model.vocab and wp.stats["path"] == "dense", model.vocab
+tok = Tokenizer.from_str(recipe_json("wordlevel"), device="cpu")
+tok.train_from_iterator(lines, WordLevelTrainer(special_tokens=["[UNK]"]))
+assert tok.encode_batch_fast(["the fox zzz"])[0].ids == [1, 8, 0], tok.model.vocab
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

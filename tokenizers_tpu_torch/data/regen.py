@@ -27,6 +27,11 @@
   the 8 KB documents for each and for `smoke_data.spm_bf_json()`, of the
   long documents (a) for sp_bpe, and offsets digests of the 8 KB
   documents for the three files) follow the files.
+* `train_digests.json`: for each run of `smoke_data.TRAIN_RUNS`, the
+  SHA-256 of the merges and of the vocab, and their sizes, that the
+  wheel's BpeTrainer trains from the Whitespace words of the corpus
+  lines (`bench.py`'s `train` config at 512, and the whole corpus at
+  16,000: the dense trainer's widest run).
 * `unigram_digests.json`, `unigram_bf_digests.json` (ids of the 8 KB
   documents), `unigram_long_digests.json` (the long documents (a)) and
   `unigram_offsets_digests.json`, `unigram_bf_offsets_digests.json`
@@ -57,8 +62,9 @@ from ..ops.unicode_tables import (
 )
 from ..ops.wordlevel_encode import class_table_path
 from ..smoke_data import (
-    CHAR_CONFIGS, CONFIGS, CORPUS, UNIGRAM_CONFIGS, build_docs, config_json, digests_path, ids_digest,
-    long_parts, offsets_digest,
+    CHAR_CONFIGS, CONFIGS, CORPUS, DATA, TRAIN_RUNS, UNIGRAM_CONFIGS, build_docs, config_json,
+    digests_path, ids_digest, long_parts, merges_digest, offsets_digest, train_lines,
+    vocab_digest,
 )
 
 # Oniguruma \s
@@ -147,6 +153,24 @@ def wheel_offsets_digests(config: str = "gpt2", docs=None):
     return [offsets_digest(e) for e in encs]
 
 
+def wheel_train_digests():
+    """{run: merges and vocab digests and sizes} of the wheel's BpeTrainer
+    on each of TRAIN_RUNS."""
+    wheel = importlib.import_module("tokenizers")
+    out = {}
+    for name, (nchars, vocab_size) in TRAIN_RUNS.items():
+        tok = wheel.Tokenizer(wheel.models.BPE())
+        tok.pre_tokenizer = wheel.pre_tokenizers.Whitespace()
+        tok.train_from_iterator(train_lines(nchars), wheel.trainers.BpeTrainer(
+            vocab_size=vocab_size, show_progress=False))
+        merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
+                  for m in json.loads(tok.to_str())["model"]["merges"]]
+        vocab = tok.get_vocab()
+        out[name] = {"merges_sha256": merges_digest(merges), "n_merges": len(merges),
+                     "vocab_sha256": vocab_digest(vocab), "vocab_size": len(vocab)}
+    return out
+
+
 def main():
     stage1, stage2 = class_tables()
     np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
@@ -166,6 +190,11 @@ def main():
         digests[f"{config}_offsets"] = wheel_offsets_digests(config)
     for config in ("gpt2", "bert"):
         digests[f"{config}_long_offsets"] = wheel_offsets_digests(config, long_parts()["long"])
+    path = os.path.join(DATA, "train_digests.json")
+    with open(path, "w") as f:
+        json.dump(wheel_train_digests(), f, indent=1)
+        f.write("\n")
+    print("wrote", path)
     for name, sha in digests.items():
         with open(digests_path(name), "w") as f:
             json.dump({"sha256": sha}, f, indent=0)

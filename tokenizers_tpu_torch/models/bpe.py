@@ -121,6 +121,7 @@ class BPE:
         self.byte_spans = byte_spans
         self.cache = Cache()
         self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self.merges_list: List[Tuple[str, str]] = [tuple(m) for m in merges]
         n_prefix = len((continuing_subword_prefix or "").encode("utf-8"))
         for i, (a, b) in enumerate(merges):
             # the merged token drops the right member's prefix (model.rs:174-192)
@@ -187,6 +188,11 @@ class BPE:
     def tokenize(self, word: str) -> List[int]:
         """The ids of one pre-tokenized word."""
         return self._tokens(word)[0] if word else []
+
+    def get_trainer(self, device=None):
+        from ..trainers.bpe_trainer import BpeTrainer
+
+        return BpeTrainer(device=device)
 
     def tokenize_spans(self, word: str) -> List[Tuple[int, int, int]]:
         """(id, start, end) of each token of one pre-tokenized word, the

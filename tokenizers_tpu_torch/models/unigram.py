@@ -145,3 +145,7 @@ class Unigram:
 
     def tokenize(self, word: str) -> List[int]:
         return [t[0] for t in self.tokenize_spans(word)]
+
+    def get_trainer(self, device=None):
+        raise NotImplementedError("Unigram training (UnigramTrainer, EM on the device) is not "
+                                  "ported yet: it waits for the Unigram EM slice")

@@ -27,3 +27,9 @@ class WordLevel:
 
     def tokenize(self, word: str) -> List[int]:
         return [t for t, _s, _e in self.tokenize_spans(word)]
+
+    def get_trainer(self, device=None):
+        """A WordLevelTrainer (host only: `device` is not used)."""
+        from ..trainers.wordlevel_trainer import WordLevelTrainer
+
+        return WordLevelTrainer()

@@ -54,6 +54,11 @@ class WordPiece:
         """The ids of one pre-tokenized word."""
         return [t for t, _s, _e in self.tokenize_spans(word)]
 
+    def get_trainer(self, device=None):
+        from ..trainers.wordpiece_trainer import WordPieceTrainer
+
+        return WordPieceTrainer(device=device)
+
 
 class WordPieceDecoder:
     """The WordPiece decoder's settings (`prefix`, `cleanup`), held as the

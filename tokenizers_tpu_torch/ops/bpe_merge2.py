@@ -68,24 +68,51 @@ def prev_index(mask):
 def _take(vals, idx, found):
     C = idx.shape[1]
     ic = idx.clamp(0, C - 1)
-    return [torch.where(found, v.gather(1, ic), torch.zeros_like(v)) for v in vals]
+    return [at(v, ic, found) for v in vals]
+
+
+def at(v, j, found):
+    """v at the positions j where found, else 0 (False)."""
+    return torch.where(found, v.gather(1, j), False if v.dtype == torch.bool else 0)
+
+
+def next_within(alive, k_steps: int):
+    """(j, found): the first alive position strictly after each one, found
+    within 2^k_steps positions; j clamped into the row."""
+    C = alive.shape[1]
+    j = next_index(alive)
+    fnd = (j < C) & (j - _cols(alive) <= (1 << k_steps))
+    return j.clamp_(max=C - 1), fnd
+
+
+def prev_within(alive, k_steps: int):
+    """(j, found): the last alive position strictly before each one, found
+    within 2^k_steps positions; j clamped into the row."""
+    j = prev_index(alive)
+    fnd = (j >= 0) & (_cols(alive) - j <= (1 << k_steps))
+    return j.clamp_(min=0), fnd
 
 
 def fill_next(vals, alive, k_steps=FILL_K):
     """Per position: values at the first alive position strictly after it,
     within 2^k_steps positions (0 and found=False beyond).
     Returns (filled_vals, found_mask)."""
-    j = next_index(alive)
-    fnd = (j < alive.shape[1]) & (j - _cols(alive) <= (1 << k_steps))
-    return _take(vals, j, fnd), fnd
+    j, fnd = next_within(alive, k_steps)
+    return [at(v, j, fnd) for v in vals], fnd
 
 
 def fill_prev(vals, alive, k_steps=FILL_K):
     """Per position: values at the last alive position strictly before it,
     within 2^k_steps positions (0 and found=False beyond)."""
-    j = prev_index(alive)
-    fnd = (j >= 0) & (_cols(alive) - j <= (1 << k_steps))
-    return _take(vals, j, fnd), fnd
+    j, fnd = prev_within(alive, k_steps)
+    return [at(v, j, fnd) for v in vals], fnd
+
+
+def neighbour_index(alive, k_steps: int):
+    """(j_next, found_next, j_prev, found_prev): `next_within` and
+    `prev_within` at once; fills of several values at one `alive` are
+    gathers at these indices (`at`)."""
+    return (*next_within(alive, k_steps), *prev_within(alive, k_steps))
 
 
 def _group_ids(seg):

@@ -25,9 +25,19 @@ class Metaspace:
         `first`: `ns` starts the text (the "first" scheme prepends there
         only)."""
         ns.replace(" ", REPLACEMENT)
-        if (self.prepend_scheme == "always" or (self.prepend_scheme == "first" and first)) \
-                and not ns.get().startswith(REPLACEMENT):
+        if self._prepends(ns.get(), first):
             ns.prepend(REPLACEMENT)
+
+    def _prepends(self, text: str, first: bool) -> bool:
+        return (self.prepend_scheme == "always" or (self.prepend_scheme == "first" and first)) \
+            and not text.startswith(REPLACEMENT)
+
+    def pre_tokenize(self, text: str, first: bool = True) -> List[str]:
+        """The words of `text` (replaced and prepended as `apply` does)."""
+        text = text.replace(" ", REPLACEMENT)
+        if self._prepends(text, first):
+            text = REPLACEMENT + text
+        return [text[s:e] for s, e in self.word_spans(text)]
 
     @staticmethod
     def word_spans(text: str) -> List[Tuple[int, int]]:

@@ -39,7 +39,12 @@ phase: `data/unigram_digests.json`, `unigram_long_digests.json` (the
 long documents (a)), `unigram_offsets_digests.json`,
 `unigram_bf_digests.json` and `unigram_bf_offsets_digests.json`
 (`python -m tokenizers_tpu_torch.data.regen` writes them all;
-`tests/test_torch_tables.py` re-derives them).
+`tests/test_torch_tables.py` re-derives them).  `data/train_digests.json`
+holds, for each of `TRAIN_RUNS`, the SHA-256 of the merge list and of the
+vocab that the wheel's BpeTrainer trains from the Whitespace words of the
+corpus lines (`train_lines`, `merges_digest`, `vocab_digest`), and their
+sizes; `regen` writes it too.  `recipe_json` gives a frozen recipe's
+tokenizer as it is before training.
 
 `first_ascii_chunk` and `unique_state` give the merge loop's first state
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
@@ -96,6 +101,10 @@ DENSE_DOCS = 8
 DENSE_BYTES = 12 * 1024  # (b): the card finishes every row
 DENSE_OVERFLOW_BYTES = 16 * 1024  # (c): every row overflows the 5/8 width
 DENSE_SEED = 0
+# the training phase's runs held against the wheel's BpeTrainer over the
+# Whitespace words of the corpus lines (`data/train_digests.json`):
+# name -> (characters of the corpus, None for all; vocab size)
+TRAIN_RUNS = {"bench_512": (1 << 20, 512), "corpus_16000": (None, 16000)}
 
 
 def build_docs(target: int = TARGET_BYTES, doc_bytes: int = DOC_BYTES) -> List[str]:
@@ -176,6 +185,43 @@ def config_json(config: str) -> str:
         return spm_bf_json()
     with open({**CONFIGS, **CHAR_CONFIGS, **UNIGRAM_CONFIGS}[config], encoding="utf-8") as f:
         return f.read()
+
+
+def train_lines(nchars=None) -> List[str]:
+    """The lines of the corpus (of its first `nchars` characters), as
+    `bench.py`'s `train` config splits them."""
+    with open(CORPUS, encoding="utf-8") as f:
+        return f.read()[:nchars].splitlines()
+
+
+def merges_digest(merges) -> str:
+    """SHA-256 of a merge list [(a, b), ...] as a JSON list of pairs."""
+    return hashlib.sha256(json.dumps([list(m) for m in merges], ensure_ascii=False)
+                          .encode("utf-8")).hexdigest()
+
+
+def vocab_digest(vocab: Dict[str, int]) -> str:
+    """SHA-256 of a vocab as a JSON list of [token, id] in id order."""
+    return hashlib.sha256(json.dumps(sorted(vocab.items(), key=lambda kv: kv[1]),
+                                     ensure_ascii=False).encode("utf-8")).hexdigest()
+
+
+def load_train_digests() -> Dict[str, Dict[str, object]]:
+    with open(os.path.join(DATA, "train_digests.json")) as f:
+        return json.load(f)
+
+
+def recipe_json(config: str) -> str:
+    """A CHAR_CONFIGS tokenizer as its recipe builds it before training:
+    the same pipeline with no added tokens and an empty vocab (the recipe
+    adds its special tokens after training, so they never split the
+    training text)."""
+    d = json.loads(config_json(config))
+    d["added_tokens"] = []
+    d["model"]["vocab"] = {}
+    if "merges" in d["model"]:
+        d["model"]["merges"] = []
+    return json.dumps(d, ensure_ascii=False)
 
 
 def ids_digest(ids: Sequence[int]) -> str:

@@ -48,6 +48,11 @@ device and the host pipeline for what the device does not take.  The
 device is `cuda` unless the caller asks for `device="cpu"`, where every
 kernel runs its plain PyTorch version.  Pairs and pre-tokenized input
 wait for a later slice.
+
+`train` and `train_from_iterator` train the BPE, WordPiece or WordLevel
+model with a trainer of `trainers/` (BPE and WordPiece on the trainer's
+device) on the words of `train_words`, then add the trainer's special
+tokens (`add_special_tokens`) and drop the device engine.
 """
 
 from __future__ import annotations
@@ -406,6 +411,79 @@ class Tokenizer:
         if engine is None:
             raise RuntimeError("this tokenizer has no device engine")
         return engine.encode_batch_arrays(_single_sequences(inputs, False))
+
+    # ----------------------------------------------------------------- train
+
+    def train(self, files: Iterable[str], trainer=None) -> "Tokenizer":
+        """Train the model on the lines of `files` (each with its ending)."""
+        from .utils.iter import file_lines_with_ending
+
+        return self.train_from_iterator(file_lines_with_ending(files), trainer)
+
+    def train_from_iterator(self, iterator: Iterable[str], trainer=None,
+                            length: Optional[int] = None) -> "Tokenizer":
+        """Feed the trainer the words of each sequence (`train_words`: the
+        host pipeline's normalizer and pre-tokenizer; an added token is a
+        word of its own), train the model, add the trainer's special
+        tokens, and drop the device engine so that the next encode builds
+        its tables from the trained model.  Without a trainer the model's
+        default one runs on this tokenizer's device.  `length` is accepted
+        for the reference's surface; there is no progress bar."""
+        if trainer is None:
+            trainer = self.model.get_trainer(device=self.device)
+        trainer.feed(iterator, self.train_words)
+        special_tokens = trainer.train(self.model)
+        self.add_special_tokens(special_tokens)
+        return self
+
+    def train_words(self, sequence: str) -> List[str]:
+        """The words a trainer counts in `sequence`, as the reference's
+        `Tokenizer::train` gives them: the added tokens split out of the
+        raw text, each a word of its own, and on each piece between them
+        the normalizer and the pre-tokenizer (Metaspace prepends to each
+        piece as its scheme says)."""
+        words: List[str] = []
+        pos = 0
+        pt = self.pre_tokenizer
+        matches = self._added_re.finditer(sequence) if self._added_re else ()
+        for m in list(matches) + [None]:
+            piece = sequence[pos : m.start() if m else len(sequence)]
+            text = piece if self.normalizer is None else self.normalizer.normalize_str(piece)
+            if not text:
+                pass
+            elif isinstance(pt, Metaspace):
+                words.extend(pt.pre_tokenize(text, pos == 0))
+            elif pt is None:
+                words.append(text)
+            else:
+                words.extend(pt.pre_tokenize(text))
+            if m:
+                words.append(m.group())
+                pos = m.end()
+        return words
+
+    def add_special_tokens(self, tokens) -> int:
+        """Add special tokens (strings or `trainers.AddedToken`), matched on
+        the raw text: a token in the model's vocab keeps its id, another
+        takes the next id past the vocab and the added tokens.  Returns how
+        many were new; drops the device engine."""
+        added = 0
+        for t in tokens:
+            content = getattr(t, "content", t)
+            if not content or content in self.added:
+                continue
+            tid = self.model.vocab.get(content)
+            if tid is None:
+                size = len(self.model.vocab)
+                top = max(self.added.values(), default=None)
+                tid = top + 1 if top is not None and (top >= size or size == 0) else size
+            self.added[content] = tid
+            added += 1
+        contents = sorted(self.added, key=len, reverse=True)  # leftmost-longest
+        self._added_re = re.compile("|".join(map(re.escape, contents))) if contents else None
+        self._engine = None
+        self._engine_built = False
+        return added
 
     def token_to_id(self, token: str) -> Optional[int]:
         tid = self.added.get(token)
