@@ -135,7 +135,33 @@
    device-loop seconds, merges per second, host reads per merge (counted
    by the trainer) and host syncs per merge (measured: CUDA sync-debug
    warnings) and peak memory.
-12. Prints a line of numbers per path, the per-kernel JSON line (with each
+12. Unigram training (`unigram_train_path`), on no kernel of `csrc/`
+   (torch ops, as the JAX package runs its E-step in plain XLA): the
+   `unigram` fixture's recipe (`smoke_data.recipe_json`) trained by
+   `UnigramTrainer(vocab_size=8000, special_tokens=["<unk>"],
+   unk_token="<unk>")` through `Tokenizer.train_from_iterator` on the
+   lines of the corpus's first 1 MB, the E-step and the pruning's Viterbi
+   frequencies on the card: its pieces must be the wheel's
+   (`data/unigram_train.json`), each score within rel 1e-6 / abs 1.6e-3
+   (`tests/test_unigram_trainer.py`'s tolerance); no pass may lack a device
+   table.  The seed model's first E-step and Viterbi-frequency pass on
+   the card must equal the host lattices on a seeded sample of 2,000
+   sentences from every bucket plus 4 sentences over 512 bytes (the host
+   route): expected counts and z within 1e-12 relative, token counts and
+   frequencies exact; a second E-step of the seed model on every
+   sentence must be bit-equal to the first.  The trained tokenizer then
+   encodes the 512 8 KB documents on the card, every document's ids equal
+   to its own host pipeline's.  Prints seeding, E-step, Viterbi, pruning,
+   M-step and total seconds, EM rounds, host sentences, syncs an E-step
+   (CUDA sync-debug warnings) and peak memory; B1-B4 counts stay 0.
+13. Decode (`decode_path`, host only): `decode_batch` of the ids every
+   8 KB run of phases 3-10 produced on the card (gpt2, llama3_128k, bert,
+   unigram, unigram_bf, char_bpe, sp_bpe, spm_bf, wordlevel), with and
+   without `skip_special_tokens`, every text against the wheel's
+   (`data/decode_digests.json`), and `decode_stream` over the first 32
+   documents of gpt2 and unigram_bf against the wheel's stream; B1-B4
+   counts stay 0.
+14. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -205,6 +231,8 @@ CHAR_COLD = {  # the char-level phase's 8 KB runs (each B1 count holds its clust
     "spm_bf": {"keys": 20, "merge_round_fused": 399, "merge_round_fused_wide": 399},
     "wordlevel": {"keys": 0, "merge_round_fused": 0, "merge_round_fused_wide": 0},
 }
+# the ids each 8 KB run's first pass gave on the card, by config (phase 13)
+CARD_IDS = {}
 EIGHT_KB_COLD = {
     "gpt2": {"layout_fused": 2, "layout_fused_wide": 0, "keys": 16,
              "merge_round_fused": 79, "merge_round_fused_wide": 0},
@@ -433,6 +461,7 @@ def drive_path(torch, tok, docs, config, counts, digests=None, passes=("cold", "
                              f"their digests: {bad[:10]}")
         runs[run] = dict(secs=secs, program_s=program_s[-1], launches=launches,
                          **engine_base.STATS.snapshot())
+        CARD_IDS.setdefault(config, [e.ids for e in encs])
     eng._program_many = run_program
     return runs
 
@@ -1189,24 +1218,9 @@ def train_path(torch, stats, counts, numbers):
 
     def timed(fn):
         """(seconds, synchronizing CUDA calls) of fn()."""
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        syncs = [0]
-
-        def count(message, *args, **kwargs):
-            syncs[0] += "synchronizing" in str(message)
-
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = count
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                t = time.perf_counter()
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        return time.perf_counter() - t, syncs[0]
+        _out, secs, syncs = timed_syncs(torch, fn)
+        return secs, syncs
 
     def record(name, trainer, timing, path):
         st = trainer.stats
@@ -1302,6 +1316,207 @@ def train_path(torch, stats, counts, numbers):
     print("numbers " + json.dumps(numbers["train"]), flush=True)
     for k, s_ in stats.items():
         s_["train_path_launches"] = launches[k]
+
+
+def timed_syncs(torch, fn):
+    """(result, seconds, synchronizing CUDA calls) of fn(): every such call
+    warns under `torch.cuda.set_sync_debug_mode("warn")` and is counted."""
+    torch.cuda.synchronize()
+    syncs = [0]
+
+    def count(message, *args, **kwargs):
+        syncs[0] += "synchronizing" in str(message)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = count
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t = time.perf_counter()
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, syncs[0]
+
+
+def _em_sample(sentences, chunks, rng, n=2000):
+    """A seeded sample of `n` of `sentences` spread over the buckets of
+    `chunks` (DeviceEm's: a chunk's sentence indices are its 4th entry),
+    plus 4 sentences over 512 bytes, words of the corpus joined."""
+    from tokenizers_tpu_torch.ops.unigram_em_step import L_MAX
+
+    pick = []
+    by_size = sorted((c[3].cpu().numpy() for c in chunks), key=len)
+    for k, idx in enumerate(by_size):  # an equal share of what is left, smallest first
+        take = min(len(idx), (n - len(pick)) // (len(by_size) - k))
+        pick.extend(rng.choice(idx, take, replace=False).tolist())
+    out = [sentences[i] for i in sorted(pick)]
+    words = [w for w, _ in sentences]
+    for k in range(4):
+        long = ""
+        while len(long.encode("utf-8")) <= L_MAX:
+            long += words[int(rng.integers(len(words)))]
+        out.append((long, k + 1))
+    return out
+
+
+def unigram_train_path(torch, stats, counts, numbers):
+    """Phase 12, Unigram EM training on the card (docstring item 12).  Adds
+    each kernel's `unigram_train_launches` to `stats`."""
+    import math
+
+    import numpy as np
+
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.models.unigram_lattice import Lattice
+    from tokenizers_tpu_torch.ops.unigram_em_step import DeviceEm
+    from tokenizers_tpu_torch.smoke_data import (
+        UNIGRAM_TRAIN, build_docs, load_unigram_train, recipe_json, train_lines,
+    )
+    from tokenizers_tpu_torch.trainers import UnigramTrainer
+    from tokenizers_tpu_torch.trainers.unigram_em import _make_unigram, _TrainerOps
+
+    for c in counts.values():
+        for k in c:
+            c[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    want = load_unigram_train()
+    lines = train_lines(UNIGRAM_TRAIN["chars"])
+
+    def trainer():
+        return UnigramTrainer(vocab_size=UNIGRAM_TRAIN["vocab_size"], special_tokens=["<unk>"],
+                              unk_token="<unk>")
+
+    tok = Tokenizer.from_str(recipe_json("unigram"))
+    tr = trainer()
+    _, secs, syncs = timed_syncs(torch, lambda: tok.train_from_iterator(lines, tr))
+    st = tr.stats
+    got = dict(tok.model.pieces)
+    ref = dict((p, s_) for p, s_ in want["vocab"])
+    if set(got) != set(ref) or len(tok.model.pieces) != len(want["vocab"]):
+        raise SystemExit(f"unigram train: {len(set(got) - set(ref))} pieces not the wheel's, "
+                         f"{len(set(ref) - set(got))} of the wheel's missing")
+    off = [p for p in ref if not math.isclose(ref[p], got[p], rel_tol=1e-6, abs_tol=1e-4 * 16)]
+    if off:
+        raise SystemExit(f"unigram train: {len(off)} scores off the wheel's: {off[:5]}")
+    if st["no_table_passes"]:
+        raise SystemExit(f"unigram train: {st['no_table_passes']} passes had no device table")
+    if tok.added != {"<unk>": 0}:
+        raise SystemExit(f"unigram train: added tokens {tok.added}")
+    train_launches = {k: c[k] for k, c in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # the seed model's first E-step and Viterbi pass against the host lattices
+    cfg = trainer()
+    sentences = list(tr.words.items())
+    ops = _TrainerOps(cfg, sentences)
+    seed_model = _make_unigram([("<UNK>", float("nan"))] + ops.make_seed_sentence_pieces())
+    (e1, z1, n1), e_s, e_syncs = timed_syncs(torch, lambda: ops.dev.e_step(seed_model))
+    e2, z2, n2 = ops.dev.e_step(seed_model)
+    if not (np.array_equal(e1, e2) and np.array_equal(z1, z2) and n1 == n2):
+        raise SystemExit("unigram train: two E-steps of one model differ")
+    sample = _em_sample(sentences, ops.dev.chunks, np.random.default_rng(0))
+    dev = DeviceEm(sample)
+    if len(dev.host_idx) != 4:
+        raise SystemExit(f"unigram train: {len(dev.host_idx)} sample sentences on the host")
+    ed, zd, nd = dev.e_step(seed_model)
+    fd = dev.viterbi_freq(seed_model)
+    eh = [0.0] * len(seed_model.pieces)
+    fh = [0.0] * len(seed_model.pieces)
+    zh, nh = [], 0
+    for s_, n in sample:
+        lat = Lattice(s_, seed_model.bos_id, seed_model.eos_id)
+        seed_model.populate_nodes(lat)
+        zh.append(lat.populate_marginal(float(n), eh))
+        path = lat.viterbi()
+        nh += len(path)
+        for node in path:
+            fh[node.id] += float(n)
+    eh, zh = np.array(eh), np.array(zh)
+    e_rel = float(np.max(np.abs(ed - eh) / np.maximum(np.abs(eh), 1e-300)))
+    z_rel = float(np.max(np.abs(zd - zh) / np.maximum(np.abs(zh), 1e-300)))
+    if e_rel > 1e-12 or z_rel > 1e-12 or nd != nh or not np.array_equal(fd, np.array(fh)):
+        raise SystemExit(f"unigram train: the sample's E-step differs from the host lattices: "
+                         f"expected rel {e_rel}, z rel {z_rel}, ntok {nd} vs {nh}, "
+                         f"freq equal {np.array_equal(fd, np.array(fh))}")
+
+    # the trained tokenizer encodes the 8 KB documents on the card
+    docs = build_docs()
+    t = time.perf_counter()
+    encs = tok.encode_batch_fast(docs)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t
+    bad = [i for i, (e, d) in enumerate(zip(encs, docs)) if e.ids != tok.encode_host(d).ids]
+    if bad:
+        raise SystemExit(f"unigram train: {len(bad)} documents unlike the host pipeline's: "
+                         f"{bad[:10]}")
+    launches = {k: c[k] for k, c in counts.items()}
+    if any(launches.values()):
+        raise SystemExit(f"unigram train: a kernel of csrc/ launched: {launches}")
+    e_steps = st["e_step_s"]
+    numbers["unigram_train"] = {
+        "secs": secs, "feed_s": st["feed_s"], "words": st["words"], "pack_s": st["pack_s"],
+        "chunks": st["chunks"], "seed_s": st["seed_s"], "seed_pieces": st["seed_pieces"],
+        "em_rounds": st["em_rounds"], "e_steps": st["e_steps"],
+        "first_e_step_s": e_steps[0], "last_e_step_s": e_steps[-1],
+        "e_steps_s": sum(e_steps), "viterbi_freq_s": sum(st["viterbi_s"]),
+        "viterbi_passes": len(st["viterbi_s"]), "prune_host_s": st["prune_host_s"],
+        "m_step_s": st["m_step_s"], "host_sentences": st["host_sentences"],
+        "no_table_passes": st["no_table_passes"], "train_syncs": syncs,
+        "seed_model_e_step_s": e_s, "syncs_per_e_step": e_syncs,
+        "sample": {"sentences": len(sample), "host_routed": len(dev.host_idx),
+                   "expected_max_rel": e_rel, "z_max_rel": z_rel, "ntok": nd},
+        "pieces_equal_wheel": True, "peak_allocated_GB": peak,
+        "encode_8kb_s": enc_s, "docs_equal_host": len(docs), "train_launches": train_launches,
+    }
+    print("numbers " + json.dumps({"unigram_train": numbers["unigram_train"]}), flush=True)
+    for k, s_ in stats.items():
+        s_["unigram_train_launches"] = launches[k]
+
+
+def decode_path(torch, stats, counts, numbers):
+    """Phase 13, decode on the host (docstring item 13).  Adds each
+    kernel's `decode_launches` to `stats`."""
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.smoke_data import (
+        DECODE_CONFIGS, STREAM_CONFIGS, STREAM_DOCS, config_json, load_decode_digests,
+        stream_digest, text_digest,
+    )
+
+    for c in counts.values():
+        for k in c:
+            c[k] = 0
+    want = load_decode_digests()
+    out = {}
+    for name in DECODE_CONFIGS:
+        ids = CARD_IDS[name]
+        tok = Tokenizer.from_str(config_json(name))
+        r = {}
+        for key, skip in (("skip", True), ("keep", False)):
+            t = time.perf_counter()
+            texts = tok.decode_batch(ids, skip)
+            r[f"{key}_s"] = time.perf_counter() - t
+            bad = [i for i, x in enumerate(texts) if text_digest(x) != want[name][key][i]]
+            if bad:
+                raise SystemExit(f"decode {name} ({key} special tokens): {len(bad)} texts "
+                                 f"unlike the wheel's: {bad[:10]}")
+        if name in STREAM_CONFIGS:
+            t = time.perf_counter()
+            for i, doc_ids in enumerate(ids[:STREAM_DOCS]):
+                ds = tok.decode_stream(True)
+                if stream_digest(ds.step(x) for x in doc_ids) != want[name]["stream"][i]:
+                    raise SystemExit(f"decode_stream {name}: document {i} unlike the wheel's")
+            r["stream_s"] = time.perf_counter() - t
+        r["docs"] = len(ids)
+        out[name] = r
+    launches = {k: c[k] for k, c in counts.items()}
+    if any(launches.values()):
+        raise SystemExit(f"decode: a kernel of csrc/ launched: {launches}")
+    numbers["decode"] = out
+    print("numbers " + json.dumps({"decode": out}), flush=True)
+    for k, s_ in stats.items():
+        s_["decode_launches"] = launches[k]
 
 
 def stats_launches(runs, k):
@@ -1561,6 +1776,12 @@ def main() -> int:
     # ---- 11. training ------------------------------------------------------------
     train_path(torch, stats, counts, numbers)
 
+    # ---- 12. Unigram training --------------------------------------------------
+    unigram_train_path(torch, stats, counts, numbers)
+
+    # ---- 13. decode ---------------------------------------------------------------
+    decode_path(torch, stats, counts, numbers)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -1597,6 +1818,8 @@ def main() -> int:
          "bert_path_launches": s["bert_path_launches"],
          "unigram_path_launches": s["unigram_path_launches"],
          "train_path_launches": s["train_path_launches"],
+         "unigram_train_launches": s["unigram_train_launches"],
+         "decode_launches": s["decode_launches"],
          "char_level_launches": s["char_level_launches"],
          "char_level_shapes": s["char_level_shapes"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],

@@ -384,8 +384,7 @@ def _edited(blob, path, value):
     (("pre_tokenizer",), {"type": "Punctuation", "behavior": "Isolated"}),
     (("normalizer",), {"type": "Replace", "pattern": {"Regex": " +"}, "content": "▁"}),
     (("normalizer",), {"type": "Nmt"}),
-    (("decoder",), {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
-                    "use_regex": True}),
+    (("normalizer",), {"type": "Precompiled", "precompiled_charsmap": ""}),
     (("post_processor",), {"type": "ByteLevel", "add_prefix_space": True,
                            "trim_offsets": True, "use_regex": True}),
     (("added_tokens", 0, "normalized"), True),

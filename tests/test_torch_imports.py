@@ -2,9 +2,9 @@
 loads no module of JAX, `regex`, the `tokenizers` wheel or
 `tokenizers_tpu` (with and without offsets, the host path included, for
 the gpt2, llama3, bert, WordLevel, char-level BPE and Unigram pipelines;
-BPE training on the dense and the per-round path, WordPiece and WordLevel
-training, `Tokenizer.train_from_iterator`), and no source file of the
-package imports them."""
+BPE training on the dense and the per-round path, WordPiece, WordLevel
+and Unigram training, `Tokenizer.train_from_iterator`, `decode` and
+`decode_stream`), and no source file of the package imports them."""
 
 import os
 import re
@@ -80,6 +80,18 @@ assert "##s" in model.vocab and wp.stats["path"] == "dense", model.vocab
 tok = Tokenizer.from_str(recipe_json("wordlevel"), device="cpu")
 tok.train_from_iterator(lines, WordLevelTrainer(special_tokens=["[UNK]"]))
 assert tok.encode_batch_fast(["the fox zzz"])[0].ids == [1, 8, 0], tok.model.vocab
+from tokenizers_tpu_torch.trainers import UnigramTrainer
+tok = Tokenizer.from_str(recipe_json("unigram"), device="cpu")
+trainer = UnigramTrainer(vocab_size=40, special_tokens=["<unk>"], unk_token="<unk>", device="cpu")
+tok.train_from_iterator(lines, trainer)
+assert trainer.stats["path"] == "device" and tok.added == {"<unk>": 0}, trainer.stats
+ids = tok.encode_batch_fast(["the lowest tokenizers"])[0].ids
+assert tok.decode(ids) == "the lowest tokenizers", (ids, tok.decode(ids))
+for name in ("gpt2", "bert", "spm_bf", "unigram_bf"):
+    tok = Tokenizer.from_str(config_json(name), device="cpu")
+    ids = tok.encode_batch_fast(["Hello world ☃"])[0].ids
+    stream = tok.decode_stream()
+    assert "".join(x for x in map(stream.step, ids) if x) == tok.decode(ids), name
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

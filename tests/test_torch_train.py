@@ -563,8 +563,10 @@ def test_tokenizer_train_files_and_default_trainer(tmp_path):
     assert ours2.model.vocab["[UNK]"] == 0 and ours2.added == {"[UNK]": 0}
     ids = ours2.encode_batch_fast(["the fox"])[0].ids
     assert ids == [ours2.model.vocab.get(w, 0) for w in ("the", "fox")]
-    with pytest.raises(NotImplementedError, match="Unigram"):
-        Tokenizer.from_str(config_json("unigram"), device="cpu").train([str(path)])
+    # Unigram's default trainer (no unk token: the trained model has none)
+    ours3 = Tokenizer.from_str(recipe_json("unigram"), device="cpu")
+    assert ours3.train([str(path)]) is ours3
+    assert len(ours3.model.pieces) > 100 and ours3.model.unk_id is None
 
 
 def test_trainer_needs_the_card_unless_asked():

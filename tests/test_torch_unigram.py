@@ -456,7 +456,8 @@ def test_encode_batch_arrays(plain):
     ({"normalizer": {"type": "Replace", "pattern": {"Regex": "\\s+"}, "content": " "}},
      "Replace"),
     ({"post_processor": {"type": "ByteLevel"}}, "post-processor"),
-    ({"decoder": {"type": "ByteLevel"}}, "decoder"),
+    ({"pre_tokenizer": {"type": "Metaspace", "replacement": "_", "prepend_scheme": "always",
+                        "split": True}}, "replacement"),
 ])
 def test_loader_refuses_other_unigram_pipelines(edit, what):
     d = json.load(open(UNIGRAM, encoding="utf-8"))

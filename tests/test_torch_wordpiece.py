@@ -302,9 +302,9 @@ def test_encode_batch_arrays(port):
     ({"normalizer": {"type": "NFC"}}, "BertNormalizer"),
     ({"normalizer": None}, "BertNormalizer"),
     ({"pre_tokenizer": {"type": "BertPreTokenizer", "x": 1}}, "options"),
-    ({"decoder": {"type": "ByteLevel"}}, "decoder"),
+    ({"truncation": {"max_length": 8}}, "truncation"),
     ({"post_processor": {"type": "ByteLevel"}}, "post-processor"),
-    ({"model": {"type": "WordLevel", "vocab": {}, "unk_token": "[UNK]"}}, "WordLevel"),
+    ({"model": {"type": "WordLevel", "vocab": {}, "unk_token": "[UNK]", "x": 1}}, "WordLevel"),
 ])
 def test_loader_refuses_other_bert_pipelines(edit, what):
     import json

@@ -32,6 +32,15 @@
   wheel's BpeTrainer trains from the Whitespace words of the corpus
   lines (`bench.py`'s `train` config at 512, and the whole corpus at
   16,000: the dense trainer's widest run).
+* `unigram_train.json`: the wheel's UnigramTrainer at
+  `smoke_data.UNIGRAM_TRAIN` (vocab 8,000, `<unk>`) on the `unigram`
+  fixture's recipe (`smoke_data.recipe_json`), fed the lines of the
+  corpus's first 1 MB: its settings and [piece, score] list.
+* `decode_digests.json`: per tokenizer of `smoke_data.DECODE_CONFIGS`,
+  the text digests of the wheel's `decode_batch` of its own ids of the 8
+  KB documents, with and without `skip_special_tokens`, and for
+  `STREAM_CONFIGS` the digests of the wheel's `DecodeStream` steps over
+  the first `STREAM_DOCS` documents.
 * `unigram_digests.json`, `unigram_bf_digests.json` (ids of the 8 KB
   documents), `unigram_long_digests.json` (the long documents (a)) and
   `unigram_offsets_digests.json`, `unigram_bf_offsets_digests.json`
@@ -62,9 +71,10 @@ from ..ops.unicode_tables import (
 )
 from ..ops.wordlevel_encode import class_table_path
 from ..smoke_data import (
-    CHAR_CONFIGS, CONFIGS, CORPUS, DATA, TRAIN_RUNS, UNIGRAM_CONFIGS, build_docs, config_json,
-    digests_path, ids_digest, long_parts, merges_digest, offsets_digest, train_lines,
-    vocab_digest,
+    CHAR_CONFIGS, CONFIGS, CORPUS, DATA, DECODE_CONFIGS, STREAM_CONFIGS, STREAM_DOCS,
+    TRAIN_RUNS, UNIGRAM_CONFIGS, UNIGRAM_TRAIN, build_docs, config_json, digests_path,
+    ids_digest, long_parts, merges_digest, offsets_digest, recipe_json, stream_digest,
+    text_digest, train_lines, vocab_digest,
 )
 
 # Oniguruma \s
@@ -171,6 +181,38 @@ def wheel_train_digests():
     return out
 
 
+def wheel_unigram_train():
+    """{settings, "vocab": [[piece, score], ...]} of the wheel's
+    UnigramTrainer at UNIGRAM_TRAIN on the unigram recipe."""
+    wheel = importlib.import_module("tokenizers")
+    tok = wheel.Tokenizer.from_str(recipe_json("unigram"))
+    tok.train_from_iterator(train_lines(UNIGRAM_TRAIN["chars"]), wheel.trainers.UnigramTrainer(
+        vocab_size=UNIGRAM_TRAIN["vocab_size"], special_tokens=["<unk>"], unk_token="<unk>",
+        show_progress=False))
+    model = json.loads(tok.to_str())["model"]
+    return {**UNIGRAM_TRAIN, "unk_id": model["unk_id"], "vocab": model["vocab"]}
+
+
+def wheel_decode_digests():
+    """{config: {"skip": [...], "keep": [...], "stream": [...]}}: text
+    digests of the wheel's decode of its own ids of the 8 KB documents."""
+    wheel = importlib.import_module("tokenizers")
+    docs = build_docs()
+    out = {}
+    for config in DECODE_CONFIGS:
+        tok = _wheel(config)
+        ids = [e.ids for e in tok.encode_batch_fast(docs, add_special_tokens=True)]
+        out[config] = {key: [text_digest(s) for s in tok.decode_batch(ids, skip_special_tokens=skip)]
+                       for key, skip in (("skip", True), ("keep", False))}
+        if config in STREAM_CONFIGS:
+            streams = []
+            for doc_ids in ids[:STREAM_DOCS]:
+                ds = wheel.decoders.DecodeStream(skip_special_tokens=True)
+                streams.append(stream_digest(ds.step(tok, i) for i in doc_ids))
+            out[config]["stream"] = streams
+    return out
+
+
 def main():
     stage1, stage2 = class_tables()
     np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
@@ -190,6 +232,13 @@ def main():
         digests[f"{config}_offsets"] = wheel_offsets_digests(config)
     for config in ("gpt2", "bert"):
         digests[f"{config}_long_offsets"] = wheel_offsets_digests(config, long_parts()["long"])
+    for name, data, kw in (("unigram_train.json", wheel_unigram_train(), {"ensure_ascii": False}),
+                           ("decode_digests.json", wheel_decode_digests(), {"indent": 0})):
+        path = os.path.join(DATA, name)
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(data, f, **kw)
+            f.write("\n")
+        print("wrote", path)
     path = os.path.join(DATA, "train_digests.json")
     with open(path, "w") as f:
         json.dump(wheel_train_digests(), f, indent=1)

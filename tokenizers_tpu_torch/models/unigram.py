@@ -16,8 +16,10 @@ inserted only while below capacity).
 The scores must be the wheel's: the loader parses them with
 `utils.serde_float.serde_f64`.  The device engine (`ops/unigram_engine.py`)
 sends the inputs it does not take here, and the words it flags
-(`_encode_word_host`).  The lattice (nbest, marginals) waits for the EM
-trainer.
+(`_encode_word_host`).  `populate_nodes` fills a lattice
+(`unigram_lattice.Lattice`: Viterbi, n-best, marginals) for the EM
+trainer (`trainers/unigram_em.py`), whose models may hold a NaN score
+(unk's after an M-step): `min_score` skips it, as the reference's does.
 """
 
 from __future__ import annotations
@@ -43,7 +45,12 @@ class Unigram:
         for i, (tok, _s) in enumerate(self.pieces):
             self.vocab[tok] = i  # the last duplicate wins
         self.vocab_r: Dict[int, str] = {i: t for i, (t, _s) in enumerate(self.pieces)}
-        self.min_score = min((s for _t, s in self.pieces), default=math.inf)
+        self.min_score = math.inf
+        for _t, score in self.pieces:
+            if score < self.min_score:  # NaN never is
+                self.min_score = score
+        self.bos_id = len(self.pieces) + 1
+        self.eos_id = len(self.pieces) + 2
         self._piece_scores: Dict[bytes, Tuple[int, float]] = {}
         self._max_piece_len = 1
         for tok, score in self.pieces:
@@ -146,6 +153,37 @@ class Unigram:
     def tokenize(self, word: str) -> List[int]:
         return [t[0] for t in self.tokenize_spans(word)]
 
+    def populate_nodes(self, lattice) -> None:
+        """Insert every vocab piece that starts at a char start, shortest
+        first, and an unk node of the char's length where no piece of
+        exactly that length does (reference `model.rs:160-199`)."""
+        unk_score = self.min_score - K_UNK_PENALTY
+        sb = lattice.sentence_bytes
+        size = len(sb)
+        piece_scores, max_len = self._piece_scores, self._max_piece_len
+        begin_pos = 0
+        while begin_pos < size:
+            b0 = sb[begin_pos]
+            mblen = 1 if b0 < 0x80 else 2 if b0 < 0xE0 else 3 if b0 < 0xF0 else 4
+            has_single_node = False
+            for n in range(1, min(max_len, size - begin_pos) + 1):
+                entry = piece_scores.get(sb[begin_pos : begin_pos + n])
+                if entry is None:
+                    continue
+                lattice.insert(begin_pos, n, entry[1], entry[0])
+                if n == mblen:
+                    has_single_node = True
+            if not has_single_node and self.unk_id is not None:
+                lattice.insert(begin_pos, mblen, unk_score, self.unk_id)
+            begin_pos += mblen
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self.vocab.get(token)
+
+    def id_to_token(self, id: int) -> Optional[str]:
+        return self.pieces[id][0] if 0 <= id < len(self.pieces) else None
+
     def get_trainer(self, device=None):
-        raise NotImplementedError("Unigram training (UnigramTrainer, EM on the device) is not "
-                                  "ported yet: it waits for the Unigram EM slice")
+        from ..trainers.unigram_trainer import UnigramTrainer
+
+        return UnigramTrainer(device=device)

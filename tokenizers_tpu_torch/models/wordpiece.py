@@ -59,11 +59,3 @@ class WordPiece:
 
         return WordPieceTrainer(device=device)
 
-
-class WordPieceDecoder:
-    """The WordPiece decoder's settings (`prefix`, `cleanup`), held as the
-    loader read them: decode is not ported."""
-
-    def __init__(self, prefix: str = "##", cleanup: bool = True):
-        self.prefix = prefix
-        self.cleanup = bool(cleanup)

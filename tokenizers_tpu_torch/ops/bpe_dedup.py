@@ -100,6 +100,18 @@ def _powers(mult: int, n: int) -> np.ndarray:
     return (np.cumprod(a) & np.uint64(_M32)).astype(np.int64)
 
 
+_POWERS_ON: dict = {}
+
+
+def _powers_on(mult: int, n: int, dev) -> torch.Tensor:
+    """`_powers` on `dev`, uploaded once per (mult, n, device)."""
+    key = (mult, n, str(dev))
+    t = _POWERS_ON.get(key)
+    if t is None:
+        t = _POWERS_ON[key] = torch.from_numpy(_powers(mult, n)).to(dev)
+    return t
+
+
 def _to_i32(x):
     """[0, 2^32) int64 -> the int32 of the same bits."""
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
@@ -117,8 +129,8 @@ def rolling_hash(b, bnd, mult, keep=None):
     position without `keep`) and s the segment start."""
     B, L = b.shape
     dev = b.device
-    pw = torch.from_numpy(_powers(mult, L + 1)).to(dev)
-    pinv = torch.from_numpy(_powers(pow(mult, -1, 1 << 32), L + 1)).to(dev)
+    pw = _powers_on(mult, L + 1, dev)
+    pinv = _powers_on(pow(mult, -1, 1 << 32), L + 1, dev)
     if keep is None:
         n, c = torch.arange(L, device=dev), b.to(torch.int64) + 1  # n broadcasts over rows
     else:

@@ -38,6 +38,17 @@ def _hash(a: np.ndarray, b: np.ndarray, seed: int, mask: int, which: int) -> np.
     return (h & np.uint32(mask)).astype(np.int64)
 
 
+def _hash1(a: int, b: int, seed: int, mask: int, which: int) -> int:
+    """`_hash` of one pair, in Python ints (the same bits, without numpy's
+    per-call cost: the table build hashes key by key)."""
+    c1, c2 = (0x9E3779B1, 0x85EBCA77) if which == 0 else (0x85EBCA77, 0xC2B2AE3D)
+    h = ((a & _M32) * c1 + (b & _M32) * c2 + (seed & _M32)) & _M32
+    h ^= h >> 15
+    h = (h * 0x2C1B3C6D) & _M32
+    h ^= h >> 12
+    return h & mask
+
+
 class CuckooMergeTable:
     """2-way cuckoo hash over (left_id, right_id) -> (rank, new_id)."""
 
@@ -68,11 +79,7 @@ class CuckooMergeTable:
             t = 0
             placed = False
             for _ in range(max_kicks):
-                h = int(
-                    _hash(
-                        np.array([cur[0]]), np.array([cur[1]]), self.seed, mask, t
-                    )[0]
-                )
+                h = _hash1(int(cur[0]), int(cur[1]), self.seed, mask, t)
                 if key_a[t, h] == -1:
                     key_a[t, h], key_b[t, h] = cur[0], cur[1]
                     rank[t, h], new_id[t, h] = cur[2], cur[3]

@@ -2,7 +2,8 @@
 char table (copied from `tokenizers_tpu.pre_tokenizers.byte_level`) and
 the GPT-2 split, which `use_regex=False` leaves out; and, as a
 post-processor, the trimming of whitespace from token offsets
-(`process_offsets`, copied from the same module).
+(`process_offsets`, copied from the same module); as a decoder
+(`decode_chain`), the byte-level chars back to bytes and UTF-8 text.
 
 The split does not run the GPT-2 regex.  It takes the match starts of
 `'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|
@@ -76,6 +77,21 @@ class ByteLevel:
         else:
             spans = [(0, len(data))] if data else []
         return [("".join(BYTES_CHAR[b] for b in data[s:e]), s, e) for s, e in spans], shift
+
+
+    def decode_chain(self, tokens: List[str]) -> List[str]:
+        """One string: each token's chars mapped back to their bytes (a
+        token with a char outside the table keeps its own UTF-8 bytes),
+        all decoded with U+FFFD for what is not UTF-8 (reference
+        `byte_level.rs:160-180`, `from_utf8_lossy`)."""
+        out = bytearray()
+        for t in tokens:
+            bs = [CHAR_BYTES.get(c) for c in t]
+            out.extend(t.encode("utf-8") if None in bs else bs)
+        return [out.decode("utf-8", errors="replace")]
+
+    def decode(self, tokens: List[str]) -> str:
+        return "".join(self.decode_chain(tokens))
 
 
 def boundary_spans(data: bytes, boundaries) -> List[Tuple[int, int]]:

@@ -44,7 +44,14 @@ holds, for each of `TRAIN_RUNS`, the SHA-256 of the merge list and of the
 vocab that the wheel's BpeTrainer trains from the Whitespace words of the
 corpus lines (`train_lines`, `merges_digest`, `vocab_digest`), and their
 sizes; `regen` writes it too.  `recipe_json` gives a frozen recipe's
-tokenizer as it is before training.
+tokenizer as it is before training.  `data/unigram_train.json` holds the
+wheel's UnigramTrainer result at `UNIGRAM_TRAIN` on the `unigram` recipe
+(`load_unigram_train`), and `data/decode_digests.json`, per tokenizer of
+`DECODE_CONFIGS`, the SHA-256 of each 8 KB document's text as the wheel's
+`decode_batch` gives it back from the wheel's ids (`text_digest`), with
+and without `skip_special_tokens`, and for `STREAM_CONFIGS` the digest of
+each of the first `STREAM_DOCS` documents' `DecodeStream` steps
+(`stream_digest`).
 
 `first_ascii_chunk` and `unique_state` give the merge loop's first state
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
@@ -105,6 +112,17 @@ DENSE_SEED = 0
 # Whitespace words of the corpus lines (`data/train_digests.json`):
 # name -> (characters of the corpus, None for all; vocab size)
 TRAIN_RUNS = {"bench_512": (1 << 20, 512), "corpus_16000": (None, 16000)}
+# the Unigram training phase: the `unigram` fixture's pipeline retrained by
+# UnigramTrainer(vocab_size, special_tokens=["<unk>"], unk_token="<unk>")
+# on the lines of the corpus's first `chars` characters (`bench.py`'s slice)
+UNIGRAM_TRAIN = {"chars": 1 << 20, "vocab_size": 8000}
+# the decode phase: the tokenizers whose 8 KB document ids it decodes
+# (`decode_batch`, both `skip_special_tokens`), and those whose first
+# STREAM_DOCS documents it decodes through `decode_stream`
+DECODE_CONFIGS = ("gpt2", "llama3", "bert", "unigram", "unigram_bf", "char_bpe", "sp_bpe",
+                  "spm_bf", "wordlevel")
+STREAM_CONFIGS = ("gpt2", "unigram_bf")
+STREAM_DOCS = 32
 
 
 def build_docs(target: int = TARGET_BYTES, doc_bytes: int = DOC_BYTES) -> List[str]:
@@ -163,7 +181,9 @@ def long_parts() -> Dict[str, List[str]]:
 def spm_bf_json() -> str:
     """The Llama-2 SPM shape from `data/sp_bpe.json`: the 256 `<0xXX>`
     tokens appended to the vocab, the normalizer Sequence[Prepend("▁"),
-    Replace(" ", "▁")], no pre-tokenizer, `byte_fallback` and `fuse_unk`."""
+    Replace(" ", "▁")], no pre-tokenizer, `byte_fallback` and `fuse_unk`,
+    and the decoder Sequence[Replace("▁", " "), ByteFallback, Fuse,
+    Strip(" ", 1, 0)]."""
     with open(CHAR_CONFIGS["sp_bpe"], encoding="utf-8") as f:
         d = json.load(f)
     vocab = d["model"]["vocab"]
@@ -175,6 +195,10 @@ def spm_bf_json() -> str:
         {"type": "Prepend", "prepend": "▁"},
         {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]}
     d["pre_tokenizer"] = None
+    d["decoder"] = {"type": "Sequence", "decoders": [
+        {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+        {"type": "ByteFallback"}, {"type": "Fuse"},
+        {"type": "Strip", "content": " ", "start": 1, "stop": 0}]}
     return json.dumps(d, ensure_ascii=False)
 
 
@@ -212,16 +236,42 @@ def load_train_digests() -> Dict[str, Dict[str, object]]:
 
 
 def recipe_json(config: str) -> str:
-    """A CHAR_CONFIGS tokenizer as its recipe builds it before training:
-    the same pipeline with no added tokens and an empty vocab (the recipe
-    adds its special tokens after training, so they never split the
-    training text)."""
+    """A CHAR_CONFIGS or UNIGRAM_CONFIGS tokenizer as its recipe builds it
+    before training: the same pipeline with no added tokens and an empty
+    vocab, for Unigram the reference's default model (`<unk>` alone, unk
+    id 0) (the recipe adds its special tokens after training, so they
+    never split the training text)."""
     d = json.loads(config_json(config))
     d["added_tokens"] = []
-    d["model"]["vocab"] = {}
+    if d["model"]["type"] == "Unigram":
+        d["model"].update(vocab=[["<unk>", 0.0]], unk_id=0)
+    else:
+        d["model"]["vocab"] = {}
     if "merges" in d["model"]:
         d["model"]["merges"] = []
     return json.dumps(d, ensure_ascii=False)
+
+
+def load_unigram_train() -> Dict[str, object]:
+    """The wheel's Unigram training at UNIGRAM_TRAIN (`data/
+    unigram_train.json`: its settings and the trained [piece, score]
+    list)."""
+    with open(os.path.join(DATA, "unigram_train.json"), encoding="utf-8") as f:
+        return json.load(f)
+
+
+def text_digest(s: str) -> str:
+    return hashlib.sha256(s.encode("utf-8")).hexdigest()
+
+
+def stream_digest(pieces) -> str:
+    """SHA-256 of what a DecodeStream's steps gave (None as null), as JSON."""
+    return hashlib.sha256(json.dumps(list(pieces), ensure_ascii=False).encode("utf-8")).hexdigest()
+
+
+def load_decode_digests() -> Dict[str, object]:
+    with open(os.path.join(DATA, "decode_digests.json")) as f:
+        return json.load(f)
 
 
 def ids_digest(ids: Sequence[int]) -> str:

@@ -31,15 +31,19 @@ tokens:
   `normalizers.from_json`, Nmt and the `" {2,}"` regex Replace among
   them (the fixtures' Sequence; these two are admitted in this pipeline
   only), Metaspace (replacement `▁`, prepend scheme "always", split), no
-  post-processor or a single-sequence TemplateProcessing and the
-  Metaspace decoder (or none); added tokens `normalized: false`.
+  post-processor or a single-sequence TemplateProcessing; added tokens
+  `normalized: false`.
+
+Every pipeline takes any decoder of `decoders/` (`decoders.from_json`:
+ByteLevel, Metaspace, WordPiece, BPEDecoder, ByteFallback, Fuse, Strip,
+CTC, Replace and Sequences of them) or none.
 
 Floats are parsed as the wheel's serde_json parses them
 (`utils.serde_float.serde_f64`): Unigram's Viterbi ties turn on the last
 ulp of its scores.
 
-Decoders are held, not run: decode is not ported.  Anything else raises
-`NotImplementedError` naming the later slice of the port that brings it.
+Anything else raises `NotImplementedError` naming the later slice of
+the port that brings it.
 
 `encode_batch_fast` (ids) and `encode_batch` (ids with char offsets,
 token strings and word ids; `encode_batch_byte_offsets` for byte
@@ -49,10 +53,18 @@ device is `cuda` unless the caller asks for `device="cpu"`, where every
 kernel runs its plain PyTorch version.  Pairs and pre-tokenized input
 wait for a later slice.
 
-`train` and `train_from_iterator` train the BPE, WordPiece or WordLevel
-model with a trainer of `trainers/` (BPE and WordPiece on the trainer's
-device) on the words of `train_words`, then add the trainer's special
-tokens (`add_special_tokens`) and drop the device engine.
+`train` and `train_from_iterator` train the BPE, WordPiece, WordLevel or
+Unigram model with a trainer of `trainers/` (BPE and WordPiece on the
+trainer's device, Unigram's E-step and pruning statistics too) on the
+words of `train_words`, then add the trainer's special tokens
+(`add_special_tokens`) and drop the device engine.
+
+`decode`, `decode_batch` (serial) and `decode_stream` (`DecodeStream`)
+turn ids back into text on the host, as the reference does
+(`tokenizer/mod.rs:1017-1127`, `:1329-1345`): each id's token from the
+added tokens or the model, special ones dropped with
+`skip_special_tokens`, through the decoder (tokens joined by spaces
+without one).
 """
 
 from __future__ import annotations
@@ -62,11 +74,12 @@ import re
 from typing import Iterable, List, Optional, Union
 
 from . import pick_device
+from .decoders import from_json as decoder_from_json
 from .encoding import Encoding
 from .models.bpe import BPE
 from .models.unigram import Unigram
 from .models.wordlevel import WordLevel
-from .models.wordpiece import WordPiece, WordPieceDecoder
+from .models.wordpiece import WordPiece
 from .normalized import NormalizedString, char_to_byte_offsets
 from .normalizers import Nmt, Replace
 from .normalizers import Sequence as NormalizerSequence
@@ -92,14 +105,6 @@ _CLASS_SPLITS = {"Whitespace": Whitespace, "WhitespaceSplit": WhitespaceSplit,
                  "BertPreTokenizer": BertPreTokenizer}
 _METASPACE_KEYS = {"type", "replacement", "prepend_scheme", "split"}
 _UNIGRAM_KEYS = {"type", "unk_id", "vocab", "byte_fallback"}
-
-
-class HeldDecoder:
-    """A decoder's settings (BPEDecoder, Metaspace), held as the loader
-    read them: decode is not ported."""
-
-    def __init__(self, d: dict):
-        self.settings = dict(d)
 
 
 def _unsupported(what: str, slice_name: str):
@@ -164,8 +169,8 @@ def _load_llama3_sequence(d: dict) -> Sequence:
 
 def _load_bert(d: dict):
     """(normalizer, pre-tokenizer, model, decoder) of the BERT pipeline:
-    exactly BertNormalizer, BertPreTokenizer, WordPiece, TemplateProcessing
-    (or no post-processor) and the WordPiece decoder (or none)."""
+    exactly BertNormalizer, BertPreTokenizer, WordPiece and
+    TemplateProcessing (or no post-processor)."""
     nz = d.get("normalizer")
     if nz is None or nz.get("type") != "BertNormalizer" or set(nz) - _BERT_NORMALIZER_KEYS:
         _unsupported("the BertPreTokenizer without its BertNormalizer", "a later slice")
@@ -177,18 +182,12 @@ def _load_bert(d: dict):
     pp = d.get("post_processor")
     if pp is not None and pp.get("type") != "TemplateProcessing":
         _unsupported(f"post-processor {pp.get('type')!r} in the BERT pipeline", "a later slice")
-    dec = d.get("decoder")
-    if dec is not None and (dec.get("type") != "WordPiece"
-                            or set(dec) - {"type", "prefix", "cleanup"}):
-        _unsupported(f"decoder {dec.get('type')!r} in the BERT pipeline", "a later slice")
     normalizer = BertNormalizer(nz.get("clean_text", True), nz.get("handle_chinese_chars", True),
                                 nz.get("strip_accents"), nz.get("lowercase", True))
     model = WordPiece(m.get("vocab", {}), unk_token=m.get("unk_token", "[UNK]"),
                       continuing_subword_prefix=m.get("continuing_subword_prefix", "##"),
                       max_input_chars_per_word=int(m.get("max_input_chars_per_word", 100)))
-    decoder = None if dec is None else WordPieceDecoder(dec.get("prefix", "##"),
-                                                        dec.get("cleanup", True))
-    return normalizer, BertPreTokenizer(), model, decoder
+    return normalizer, BertPreTokenizer(), model, decoder_from_json(d.get("decoder"))
 
 
 def _merges(d: dict):
@@ -244,16 +243,10 @@ def _load_aligned(d: dict):
         _unsupported(f"post-processor {pp.get('type')!r} behind a "
                      f"{'no' if pt_d is None else pt_d.get('type')} pre-tokenizer",
                      "a later slice")
-    dec = d.get("decoder")
-    if dec is not None and not (
-            (dec.get("type") == "BPEDecoder" and set(dec) <= {"type", "suffix"})
-            or (dec.get("type") == "Metaspace" and set(dec) <= _METASPACE_KEYS)):
-        _unsupported(f"decoder {dec.get('type')!r} in a WordLevel or char-level BPE "
-                     f"pipeline", "a later slice")
     if not isinstance(model, Unigram) and _unigram_only(normalizer):
         _unsupported("Nmt or a regex Replace outside the Unigram pipeline", "a later slice")
     return (normalizer, pt, model, _load_post_processor(pp, True),
-            None if dec is None else HeldDecoder(dec))
+            decoder_from_json(d.get("decoder")))
 
 
 def _unigram_only(normalizer) -> bool:
@@ -279,7 +272,7 @@ class Tokenizer:
     def __init__(self, model: Union[BPE, WordPiece, WordLevel, Unigram], pre_tokenizer,
                  added_tokens: Iterable[dict] = (),
                  post_processor: Union[ByteLevel, TemplateProcessing, None] = None,
-                 decoder: Union[ByteLevel, WordPieceDecoder, HeldDecoder, None] = None,
+                 decoder=None,
                  device=None, normalizer=None):
         self.model = model
         # WordLevel, char-level BPE and Unigram: offsets through the alignments
@@ -295,6 +288,7 @@ class Tokenizer:
         self._added_re = re.compile("|".join(map(re.escape, contents))) if contents else None
         self._engine = None
         self._engine_built = False
+        self._added_r = None  # id -> added token, built at first decode
 
     # ------------------------------------------------------------------ io
 
@@ -338,7 +332,7 @@ class Tokenizer:
         return cls(
             _load_model(d["model"], llama3), pt, added,
             post_processor=_load_post_processor(d.get("post_processor"), llama3),
-            decoder=_load_byte_level(d.get("decoder"), "decoder"),
+            decoder=decoder_from_json(d.get("decoder")),
             device=device,
         )
 
@@ -483,11 +477,46 @@ class Tokenizer:
         self._added_re = re.compile("|".join(map(re.escape, contents))) if contents else None
         self._engine = None
         self._engine_built = False
+        self._added_r = None
         return added
 
     def token_to_id(self, token: str) -> Optional[int]:
         tid = self.added.get(token)
         return tid if tid is not None else self.model.vocab.get(token)
+
+    def id_to_token(self, id: int) -> Optional[str]:
+        """The added token of `id`, else the model's token (None if neither
+        has it)."""
+        if self._added_r is None:
+            self._added_r = {v: k for k, v in self.added.items()}
+        tok = self._added_r.get(id)
+        if tok is not None:
+            return tok
+        return self.model.vocab_r.get(id)
+
+    # ---------------------------------------------------------------- decode
+
+    def decode(self, ids: Iterable[int], skip_special_tokens: bool = True) -> str:
+        """The text of `ids`: each id's token (unknown ids dropped; the added
+        tokens, all special, dropped with `skip_special_tokens`) through
+        the decoder, or joined by spaces without one."""
+        tokens = []
+        for i in ids:
+            token = self.id_to_token(int(i))
+            if token is None or (skip_special_tokens and token in self.added):
+                continue
+            tokens.append(token)
+        if self.decoder is not None:
+            return self.decoder.decode(tokens)
+        return " ".join(tokens)
+
+    def decode_batch(self, sequences: Iterable[Iterable[int]],
+                     skip_special_tokens: bool = True) -> List[str]:
+        """`decode` of each sequence, serially."""
+        return [self.decode(ids, skip_special_tokens) for ids in sequences]
+
+    def decode_stream(self, skip_special_tokens: bool = True) -> "DecodeStream":
+        return DecodeStream(self, skip_special_tokens)
 
     def _get_device_engine(self):
         """The device engine, built once; None when the vocab lacks a byte
@@ -627,3 +656,43 @@ class Tokenizer:
             process_offsets(encoding, self.post_processor.add_prefix_space)
         encoding.set_sequence_id(0)
         return encoding
+
+
+class DecodeStream:
+    """Incremental decoding (reference `tokenizer/mod.rs:1017-1127`): each
+    `step` gives the text its ids add, or None while the text ends in a
+    partial character (U+FFFD) or adds nothing; the ids already shown
+    are dropped but for those the next step's text needs as its
+    prefix."""
+
+    __slots__ = ("tokenizer", "skip_special_tokens", "ids", "prefix", "prefix_index")
+
+    def __init__(self, tokenizer: Tokenizer, skip_special_tokens: bool = True):
+        self.tokenizer = tokenizer
+        self.skip_special_tokens = skip_special_tokens
+        self.ids: List[int] = []
+        self.prefix = ""
+        self.prefix_index = 0
+
+    def step(self, id: int) -> Optional[str]:
+        decode = self.tokenizer.decode
+        if not self.prefix and self.ids:
+            new_prefix = decode(self.ids, self.skip_special_tokens)
+            if not new_prefix.endswith("\ufffd"):
+                self.prefix = new_prefix
+                self.prefix_index = len(self.ids)
+        self.ids.append(id)
+        string = decode(self.ids, self.skip_special_tokens)
+        if len(string.encode("utf-8")) > len(self.prefix.encode("utf-8")) \
+                and not string.endswith("\ufffd"):
+            if not string.startswith(self.prefix):
+                raise ValueError(f"Invalid prefix encountered while decoding stream. Token ID: "
+                                 f"{self.ids[-1]}, Expected prefix: {self.prefix!r}, Actual "
+                                 f"string: {string!r}")
+            new_text = string[len(self.prefix):]
+            new_prefix_index = len(self.ids) - self.prefix_index
+            self.ids = self.ids[self.prefix_index:]
+            self.prefix = decode(self.ids, self.skip_special_tokens)
+            self.prefix_index = new_prefix_index
+            return new_text
+        return None
