@@ -161,7 +161,30 @@
    (`data/decode_digests.json`), and `decode_stream` over the first 32
    documents of gpt2 and unigram_bf against the wheel's stream; B1-B4
    counts stay 0.
-14. Prints a line of numbers per path, the per-kernel JSON line (with each
+14. The multi-rank runtime (`multirank_path`): (a) a one-rank NCCL group
+   in this process: `shard_encode_batch_arrays` of the 512 8 KB
+   documents with gpt2 (every row it does not flag against its digest,
+   the flagged share printed), both BPE trainers' mesh paths on phase
+   11's config (a) against the wheel's digests, `DeviceEm` over the mesh
+   bit-equal to the unsharded one on the `unigram` fixture's model, and
+   `entry()`'s program, then `destroy_process_group`; the B3, B2 and B1
+   launches of the sharded encode and of `entry()`'s program, each
+   counted from 0 just before it and read just after (reported apart),
+   are held bit for bit against their plain versions in a checked second
+   run of each; (b) two gloo ranks
+   sharing the card (`multirank_rank`, spawned): with the default mesh of
+   both, `encode_batch_fast` of the 512 documents with gpt2,
+   llama3_128k, bert, unigram and char_bpe, each rank's whole list
+   against every digest, every B3, B2 and B1 launch counted per rank and
+   held bit for bit against its plain version in a checked second run;
+   phase 11's config (a) on the dense and the per-round trainer and
+   phase 12's Unigram setting, against the single-rank results (the
+   wheel's; a swapped piece must be a near tie, and is named); (c)
+   `dryrun_multichip(2, backend="gloo")`'s two ranks, each under
+   `checked_run` (`multirank_dryrun_rank`), so that every launch of its
+   sharded encode is held against its plain version.  Every run's seconds, its rank
+   count and backend are printed beside the card's name and power limit.
+15. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -1519,6 +1542,321 @@ def decode_path(torch, stats, counts, numbers):
         s_["decode_launches"] = launches[k]
 
 
+MULTIRANK_CONFIGS = ("gpt2", "llama3", "bert", "unigram", "char_bpe")  # llama3: llama3_128k
+MULTIRANK_KERNELS = ("layout_fused", "layout_fused_wide", "keys", "merge_round_fused",
+                     "merge_round_fused_wide")
+
+
+def _near_tie_swaps(got, ref, tol=1.6e-3):
+    """The pieces one piece list has and the other lacks, each with its
+    score and whether it lies within `tol` of its list's lowest kept
+    score (a near tie at the pruning's cut)."""
+    out = []
+    for mine, other, side in ((got, ref, "sharded only"), (ref, got, "single-rank only")):
+        low = min(v for k, v in mine.items() if k != "<unk>")
+        out += [{"piece": p, "score": mine[p], "side": side, "near_tie": mine[p] - low <= tol}
+                for p in set(mine) - set(other)]
+    return out
+
+
+def multirank_rank(rank, world):
+    """Phase 14's work in one of two gloo ranks sharing the card (started
+    by `runtime.spawn`): `encode_batch_fast` of the 512 8 KB documents
+    over the default mesh of both ranks with each of MULTIRANK_CONFIGS,
+    every document against its digest, every launch of B3, B2 and B1 held
+    bit for bit against its plain version in a second, checked run; then
+    phase 11's train config (a) on the dense and the per-round trainer
+    against the wheel's digests, and phase 12's Unigram setting against
+    the wheel's pieces (the single-rank run's).  Returns the rank's
+    numbers; raises on any mismatch."""
+    import math
+
+    import torch
+
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.models.bpe import BPE
+    from tokenizers_tpu_torch.ops import engine_base
+    from tokenizers_tpu_torch.ops import layout_kernels as lk
+    from tokenizers_tpu_torch.ops import merge_kernels as mk
+    from tokenizers_tpu_torch.parallel import DistributedBpeTrainer, runtime
+    from tokenizers_tpu_torch.parallel.bpe_train import check_replicated, train_per_round
+    from tokenizers_tpu_torch.pre_tokenizers.whitespace import Whitespace
+    from tokenizers_tpu_torch.smoke_data import (
+        TRAIN_RUNS, UNIGRAM_TRAIN, build_docs, config_json, ids_digest, load_digests,
+        load_train_digests, load_unigram_train, merges_digest, recipe_json, train_lines,
+        vocab_digest,
+    )
+    from tokenizers_tpu_torch.trainers import BpeTrainer, UnigramTrainer
+
+    mesh = runtime.build_mesh(("data",))
+    shard = runtime.mesh_group(mesh)
+    counts = {"layout_fused": lk.LAUNCHES, "layout_fused_wide": lk.LAUNCHES,
+              "keys": mk.LAUNCHES, "merge_round_fused": mk.LAUNCHES,
+              "merge_round_fused_wide": mk.LAUNCHES}
+    out = {"rank": rank, "ranks": world, "backend": torch.distributed.get_backend(),
+           "encode": {}, "train": {}}
+    docs = build_docs()
+    runtime.set_default_mesh(mesh)
+    for config in MULTIRANK_CONFIGS:
+        tok = Tokenizer.from_str(config_json(config))
+        digests = load_digests(config)
+        tok._get_device_engine()
+        for c in counts.values():
+            for k in c:
+                c[k] = 0
+        engine_base.STATS.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        encs = tok.encode_batch_fast(docs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {k: counts[k][k] for k in MULTIRANK_KERNELS}
+        bad = [i for i, e in enumerate(encs) if ids_digest(e.ids) != digests[i]]
+        if bad:
+            raise SystemExit(f"multi-rank {config} (rank {rank}): {len(bad)} documents differ "
+                             f"from their digests: {bad[:10]}")
+        r = {"secs": secs, "launches": launches, **engine_base.STATS.snapshot()}
+        if any(launches.values()):
+            r["shapes"], r["max_abs_err"] = checked_again(
+                torch, lambda: tok.encode_batch_fast(docs), f"multi-rank {config} rank {rank}",
+                launches, lambda e: ids_digest(e.ids), digests)
+        out["encode"][config] = r
+    runtime.set_default_mesh(None)
+
+    ws = Whitespace()
+    want = load_train_digests()["bench_512"]
+    nchars, vocab_size = TRAIN_RUNS["bench_512"]
+    lines = train_lines(nchars)
+    for path in ("dense", "per_round"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model = BPE({}, [])
+        if path == "dense":
+            tr = DistributedBpeTrainer(mesh=mesh, vocab_size=vocab_size)
+            tr.feed(lines, ws.pre_tokenize)
+            tr.train(model)
+            st = tr.stats
+        else:
+            cfg = BpeTrainer(vocab_size=vocab_size)
+            cfg.feed(lines, ws.pre_tokenize)
+            w2i, i2w, words, wcounts = cfg.prepare(cfg.words)
+            merges = train_per_round(cfg, w2i, i2w, words, wcounts, "cuda", cfg.stats, shard)
+            check_replicated(merges, shard[0], "cuda")
+            cfg.finalize_model(model, w2i, i2w, merges)
+            st = cfg.stats
+        torch.cuda.synchronize()
+        got = {"merges_sha256": merges_digest(model.merges_list),
+               "n_merges": len(model.merges_list), "vocab_sha256": vocab_digest(model.vocab),
+               "vocab_size": len(model.vocab)}
+        if got != want or st["path"] != path:
+            raise SystemExit(f"multi-rank train (a) {path} (rank {rank}): {got} on the "
+                             f"{st['path']} path, the single-rank run's {want}")
+        out["train"][f"bench_512_{path}"] = {"secs": time.perf_counter() - t,
+                                             "loop_s": st["loop_s"], "merges": st["merges"]}
+
+    t = time.perf_counter()
+    tok = Tokenizer.from_str(recipe_json("unigram"))
+    tr = UnigramTrainer(vocab_size=UNIGRAM_TRAIN["vocab_size"], special_tokens=["<unk>"],
+                        unk_token="<unk>", mesh=mesh)
+    tok.train_from_iterator(train_lines(UNIGRAM_TRAIN["chars"]), tr)
+    got = dict(tok.model.pieces)
+    ref = {p: s_ for p, s_ in load_unigram_train()["vocab"]}
+    swaps = _near_tie_swaps(got, ref)
+    if any(not x["near_tie"] for x in swaps) or len(got) != len(ref):
+        raise SystemExit(f"multi-rank unigram train (rank {rank}): pieces unlike the "
+                         f"single-rank run's: {swaps[:10]}")
+    off = [p for p in set(got) & set(ref)
+           if not math.isclose(ref[p], got[p], rel_tol=1e-6, abs_tol=1e-4 * 16)]
+    if off:
+        raise SystemExit(f"multi-rank unigram train (rank {rank}): {len(off)} scores off: "
+                         f"{off[:5]}")
+    st = tr.stats
+    out["train"]["unigram_8000"] = {
+        "secs": time.perf_counter() - t, "e_steps": st["e_steps"],
+        "e_steps_s": sum(st["e_step_s"]), "viterbi_freq_s": sum(st["viterbi_s"]),
+        "chunks": st["chunks"], "pieces": len(got), "near_tie_swaps": swaps}
+    return out
+
+
+def multirank_dryrun_rank(rank, world):
+    """One rank of `dryrun_multichip(2, backend="gloo")` (what it spawns,
+    `entry._dryrun_rank`) under `checked_run`: every B3, B2 and B1 launch
+    of its sharded encode held bit for bit against its plain version."""
+    import torch
+
+    from tokenizers_tpu_torch import entry as port_entry
+
+    out, shapes, errs = checked_run(torch, lambda: port_entry._dryrun_rank(rank, world, None))
+    return {**out, "shapes": shapes, "max_abs_err": errs}
+
+
+def multirank_path(torch, stats, counts, numbers, smi):
+    """Phase 14, the multi-rank runtime (docstring item 14).  Adds each
+    kernel's `multirank_launches` (per rank) to `stats`."""
+    import tempfile
+
+    import numpy as np
+
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch import entry as port_entry
+    from tokenizers_tpu_torch.models.bpe import BPE
+    from tokenizers_tpu_torch.ops.unigram_em_step import DeviceEm
+    from tokenizers_tpu_torch.parallel import (
+        DistributedBpeTrainer, runtime, shard_encode_batch_arrays,
+    )
+    from tokenizers_tpu_torch.parallel.bpe_train import train_per_round
+    from tokenizers_tpu_torch.pre_tokenizers.whitespace import Whitespace
+    from tokenizers_tpu_torch.smoke_data import (
+        TRAIN_RUNS, build_docs, ids_digest, load_digests, load_train_digests,
+        merges_digest, recipe_json, train_lines, vocab_digest,
+    )
+    from tokenizers_tpu_torch.trainers import BpeTrainer
+
+    def zero():
+        for c in counts.values():
+            for k in c:
+                c[k] = 0
+
+    def read():
+        return {k: c[k] for k, c in counts.items()}
+
+    def key(out):  # a program's outputs, bit for bit
+        return [t.cpu().numpy().tobytes() if torch.is_tensor(t) else repr(t) for t in out]
+
+    phase = {"card": smi}
+    t_phase = time.perf_counter()
+    errs_a = []
+
+    # ---- (a) a one-rank NCCL group in this process
+    docs = build_docs()
+    with tempfile.TemporaryDirectory(prefix="tt_store_") as d:
+        t = time.perf_counter()
+        runtime.initialize(f"file://{d}/store", 1, 0, backend="nccl")
+        try:
+            backend = torch.distributed.get_backend()
+            if backend != "nccl":
+                raise SystemExit(f"multi-rank: the one-rank group runs {backend}, not nccl")
+            mesh = runtime.build_mesh(("data",))
+            one = {"backend": backend, "ranks": 1}
+            tok = Tokenizer.from_file(GPT2)
+            eng = tok._get_device_engine()
+            digests = load_digests("gpt2")
+            zero()
+            t0 = time.perf_counter()
+            chunks = shard_encode_batch_arrays(eng, docs, mesh)
+            torch.cuda.synchronize()
+            one["shard_encode_s"] = time.perf_counter() - t0
+            launches_a = read()
+            _shapes, errs = checked_again(
+                torch, lambda: shard_encode_batch_arrays(eng, docs, mesh),
+                "multi-rank shard_encode_batch_arrays (nccl)", launches_a, key,
+                [key(ch) for ch in chunks])
+            errs_a.append(errs)
+            flagged = matched = 0
+            for ids, ntok, bad, orig in chunks:
+                ids, ntok, bad = ids.cpu().numpy(), ntok.cpu().numpy(), bad.cpu().numpy()
+                for r, i in enumerate(orig):
+                    if bad[r]:
+                        flagged += 1
+                    elif ids_digest(ids[r, :ntok[r]].tolist()) != digests[i]:
+                        raise SystemExit(f"multi-rank shard_encode_batch (nccl): document {i}")
+                    else:
+                        matched += 1
+            one.update(shard_encode_docs_matched=matched, shard_encode_flagged=flagged,
+                       flagged_share=flagged / len(docs))
+            ws = Whitespace()
+            want = load_train_digests()["bench_512"]
+            nchars, vocab_size = TRAIN_RUNS["bench_512"]
+            lines = train_lines(nchars)
+            for path in ("dense", "per_round"):
+                model = BPE({}, [])
+                t0 = time.perf_counter()
+                if path == "dense":
+                    tr = DistributedBpeTrainer(mesh=mesh, vocab_size=vocab_size)
+                    tr.feed(lines, ws.pre_tokenize)
+                    tr.train(model)
+                else:
+                    cfg = BpeTrainer(vocab_size=vocab_size)
+                    cfg.feed(lines, ws.pre_tokenize)
+                    w2i, i2w, words, wcounts = cfg.prepare(cfg.words)
+                    cfg.finalize_model(model, w2i, i2w, train_per_round(
+                        cfg, w2i, i2w, words, wcounts, "cuda", cfg.stats,
+                        runtime.mesh_group(mesh)))
+                got = {"merges_sha256": merges_digest(model.merges_list),
+                       "n_merges": len(model.merges_list),
+                       "vocab_sha256": vocab_digest(model.vocab), "vocab_size": len(model.vocab)}
+                if got != want:
+                    raise SystemExit(f"multi-rank train (a) {path} (nccl): {got}, want {want}")
+                one[f"train_bench_512_{path}_s"] = time.perf_counter() - t0
+            # DeviceEm over the mesh against the unsharded, bit for bit at one rank
+            tok_u = Tokenizer.from_str(recipe_json("unigram"))
+            words = {}
+            for line in train_lines(1 << 17):
+                for w in tok_u.train_words(line):
+                    words[w] = words.get(w, 0) + 1
+            sentences = list(words.items())
+            model = Tokenizer.from_file(UNIGRAM).model
+            t0 = time.perf_counter()
+            sharded = DeviceEm(sentences, mesh=mesh)
+            got = (*sharded.e_step(model), sharded.viterbi_freq(model))
+            one["device_em_s"] = time.perf_counter() - t0
+            plain = DeviceEm(sentences)
+            ref = (*plain.e_step(model), plain.viterbi_freq(model))
+            if not all(np.array_equal(a, b) for a, b in zip(got, ref)):
+                raise SystemExit("multi-rank DeviceEm (nccl, one rank) differs from unsharded")
+            fn, args = port_entry.entry()
+            zero()
+            e_ids, e_ntok, e_bad = fn(*args)
+            launches_e = read()
+            _shapes, errs = checked_again(torch, lambda: [fn(*args)],
+                                          "multi-rank entry() (nccl)", launches_e, key,
+                                          [key((e_ids, e_ntok, e_bad))])
+            errs_a.append(errs)
+            for r, n in enumerate(args[1].tolist()):
+                text = bytes(args[0][r, :n].tolist()).decode("utf-8")
+                if bool(e_bad[r]) or e_ids[r, :int(e_ntok[r])].tolist() != \
+                        tok.encode_host(text, False).ids:
+                    raise SystemExit(f"multi-rank entry(): row {r} unlike the host pipeline")
+        finally:
+            runtime.shutdown()
+        one["secs"] = time.perf_counter() - t
+    phase["nccl_one_rank"] = one
+    print("multi-rank nccl one rank: " + json.dumps(one), flush=True)
+
+    # ---- (b) two gloo ranks sharing the card
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = runtime.spawn(multirank_rank, 2, backend="gloo", timeout_s=600)
+    phase["gloo_two_ranks"] = {"secs": time.perf_counter() - t, "ranks": ranks}
+    for r in ranks:
+        print(f"multi-rank gloo rank {r['rank']}: " + json.dumps(r), flush=True)
+
+    # ---- (c) the dry run in two gloo ranks: `dryrun_multichip(2, backend="gloo")`
+    # with every launch held against its plain version
+    t = time.perf_counter()
+    dry = runtime.spawn(multirank_dryrun_rank, 2, backend="gloo", timeout_s=600)
+    phase["dryrun_gloo_two_ranks"] = {"secs": time.perf_counter() - t, "ranks": dry}
+    print("multi-rank dryrun_multichip(2, backend='gloo'): " + json.dumps(dry), flush=True)
+    phase["secs"] = time.perf_counter() - t_phase
+    numbers["multirank"] = phase
+    print("numbers " + json.dumps({"multirank": {k: v for k, v in phase.items()
+                                                 if k != "gloo_two_ranks"}}), flush=True)
+    for k, s_ in stats.items():
+        per_rank = [sum(r["encode"][c]["launches"].get(k, 0) for c in MULTIRANK_CONFIGS)
+                    for r in ranks]
+        s_["multirank_launches"] = {"nccl_shard_encode": launches_a[k],
+                                    "nccl_entry": launches_e[k],
+                                    "gloo_rank0": per_rank[0], "gloo_rank1": per_rank[1],
+                                    "gloo_dryrun": [sum(r["shapes"].get(k, {}).values())
+                                                    for r in dry]}
+        for err in errs_a + [r["max_abs_err"] for r in dry]:
+            s_["max_abs_err"] = max(s_["max_abs_err"], err.get(k, 0))
+        for r in ranks:
+            for c in MULTIRANK_CONFIGS:
+                err = r["encode"][c].get("max_abs_err", {})
+                s_["max_abs_err"] = max(s_["max_abs_err"], err.get(k, 0))
+
+
 def stats_launches(runs, k):
     return sum(r["cold"]["launches"][k] for r in runs.values())
 
@@ -1782,6 +2120,9 @@ def main() -> int:
     # ---- 13. decode ---------------------------------------------------------------
     decode_path(torch, stats, counts, numbers)
 
+    # ---- 14. the multi-rank runtime ------------------------------------------------
+    multirank_path(torch, stats, counts, numbers, smi)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -1822,6 +2163,7 @@ def main() -> int:
          "decode_launches": s["decode_launches"],
          "char_level_launches": s["char_level_launches"],
          "char_level_shapes": s["char_level_shapes"],
+         "multirank_launches": s["multirank_launches"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "shape": s["shape"], **{x: s[x] for x in extra if x in s}}

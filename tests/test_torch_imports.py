@@ -4,7 +4,9 @@ loads no module of JAX, `regex`, the `tokenizers` wheel or
 the gpt2, llama3, bert, WordLevel, char-level BPE and Unigram pipelines;
 BPE training on the dense and the per-round path, WordPiece, WordLevel
 and Unigram training, `Tokenizer.train_from_iterator`, `decode` and
-`decode_stream`), and no source file of the package imports them."""
+`decode_stream`; a process group of one rank through the sharded encode,
+both trainers' mesh arguments and `entry`), and no source file of the
+package imports them."""
 
 import os
 import re
@@ -92,6 +94,26 @@ for name in ("gpt2", "bert", "spm_bf", "unigram_bf"):
     ids = tok.encode_batch_fast(["Hello world ☃"])[0].ids
     stream = tok.decode_stream()
     assert "".join(x for x in map(stream.step, ids) if x) == tok.decode(ids), name
+import tempfile
+from tokenizers_tpu_torch import entry
+from tokenizers_tpu_torch.models.unigram import Unigram
+from tokenizers_tpu_torch.parallel import runtime, shard_encode_batch
+assert runtime.initialize() is False
+runtime.initialize("file://" + tempfile.mkdtemp() + "/store", 1, 0, device="cpu")
+mesh = runtime.build_mesh(("hosts", "data"))
+tok = Tokenizer.from_file("tests/fixtures/gpt2/tokenizer.json", device="cpu")
+got = shard_encode_batch(tok._get_device_engine(), ["Hello world!"], mesh)
+assert got == [tok.encode_host("Hello world!").ids], got
+model = BPE({}, [])
+DistributedBpeTrainer(mesh=mesh, device="cpu", vocab_size=60).do_train({"low": 3, "newest": 4}, model)
+assert model.merges_list, model.merges_list
+trainer = UnigramTrainer(vocab_size=12, special_tokens=["<unk>"], unk_token="<unk>",
+                         device="cpu", mesh=mesh)
+trainer.words = {"abc": 2, "abd": 1, "bcd": 1, "abcd": 1}
+trainer.train(Unigram([("<unk>", 0.0)], unk_id=0))
+fn, args = entry.entry("cpu")
+assert fn(*args)[0].shape == (2, 64)
+runtime.shutdown()
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

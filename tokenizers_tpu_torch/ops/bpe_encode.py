@@ -160,7 +160,7 @@ def gpt2_boundaries(b, inb, cls_table, ascii_only=False):
 
 
 def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False,
-                boundary="gpt2", whole_word=False):
+                boundary="gpt2", whole_word=False, geom_rows=None):
     """uint8[B, L] bytes + int32[B] lengths -> (ids int32[B, out_w],
     ntok int32[B], row_bad bool[B]), out_w = max(L // 2, 64).
 
@@ -170,7 +170,11 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False,
     p = 0, no hits).  `ascii_only`: every byte < 128 (the layout kernel's
     chunks).  `boundary`: the pre-split rule set, "gpt2" or "llama3".
     `whole_word`: the BPE `ignore_merges` bypass through the whole-word
-    table (`tables["ww_rows0"]`, `["ww_rows1"]`, `["ww_seed"]`)."""
+    table (`tables["ww_rows0"]`, `["ww_rows1"]`, `["ww_seed"]`).
+    `geom_rows`: the rows the buffers are sized for (default B; a rank's
+    block of a chunk on a mesh takes the whole chunk's, so that it fits
+    wherever the whole chunk would; it holds only its block's words, so
+    where the whole chunk overflows, the blocks flag fewer rows)."""
     B, L = bytes_u8.shape
     dev = bytes_u8.device
     b = bytes_u8.to(torch.int32)
@@ -187,7 +191,8 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False,
     wlen = torch.minimum(nxt_bnd, lengths[:, None]) - pos
     row_bad = (bnd & (wlen > WORD_CAP)).any(1)
 
-    geom = buffer_geometry(B * L)
+    BL = (B if geom_rows is None else geom_rows) * L
+    geom = buffer_geometry(BL)
     out_w = max(L // 2, 64)
     reset = False
     if cache is not None:
@@ -211,7 +216,7 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False,
             tables["merge_rows1"], seed, tables["merge_mclr"], out_w, geom,
             cache_state=cache, **ww,
         )
-    elif B * L >= int(os.environ.get("TOKENIZERS_TPU_BIG_BUCKET_MIN", 1 << 20)):
+    elif BL >= int(os.environ.get("TOKENIZERS_TPU_BIG_BUCKET_MIN", 1 << 20)):
         # big buckets whose unique words overflow the dedup buffer go to
         # the host whole (row_bad)
         ids_pk = torch.full((B, out_w), -1, dtype=torch.int32, device=dev)

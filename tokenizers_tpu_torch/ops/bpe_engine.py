@@ -15,7 +15,8 @@ in place.  Same-shape chunks of one batch run in order through one
 program call, so each distinct word of the batch is merged once.
 
 The offsets path (`_program_offsets`) runs one chunk at a time through
-`bpe_encode.encode_core_offsets`, with no word cache.
+`bpe_encode.encode_core_offsets`, with no word cache; so does each rank
+on a mesh through `encode_core` (`_program_mesh`).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .bpe_dedup import H1_MULT, H2_MULT, WordCache
-from .bpe_encode import encode_core_offsets, encode_program_scan
+from .bpe_encode import encode_core, encode_core_offsets, encode_program_scan
 from .engine_base import DeviceEngineBase
 from .merge_table import CuckooMergeTable, consume_mins
 from .unicode_tables import char_class_flat
@@ -190,6 +191,15 @@ class ByteLevelBpeEngine(DeviceEngineBase):
                 for k, i in enumerate(idxs):
                     out[i] = (ids[k], ntok[k], bad[k])
         return out
+
+    def _program_mesh(self, buf: np.ndarray, lengths: np.ndarray, rows: int):
+        """One rank's block of a chunk on the mesh: `encode_core` with no
+        word cache (JAX's mesh branch) and the whole chunk's buffer sizes."""
+        T = self.tables
+        return encode_core(torch.from_numpy(buf).to(self.device),
+                           torch.from_numpy(lengths).to(self.device), T, cache=None,
+                           ascii_only=self._is_ascii(buf), boundary=T["boundary"],
+                           whole_word=T["whole_word"], geom_rows=rows)
 
     def _program_offsets(self, buf: np.ndarray, lengths: np.ndarray):
         """One packed chunk through the offsets path: (ids, ntok, row_bad,

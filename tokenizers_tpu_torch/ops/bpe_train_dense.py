@@ -1,6 +1,6 @@
 """Device-resident BPE training: every merge on the device, the pair counts
 in one dense `int32[v_cap, v_pad]` matrix; port of
-`tokenizers_tpu.ops.bpe_train_dense` on one device.
+`tokenizers_tpu.ops.bpe_train_dense`.
 
 Selection is a flat argmax over the matrix: its first maximum is the
 reference's (count desc, pair asc) tie-break (`models/bpe/trainer.rs:30-39`).
@@ -22,6 +22,16 @@ id when the string exists: ("ab", "c") and ("a", "bc") make one token)
 and hands the id to the device as an int.  The stop test and
 the choice of delta branch (packed sites when they fit `site_cap`, else
 every position; both give the same counts) are made on that read.
+
+Over a process group (`shard`) the packed rows are split over the ranks
+(`pack_corpus(..., nshard=ranks)`, each rank a contiguous block) and the
+matrix is replicated.  The JAX package adds `psum(D)` of a dense delta
+matrix each merge; here each rank's merge pass gives its (flat index,
+delta) list, the lists are gathered (variable length) and every rank
+`index_add_`s all of them: integer sums in any order, so the matrices stay
+bit-equal, and no dense matrix crosses the group (about 1 GB a merge at
+v_cap 16,385).  The initial matrix is counted from every row on every
+rank, and the stop test reads the sites summed over the group.
 """
 
 from __future__ import annotations
@@ -200,15 +210,19 @@ def merge_sites(words, lens, wid, sa, sb, k_steps: int) -> Sites:
 
 
 def _site_deltas(C, used, sa: int, sb: int, new_id: int, max_len: int,
-                 y, r_ok, x_pre, l_exists, lp_site, c, new_len, y_len, x_len):
+                 y, r_ok, x_pre, l_exists, lp_site, c, new_len, y_len, x_len, group=None):
     """Add the per-site pair-count deltas into C in place:
       own pair (sa, sb): -c per site;
       right adjacency (sb, y) dies: -c; (new, y): +c, gated by length;
       left adjacency (x_post, sa) dies (x_post = new when the left symbol
-      merged this round): -c; (x_post, new): +c, gated by length."""
+      merged this round): -c; (x_post, new): +c, gated by length.
+    With a process `group` the sites are this rank's, and every rank's
+    (flat index, delta) list is gathered and added on every rank."""
     v_cap, v_pad = C.shape
     c = torch.where(used, c, 0)
-    C[sa, sb] -= c.sum().to(torch.int32)
+    own = c.sum().to(torch.int32)
+    if group is None:
+        C[sa, sb] -= own
 
     rmask = used & r_ok
     yc = y.clamp(0, v_cap - 1).to(torch.int64)
@@ -223,6 +237,15 @@ def _site_deltas(C, used, sa: int, sb: int, new_id: int, max_len: int,
     mask = torch.cat([rmask, r_add, lmask, l_add])
     vals = torch.cat([-c, c, -c, c])
     Cf = C.view(-1)
+    if group is not None:
+        from ..parallel.runtime import gather_cat
+
+        keep = mask.nonzero().squeeze(1)
+        idx = torch.cat([(rows * v_pad + cols)[keep], (rows.new_tensor([sa]) * v_pad + sb)])
+        vals = torch.cat([vals[keep], -own.view(1)]).to(torch.int64)
+        pairs = gather_cat(torch.stack([idx, vals], 1), group)  # one exchange a merge
+        Cf.index_add_(0, pairs[:, 0], pairs[:, 1].to(C.dtype))
+        return
     idx = torch.where(mask, rows * v_pad + cols, _spread(mask.numel(), Cf.numel(), C.device))
     Cf.index_add_(0, idx, torch.where(mask, vals, 0))
 
@@ -240,9 +263,10 @@ def _pack(site_flat, recs, cap: int):
 
 
 def merge_deltas(C, ctx: Sites, wcnt, sa: int, sb: int, new_id: int, max_len: int,
-                 n_sites: int, site_cap: int) -> None:
+                 n_sites: int, site_cap: int, group=None) -> None:
     """The merge's deltas into C: over the packed sites when they fit
-    `site_cap`, else over every position (the same counts)."""
+    `site_cap`, else over every position (the same counts); summed over
+    `group` when one is given (`n_sites` is then this rank's)."""
     recs = (ctx.y, ctx.r_ok, ctx.x_pre, ctx.l_exists, ctx.lp_site, wcnt, ctx.new_len,
             ctx.y_len, ctx.x_len)
     if n_sites <= site_cap:
@@ -251,7 +275,7 @@ def merge_deltas(C, ctx: Sites, wcnt, sa: int, sb: int, new_id: int, max_len: in
     else:
         recs = [r.reshape(-1) for r in recs]
         used = ctx.site.reshape(-1)
-    _site_deltas(C, used, sa, sb, new_id, max_len, *recs)
+    _site_deltas(C, used, sa, sb, new_id, max_len, *recs, group=group)
 
 
 def reach(width: int) -> int:
@@ -261,9 +285,10 @@ def reach(width: int) -> int:
 
 
 def dense_loop(words, wid, wcnt, C, cfg, word_to_id, id_to_word, max_len: int,
-               merge_cap: int, site_cap: int, k_steps: int, stats) -> List:
+               merge_cap: int, site_cap: int, k_steps: int, stats, group=None) -> List:
     """Every merge, one host read each; returns [((a, b), new_id)] and
-    extends word_to_id/id_to_word with the minted tokens."""
+    extends word_to_id/id_to_word with the minted tokens.  With a process
+    `group`, `words` is this rank's block and C is replicated."""
     v_pad = C.shape[1]
     prefix = cfg.continuing_subword_prefix
     lens = (words >= 0).to(torch.int32)
@@ -273,18 +298,23 @@ def dense_loop(words, wid, wcnt, C, cfg, word_to_id, id_to_word, max_len: int,
     best, a, b = _select(C, v_pad)
     ctx = merge_sites(words, lens, wid, a, b, k_steps)
     while len(word_to_id) < cfg.vocab_size and len(merges) < merge_cap:
-        best_, sa, sb, n_sites = torch.stack([best.to(torch.int64), a, b, ctx.n_sites]).tolist()
+        read = [best.to(torch.int64), a, b, ctx.n_sites]
+        if group is not None:  # the sites of every rank
+            from ..parallel.runtime import all_sum
+
+            read.append(all_sum(ctx.n_sites.view(1).clone(), group)[0])
+        best_, sa, sb, n_sites, *total = torch.stack(read).tolist()
         reads += 1
         if best_ < floor:
             break
-        if n_sites == 0:
+        if (total[0] if total else n_sites) == 0:
             raise RuntimeError(f"pair ({sa}, {sb}) was selected but has no site")
         tok = merged_token(id_to_word[sa], id_to_word[sb], prefix)
         new_id = word_to_id.setdefault(tok, len(id_to_word))
         if new_id == len(id_to_word):
             id_to_word.append(tok)
         merges.append(((sa, sb), new_id))
-        merge_deltas(C, ctx, wcnt, sa, sb, new_id, max_len, n_sites, site_cap)
+        merge_deltas(C, ctx, wcnt, sa, sb, new_id, max_len, n_sites, site_cap, group)
         packed += n_sites <= site_cap
         words = torch.where(ctx.site, new_id, words)
         words = torch.where(ctx.kill, -1, words)
@@ -296,7 +326,7 @@ def dense_loop(words, wid, wcnt, C, cfg, word_to_id, id_to_word, max_len: int,
     return merges
 
 
-def train_dense(cfg, word_to_id, id_to_word, words, counts, device, stats=None):
+def train_dense(cfg, word_to_id, id_to_word, words, counts, device, stats=None, shard=None):
     """Run the dense loop on `device`; returns [((a, b), new_id)] and
     extends word_to_id/id_to_word, or None (nothing changed) when the
     configuration is out of this path's envelope (v_cap over
@@ -304,9 +334,12 @@ def train_dense(cfg, word_to_id, id_to_word, words, counts, device, stats=None):
     the per-round path.
 
     `words`/`counts` are `cfg._tokenize_words`' output; `word_to_id`/
-    `id_to_word` already hold the special tokens and the alphabet."""
+    `id_to_word` already hold the special tokens and the alphabet.
+    `shard`: (group, rank, ranks) of a mesh; this rank merges its block
+    of the packed rows."""
     stats = {} if stats is None else stats
     device = torch.device(device)
+    group, rank, ranks = shard if shard is not None else (None, 0, 1)
     v_cap = max(cfg.vocab_size, len(id_to_word)) + 1
     if v_cap > DENSE_VCAP_MAX:
         return None
@@ -319,8 +352,12 @@ def train_dense(cfg, word_to_id, id_to_word, words, counts, device, stats=None):
     v_pad = -(-v_cap // 128) * 128
 
     t = time.perf_counter()
-    ids, wid, wcnt = (torch.from_numpy(x).to(device) for x in pack_corpus(words, counts, ncol))
+    ids, wid, wcnt = (torch.from_numpy(x).to(device)
+                      for x in pack_corpus(words, counts, ncol, ranks))
     C = initial_pair_matrix(ids, wid, wcnt, v_cap, v_pad)
+    if group is not None:
+        per = ids.shape[0] // ranks
+        ids, wid, wcnt = (x[rank * per:(rank + 1) * per] for x in (ids, wid, wcnt))
     max_len = cfg.max_token_length if cfg.max_token_length is not None else 1 << 30
     merge_cap = max(1, cfg.vocab_size - len(id_to_word) + 8)
     # the packed delta branch takes the rounds of up to site_cap sites; the
@@ -331,7 +368,7 @@ def train_dense(cfg, word_to_id, id_to_word, words, counts, device, stats=None):
         torch.cuda.synchronize(device)
     t_loop = time.perf_counter()
     merges = dense_loop(ids, wid, wcnt, C, cfg, word_to_id, id_to_word,
-                        min(max_len, 1 << 30), merge_cap, site_cap, k_steps, stats)
+                        min(max_len, 1 << 30), merge_cap, site_cap, k_steps, stats, group)
     stats.update(path="dense", pack_s=t_loop - t, loop_s=time.perf_counter() - t_loop,
                  merges=len(merges), shape=list(ids.shape), v_cap=v_cap, v_pad=v_pad,
                  k_steps=k_steps, site_cap=site_cap)

@@ -1,6 +1,9 @@
 """One BPE training round over a pair registry; port of
-`tokenizers_tpu.ops.bpe_train_step` on one device (its mesh `psum`s are
-the identity there).
+`tokenizers_tpu.ops.bpe_train_step`.  Over a process group each rank
+runs the round on its block of the words and the round's counts (the
+registry deltas, the two dense vectors of the new token's pairs, the
+sites) are summed over the group, the JAX package's `psum`s: integer
+sums, so every rank holds the same registry.
 
 The unique words are an `int32[W, K]` tensor, one row per word, -1 a dead
 symbol.  A round:
@@ -147,12 +150,16 @@ def select(reg_a: torch.Tensor, reg_b: torch.Tensor, count: torch.Tensor):
 
 
 def round_step(words, lens, wcount, count, slot_rows, sel_a: int, sel_b: int,
-               sel_idx: int, new_id: int, max_len: int, k_steps: int, v_cap: int):
+               sel_idx: int, new_id: int, max_len: int, k_steps: int, v_cap: int,
+               group=None):
     """Merge (sel_a, sel_b) -> new_id in every row of `words` [W, K] (each
     symbol's length in chars in `lens`) and return (words', lens', dl,
     dr): `count` (length p_cap + 1) updated in place, dl[x] / dr[y] the
     count deltas of the new pairs (x, new) / (new, y), int32[v_cap] each.
-    `k_steps`: the fills' reach, 2^k_steps >= K."""
+    `k_steps`: the fills' reach, 2^k_steps >= K.  With a process `group`
+    `words` is this rank's block (it may hold no site, or no row), and
+    the count deltas, dl, dr and the number of sites are summed over the
+    group before `count` takes them."""
     K = words.shape[1]
     dev = words.device
     p_cap = count.shape[0] - 1
@@ -181,7 +188,7 @@ def round_step(words, lens, wcount, count, slot_rows, sel_a: int, sel_b: int,
 
     # ---- the sites, gathered at their exact count
     pos = site.reshape(-1).nonzero().squeeze(1)
-    if pos.numel() == 0:
+    if pos.numel() == 0 and group is None:
         raise RuntimeError(f"pair ({sel_a}, {sel_b}) was selected but has no site")
     s_y = y.reshape(-1)[pos]
     s_rok = r_ok.reshape(-1)[pos]
@@ -195,7 +202,8 @@ def round_step(words, lens, wcount, count, slot_rows, sel_a: int, sel_b: int,
 
     # ---- deltas: registry slots (own pair, the dying adjacencies) and the
     # two dense vectors of the new token's pairs
-    count[sel_idx] -= s_c.sum().to(torch.int32)
+    local = count if group is None else torch.zeros_like(count)
+    local[sel_idx] -= s_c.sum().to(torch.int32)
     # the dying adjacencies (sel_b, y) and (x, sel_a), looked up together
     n = s_y.shape[0]
     found = _lookup_rows(slot_rows, torch.cat([torch.full_like(s_y, sel_b), s_x]),
@@ -204,7 +212,7 @@ def round_step(words, lens, wcount, count, slot_rows, sel_a: int, sel_b: int,
     l_plain = s_lex & ~s_lps
     idx = torch.cat([torch.where(s_rok, ridx, p_cap), torch.where(l_plain, lidx, p_cap)])
     idx = torch.where(idx < 0, p_cap, idx).to(torch.int64)  # absent: the dump slot
-    count.index_add_(0, idx, torch.cat([torch.where(s_rok, -s_c, 0),
+    local.index_add_(0, idx, torch.cat([torch.where(s_rok, -s_c, 0),
                                         torch.where(l_plain, -s_c, 0)]))
 
     r_add = s_rok & ((s_yl + s_nl) < max_len)
@@ -222,6 +230,16 @@ def round_step(words, lens, wcount, count, slot_rows, sel_a: int, sel_b: int,
                                          torch.where(r_add, s_c, 0),
                                          torch.where(l_new, -s_c, 0),
                                          torch.where(la_new, s_c, 0)]))
+
+    if group is not None:
+        from ..parallel.runtime import all_sum
+
+        red = all_sum(torch.cat([local, dense, pos.new_tensor([pos.numel()]).to(torch.int32)]),
+                      group)
+        if int(red[-1]) == 0:
+            raise RuntimeError(f"pair ({sel_a}, {sel_b}) was selected but has no site")
+        count += red[:count.shape[0]]
+        dense = red[count.shape[0]:-1]
 
     # ---- apply the merge
     kill = alive & fp & p_site

@@ -4,8 +4,12 @@
 Routes inputs with added tokens to the host pipeline, splits long inputs
 at tokenization-safe seams (`longdoc.py`), packs the rest into chunks
 (`packing.py`), runs the engine's program over them, and re-encodes on
-the host the rows the program flags `row_bad`.  There is no mesh: the
-JAX package's `_shard_chunk` has no counterpart here.
+the host the rows the program flags `row_bad`.  Over a default mesh of
+more than one rank (`parallel/runtime.py`) each rank runs its contiguous
+block of every chunk's rows through the engine's cache-free program
+(`_program_sharded`, the JAX package's `_shard_chunk`) and every rank
+gets every row back; the host re-encodes of flagged rows then run on
+every rank alike.  The offsets path is not sharded, as in JAX.
 
 With offsets (`encode_batch_offsets`) the engine's offsets program gives
 each token's span in its piece, in the engine's `offsets_space`:
@@ -134,7 +138,8 @@ STATS = FallbackStats()
 
 class DeviceEngineBase:
     """Subclasses provide `tokenizer`, `add_prefix_space` and
-    `_program_many(chunks)` -> per chunk (ids, ntok, row_bad[, patches])."""
+    `_program_many(chunks)` -> per chunk (ids, ntok, row_bad[, patches]),
+    and for the mesh path `_program(buf, lengths)` or `_program_mesh`."""
 
     tokenizer = None
     add_prefix_space = False
@@ -192,12 +197,66 @@ class DeviceEngineBase:
         """Host ids for one flagged word; None = cannot patch."""
         return None
 
+    # ------------------------------------------------------------ the mesh
+
+    def _program_mesh(self, buf: np.ndarray, lengths: np.ndarray, rows: int):
+        """A rank's block of a chunk of `rows` rows through the program
+        each rank runs on the mesh; the engines whose program carries a
+        word cache run theirs without it (no mutable cache across ranks, as
+        in JAX), and those whose buffers are sized by the chunk size them
+        for the whole chunk (JAX's mesh program has the global shape).  A
+        block fills those buffers with its own words only, so where the
+        whole chunk overflows, the ranks flag fewer rows than JAX's mesh
+        program: the flags fall as ranks are added."""
+        return self._program(buf, lengths)
+
+    def _program_sharded(self, chunks, mesh) -> List[tuple]:
+        """`_program_many` over `mesh`: each chunk's rows padded to a
+        multiple of the mesh's ranks, this rank's contiguous block through
+        `_program_mesh`, and the outputs gathered in rank order, so every
+        rank returns every chunk whole.  Patch records carry a row of the
+        rank's block: rebased by its first row before they are gathered
+        (a rank's records are dropped where they overflowed its table: its
+        rows are flagged then, as one chunk's are)."""
+        from ..parallel.runtime import gather_cat, mesh_group
+
+        group, rank, n = mesh_group(mesh)
+        out = []
+        for buf, lengths, _orig in chunks:
+            rows = -(-buf.shape[0] // n) * n
+            if rows != buf.shape[0]:
+                buf = np.pad(buf, ((0, rows - buf.shape[0]), (0, 0)))
+                lengths = np.pad(lengths, (0, rows - lengths.shape[0]))
+            lo, per = rank * (rows // n), rows // n
+            res = self._program_mesh(buf[lo:lo + per], lengths[lo:lo + per], rows)
+            # ids past a row's count are -1 (a program's width may follow
+            # its rows' longest: the ranks' widths differ then)
+            gathered = (gather_cat(res[0], group, fill=-1),) + tuple(
+                gather_cat(t, group) for t in res[1:3])
+            if len(res) > 3 and res[3] is not None:
+                ptab, nflag = res[3]
+                k = int(nflag)
+                recs = ptab[:k].clone() if k <= ptab.shape[0] else ptab[:0]
+                recs[:, 0] += lo
+                recs = gather_cat(recs, group)
+                gathered += ((recs, recs.shape[0]),)
+            out.append(gathered)
+        return out
+
+    def _programs(self, chunks) -> List[tuple]:
+        """`_program_many`, or `_program_sharded` over the default mesh
+        when it has more than one rank."""
+        from ..parallel.runtime import sharded_mesh
+
+        mesh = sharded_mesh()
+        return self._program_many(chunks) if mesh is None else self._program_sharded(chunks, mesh)
+
     def _run_device(self, byte_strings: List[bytes]):
         """-> (per-input np.int32 ids or None, indices of bad inputs)."""
         results: List[Optional[np.ndarray]] = [None] * len(byte_strings)
         bad: List[int] = []
         chunks = pack_batch(byte_strings)
-        for (_buf, _lengths, orig), out in zip(chunks, self._program_many(chunks)):
+        for (_buf, _lengths, orig), out in zip(chunks, self._programs(chunks)):
             ids, ntok, row_bad = (t.cpu().numpy() for t in out[:3])
             row_patches: dict = {}
             if len(out) > 3 and out[3] is not None:
@@ -396,7 +455,7 @@ class DeviceEngineBase:
             owners += [(i, k) for k in range(len(chunks))]
         out = []
         chunks = pack_batch(byte_strings)
-        for (_buf, _lens, orig), res in zip(chunks, self._program_many(chunks)):
+        for (_buf, _lens, orig), res in zip(chunks, self._programs(chunks)):
             row_owners = [owners[j] for j in orig]
             row_bad = res[2]
             if len(res) > 3 and res[3] is not None:

@@ -287,13 +287,16 @@ def unigram_unique_encoder(T):
 
 # ---- the chunk program: normalize, dedup, Viterbi, expand (+ cache) -------
 
-def unigram_dedup_core(bytes_u8, lengths, T, cache=None):
+def unigram_dedup_core(bytes_u8, lengths, T, cache=None, geom_rows=None):
     """uint8[B, L] + int32[B] -> (ids int32[B, out_w], ntok int32[B],
     row_bad bool[B], patch_tab int32[PATCH_CAP, 5], n_patch int), out_w =
     max(L // 2, 64).  `T`: the engine's tables.  `cache`: the persistent
     `WordCache`, updated in place (epoch reset first when this chunk could
     overflow its token buffer).  Every row of a chunk whose distinct words
-    overflow the unique buffer comes back `row_bad`."""
+    overflow the unique buffer comes back `row_bad`.  `geom_rows`: the
+    rows the buffers are sized for (default B; a rank's block on a mesh
+    takes the whole chunk's, and, holding only its block's words, flags
+    fewer rows where the whole chunk overflows)."""
     B, L = bytes_u8.shape
     L2 = L * 2 + 4
     dev = bytes_u8.device
@@ -303,7 +306,7 @@ def unigram_dedup_core(bytes_u8, lengths, T, cache=None):
     nxt_b = _rev_cummin(torch.where(wbnd, npos, BIGP))
     nxt_bnd = torch.minimum(_shift_next(nxt_b, BIGP), total[:, None])
 
-    geom = unigram_geometry(B * L2)
+    geom = unigram_geometry((B if geom_rows is None else geom_rows) * L2)
     out_w = max(L // 2, 64)
     reset = False
     if cache is not None:

@@ -40,6 +40,16 @@ count vector on the card across chunks; an E-step reads its result once.
 Sentences over `L_MAX` bytes take the host lattice, as do whole passes
 whose pieces build no table (`PieceTable.build` returns None): JAX's two
 host routes.
+
+Over a mesh (`DeviceEm(sentences, mesh=...)`, a `DeviceMesh` of the
+process group) the chunks take JAX's mesh geometry (a multiple of the
+ranks in each, `S` padded to one) and each rank runs its contiguous block
+of every chunk; the per-piece vectors are folded in rank order
+(`runtime.fold_f64`: gathered, rank 0 first, so every rank holds the same
+bits; the JAX package `psum`s them) and z, the token counts and the
+chunk's rows are gathered.  The fold's order differs from the unsharded
+sum's, so expected counts differ from it by ULPs; frequencies and token
+counts (sums of integers) are exact.
 """
 
 from __future__ import annotations
@@ -385,11 +395,17 @@ class DeviceEm:
     `stats` counts what took the host: `host_sentences` (over L_MAX
     bytes) and `no_table_passes`."""
 
-    def __init__(self, sentences: List[Tuple[str, int]], device=None):
+    def __init__(self, sentences: List[Tuple[str, int]], device=None, mesh=None):
         from .. import pick_device
 
         self.device = pick_device(device)
         self.sentences = sentences
+        self.group, self.rank, n_dev = None, 0, 1
+        if mesh is not None:
+            from ..parallel.runtime import mesh_group
+
+            self.group, self.rank, n_dev = mesh_group(mesh)
+        self.n_dev = n_dev
         buckets = {}
         self.host_idx: List[int] = []
         for i, (s, _n) in enumerate(sentences):
@@ -400,26 +416,40 @@ class DeviceEm:
                 self.host_idx.append(i)
                 continue
             buckets.setdefault(_bucket_len(len(bs)), []).append(i)
-        self.chunks = []  # (bytes u8[S, L], lengths i32[S], freqs f64[S], idx i64[S], longest)
+        # (this rank's bytes u8[S / n_dev, L], lengths i32, freqs f64, the
+        # chunk's sentence indices i64[len(part)], its longest sentence)
+        self.chunks = []
         for L, idxs in sorted(buckets.items()):
-            s_cap = max(1, _ELEM_BUDGET // (L * 16))
+            # JAX's geometry: a multiple of the ranks (one rank: JAX's too)
+            s_cap = max(n_dev, _ELEM_BUDGET // (L * 16))
+            s_cap -= s_cap % n_dev
             for lo in range(0, len(idxs), s_cap):
                 part = idxs[lo : lo + s_cap]
-                buf = np.zeros((len(part), L), np.uint8)
-                lens = np.zeros(len(part), np.int32)
-                fr = np.zeros(len(part), np.float64)
+                S = -(-len(part) // n_dev) * n_dev
+                buf = np.zeros((S, L), np.uint8)
+                lens = np.zeros(S, np.int32)
+                fr = np.zeros(S, np.float64)
                 for k, i in enumerate(part):
                     bs = sentences[i][0].encode("utf-8")
                     buf[k, : len(bs)] = np.frombuffer(bs, np.uint8)
                     lens[k] = len(bs)
                     fr[k] = float(sentences[i][1])
+                r0, r1 = self.rank * (S // n_dev), (self.rank + 1) * (S // n_dev)
                 dev = self.device
-                self.chunks.append((torch.from_numpy(buf).to(dev), torch.from_numpy(lens).to(dev),
-                                    torch.from_numpy(fr).to(dev),
+                self.chunks.append((torch.from_numpy(buf[r0:r1]).to(dev),
+                                    torch.from_numpy(lens[r0:r1]).to(dev),
+                                    torch.from_numpy(fr[r0:r1]).to(dev),
                                     torch.tensor(part, dtype=torch.int64, device=dev),
                                     int(lens.max())))
         self.stats = {"host_sentences": len(self.host_idx), "no_table_passes": 0,
-                      "chunks": [list(c[0].shape) for c in self.chunks]}
+                      "chunks": [[c[0].shape[0] * n_dev, c[0].shape[1]] for c in self.chunks]}
+
+    def _reduce(self, vec, *rows):
+        """A chunk's per-piece vector folded over the group in rank order,
+        and its per-sentence outputs gathered in rank order."""
+        from ..parallel.runtime import fold_f64, gather_cat
+
+        return (fold_f64(vec, self.group),) + tuple(gather_cat(r, self.group) for r in rows)
 
     def _table(self, model):
         pt = PieceTable.build(model.pieces)
@@ -455,9 +485,11 @@ class DeviceEm:
         ntok = torch.zeros(n, dtype=torch.float64, device=self.device)
         for buf, lens, fr, idx, _longest in self.chunks:
             v, zc, nc = em_marginal_program(buf, lens, fr, **kw)
+            if self.group is not None:
+                v, zc, nc = self._reduce(v, zc, nc)
             expected += v
-            z[idx] = zc
-            ntok[idx] = nc.to(torch.float64)
+            z[idx] = zc[:idx.numel()]
+            ntok[idx] = nc[:idx.numel()].to(torch.float64)
         out = torch.cat([expected, z, ntok]).cpu().numpy()
         expected, z, ntok = out[:V].copy(), out[V:V + n].copy(), out[V + n:].astype(np.int64)
         if self.host_idx:
@@ -477,7 +509,8 @@ class DeviceEm:
         kw = self._args(model, pt)
         freq = torch.zeros(len(model.pieces), dtype=torch.float64, device=self.device)
         for buf, lens, fr, _idx, longest in self.chunks:
-            freq += viterbi_freq_program(buf, lens, fr, **kw, max_length=longest)
+            f = viterbi_freq_program(buf, lens, fr, **kw, max_length=longest)
+            freq += f if self.group is None else self._reduce(f)[0]
         freq = freq.cpu().numpy().copy()
         for i in self.host_idx:
             lat, f = self._host_lattice(model, i)

@@ -17,7 +17,9 @@ CPU route is the dense `unigram_program`, which the port does not
 have): ids take the dedup program with the word cache
 (`unigram_dedup.unigram_dedup_scan`, same-shape chunks in order), whose
 flagged words come back as patch records the host splices
-(`_encode_word_host`); offsets take the packed f64 program
+(`_encode_word_host`); on a mesh each rank runs its block of a chunk
+through the same program with no cache (`_program_mesh`), its patch
+records rebased to the chunk's rows; offsets take the packed f64 program
 (`unigram_packed.unigram_program_packed`), spans in original chars
 (`offsets_space = "original_chars"`).
 
@@ -38,7 +40,7 @@ from .bpe_dedup import WordCache
 from .bpe_engine import _roll_hash
 from .engine_base import DeviceEngineBase
 from .merge_table import CuckooMergeTable, _hash
-from .unigram_dedup import dd_split, unigram_dedup_scan
+from .unigram_dedup import dd_split, unigram_dedup_core, unigram_dedup_scan
 from .unigram_encode import nmt_metaspace_class_table
 from .unigram_packed import unigram_program_packed
 from .wordpiece_encode import H1_MULT, H2_MULT
@@ -166,6 +168,14 @@ class UnigramEngine(DeviceEngineBase):
             for k, i in enumerate(idxs):
                 out[i] = (ids[k], ntok[k], bad[k], (ptab[k], nflag[k]))
         return out
+
+    def _program_mesh(self, buf: np.ndarray, lengths: np.ndarray, rows: int):
+        """One rank's block of a chunk on the mesh: the dedup program with
+        no word cache and the whole chunk's buffer sizes, (ids, ntok,
+        row_bad, (patch table, patch count))."""
+        ids, ntok, bad, ptab, nflag = unigram_dedup_core(self._stage(buf), self._stage(lengths),
+                                                         self.tables, cache=None, geom_rows=rows)
+        return ids, ntok, bad, (ptab, nflag)
 
     def _program_offsets(self, buf: np.ndarray, lengths: np.ndarray):
         """One packed chunk through the packed f64 program with offsets:

@@ -11,7 +11,9 @@ a 16M-token append buffer, about 80 MB).
 Routing: every ASCII chunk (read from the numpy buffer before it is
 staged) takes the dedup program (`wordpiece_dedup.wordpiece_dedup_scan`,
 same-shape chunks in order with the word cache), on every device; the
-JAX package takes it only off the CPU.  Chunks with multi-byte
+JAX package takes it only off the CPU.  On a mesh each rank runs its
+block of a chunk through the dense program with no cache
+(`_program_mesh`), as JAX's mesh routing does.  Chunks with multi-byte
 characters take the dense `wordpiece_encode.wordpiece_program` (generic
 variant), and so does everything on the offsets path (`_program_offsets`,
 the ASCII variant for ASCII chunks), which gives spans in the original
@@ -193,6 +195,11 @@ class WordPieceEngine(DeviceEngineBase):
             for k, i in enumerate(idxs):
                 out[i] = (ids[k], ntok[k], bad[k])
         return out
+
+    def _program_mesh(self, buf: np.ndarray, lengths: np.ndarray, rows: int):
+        """One rank's block of a chunk on the mesh: the dense program, no
+        scan and no cache (JAX's mesh routing)."""
+        return self._dense(buf, lengths, False)
 
     def _program_offsets(self, buf: np.ndarray, lengths: np.ndarray):
         """One packed chunk through the dense program with offsets: (ids,

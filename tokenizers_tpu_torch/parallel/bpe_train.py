@@ -1,6 +1,4 @@
-"""BPE training on the device; port of `tokenizers_tpu.parallel.bpe_train`
-on one device (the mesh and its `psum`s wait for the multi-device
-runtime; on one device a `psum` is the identity).
+"""BPE training on the device; port of `tokenizers_tpu.parallel.bpe_train`.
 
 `train_device` trains as the JAX package's device trainers do, choosing
 the program by size as it does:
@@ -23,7 +21,15 @@ words, and merges it twice, in parts; the device trainers merge it once,
 everywhere (`tests/test_torch_train.py::test_device_differs_only_where_the_host_repeats_a_merge`).
 
 Both run on the trainer's device: the card unless the caller asks for
-`device="cpu"`.  `stats` records the path, the seconds of the packing and
+`device="cpu"`.  Over a mesh (`DistributedBpeTrainer(mesh=...)`, a
+`DeviceMesh` of the process group, `parallel/runtime.py`) the words are
+split over the ranks, each rank a contiguous block, and the counts each
+rank's merge pass finds are summed over the group: the dense trainer
+gathers every rank's (index, delta) list and adds them all on every rank,
+the per-round trainer sums the round's deltas (`round_step(group=...)`).
+Integer sums do not depend on order, so every rank selects the same pair,
+mints the same token and grows its registry alike; at the end every
+rank's merges are checked against rank 0's.  `stats` records the path, the seconds of the packing and
 tables and of the device loop, the merges and the host reads (each
 `.tolist()`, `nonzero` and `.cpu()` of the loop, counted where it is
 made).
@@ -31,6 +37,7 @@ made).
 
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import Dict, List, Tuple
 
@@ -43,20 +50,44 @@ from ..ops.bpe_train_step import PairRegistry, round_step, select
 from ..trainers.bpe_trainer import AddedToken, BpeTrainer, merged_token
 
 
-def train_device(cfg: BpeTrainer, word_counts: Dict[str, int], model) -> List[AddedToken]:
+def train_device(cfg: BpeTrainer, word_counts: Dict[str, int], model,
+                 mesh=None) -> List[AddedToken]:
     """Train `model` (a port `models.bpe.BPE`) on `word_counts` with the
-    settings of `cfg`, on `pick_device(cfg.device)`."""
+    settings of `cfg`, on `pick_device(cfg.device)`, sharded over `mesh`
+    when one is given."""
     device = pick_device(cfg.device)
     stats = cfg.stats
+    shard = None
+    if mesh is not None:
+        from .runtime import mesh_group
+
+        shard = mesh_group(mesh)
     t = time.perf_counter()
     word_to_id, id_to_word, words, counts = cfg.prepare(word_counts)
-    stats.update(prepare_s=time.perf_counter() - t, device=str(device))
+    stats.update(prepare_s=time.perf_counter() - t, device=str(device),
+                 ranks=1 if shard is None else shard[2])
 
-    merges = train_dense(cfg, word_to_id, id_to_word, words, counts, device, stats)
+    merges = train_dense(cfg, word_to_id, id_to_word, words, counts, device, stats, shard)
     if merges is None:
-        merges = train_per_round(cfg, word_to_id, id_to_word, words, counts, device, stats)
+        merges = train_per_round(cfg, word_to_id, id_to_word, words, counts, device, stats,
+                                 shard)
+    if shard is not None:
+        check_replicated(merges, shard[0], device)
     cfg.finalize_model(model, word_to_id, id_to_word, merges)
     return list(cfg.special_tokens)
+
+
+def check_replicated(merges, group, device) -> None:
+    """Raise unless every rank of `group` holds rank 0's merges (a digest
+    of each rank's list, gathered)."""
+    from .runtime import gather_equal
+
+    h = hashlib.sha256(repr(merges).encode()).digest()[:8]
+    mine = torch.tensor([int.from_bytes(h, "little", signed=True)], device=device)
+    digests = [int(d) for d in gather_equal(mine, group)]
+    if len(set(digests)) != 1:
+        raise RuntimeError(f"sharded BPE training diverged across ranks: merge digests "
+                           f"{digests}")
 
 
 def initial_pairs(ids_np: np.ndarray, wc_np: np.ndarray, v_cap: int) -> Dict[Tuple[int, int], int]:
@@ -151,30 +182,36 @@ class DeviceRegistry:
 
 
 def train_per_round(cfg: BpeTrainer, word_to_id: Dict[str, int], id_to_word: List[str],
-                    words, counts, device, stats=None) -> List[Tuple[Tuple[int, int], int]]:
+                    words, counts, device, stats=None,
+                    shard=None) -> List[Tuple[Tuple[int, int], int]]:
     """The per-round registry trainer; returns [((a, b), new_id)] and
     extends word_to_id/id_to_word with the minted tokens.  `words`/`counts`
     are `cfg._tokenize_words`' output, the maps hold the special tokens
-    and the alphabet."""
+    and the alphabet.  `shard`: (group, rank, ranks) of a mesh; the words
+    are padded to Wp = ceil(W / ranks) * ranks rows and this rank merges
+    its block of Wp / ranks, the round's counts summed over the group."""
     stats = {} if stats is None else stats
     t = time.perf_counter()
     device = torch.device(device)
+    group, rank, ranks = shard if shard is not None else (None, 0, 1)
     v_cap = max(cfg.vocab_size, len(id_to_word)) + 1
     max_token_length = cfg.max_token_length if cfg.max_token_length is not None else 1 << 30
     prefix = cfg.continuing_subword_prefix
 
     W = len(words)
     K = max(2, max((len(w) for w, _ in words), default=1))
-    ids_np = np.full((max(W, 1), K), -1, np.int32)
-    wc_np = np.zeros(max(W, 1), np.int32)
+    Wp = -(-max(W, 1) // ranks) * ranks
+    ids_np = np.full((Wp, K), -1, np.int32)
+    wc_np = np.zeros(Wp, np.int32)
     for i, (w, _lens) in enumerate(words):
         if w:
             ids_np[i, :len(w)] = w
             wc_np[i] = counts[i]
     pairs = initial_pairs(ids_np, wc_np, v_cap)
     dreg = DeviceRegistry(pairs, registry_size(len(pairs)), device)
-    d_words = torch.from_numpy(ids_np).to(device)
-    d_wc = torch.from_numpy(wc_np).to(device)
+    lo, hi = rank * (Wp // ranks), (rank + 1) * (Wp // ranks)
+    d_words = torch.from_numpy(ids_np[lo:hi]).to(device)
+    d_wc = torch.from_numpy(wc_np[lo:hi]).to(device)
     d_lens = (d_words >= 0).to(torch.int32)
     k_steps = reach(K)
     if device.type == "cuda":
@@ -202,8 +239,8 @@ def train_per_round(cfg: BpeTrainer, word_to_id: Dict[str, int], id_to_word: Lis
         reads += 1
         sub, sub_lens, dl, dr = round_step(
             d_words[rows], d_lens[rows], d_wc[rows], dreg.count, dreg.slot_rows, sa, sb,
-            dreg.reg.index[(sa, sb)], new_id, max_token_length, k_steps, v_cap)
-        reads += 1  # round_step's `nonzero` of the sites
+            dreg.reg.index[(sa, sb)], new_id, max_token_length, k_steps, v_cap, group)
+        reads += 1 + (group is not None)  # the sites' `nonzero`; the summed site count
         d_words[rows] = sub
         d_lens[rows] = sub_lens
         dldr = torch.cat([dl, dr]).cpu().numpy()
@@ -222,17 +259,20 @@ def train_per_round(cfg: BpeTrainer, word_to_id: Dict[str, int], id_to_word: Lis
     stats.update(path="per_round", pack_s=t_loop - t, loop_s=time.perf_counter() - t_loop,
                  merges=len(merges), host_reads=reads + dreg.reads, host_upsert_s=upsert_s,
                  words_shape=[W, K], p_cap=dreg.reg.p_cap, registry_grown=dreg.grown,
-                 registry_pairs=dreg.reg.n, v_cap=v_cap,
+                 registry_pairs=dreg.reg.n, v_cap=v_cap, rank_rows=hi - lo,
                  mean_rows_per_round=rows_total / max(1, len(merges)))
     return merges
 
 
 class DistributedBpeTrainer:
     """`BpeTrainer`'s configuration surface; `train` runs on `device`
-    (the card unless the caller asks for `device="cpu"`)."""
+    (the card unless the caller asks for `device="cpu"`), sharded over
+    `mesh` (a `DeviceMesh`; every rank calls `train` with the same
+    words) when one is given."""
 
-    def __init__(self, device=None, **kwargs):
+    def __init__(self, mesh=None, device=None, **kwargs):
         self.base = BpeTrainer(device=device, **kwargs)
+        self.mesh = mesh
 
     @property
     def words(self):
@@ -249,4 +289,4 @@ class DistributedBpeTrainer:
         return self.do_train(self.base.words, model)
 
     def do_train(self, word_counts: Dict[str, int], model) -> List[AddedToken]:
-        return train_device(self.base, word_counts, model)
+        return train_device(self.base, word_counts, model, self.mesh)

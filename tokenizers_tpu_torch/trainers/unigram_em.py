@@ -15,7 +15,8 @@
   unk.
 
 The corpus-wide loops, the E-step and the pruning's Viterbi frequencies,
-run on the trainer's device (`ops/unigram_em_step.DeviceEm`), except on
+run on the trainer's device (`ops/unigram_em_step.DeviceEm`, sharded
+over the trainer's `mesh` when it has one), except on
 JAX's two host routes: sentences over 512 bytes, and passes whose pieces
 build no device table; both are counted in `stats`.  `host=True` runs
 every pass on the host lattices: the oracle the device route is held
@@ -76,7 +77,8 @@ class _TrainerOps:
     E-step and the pruning's Viterbi frequencies on `device` (a
     `DeviceEm`) unless `host`."""
 
-    def __init__(self, cfg, sentences: List[Tuple[str, int]], device=None, host: bool = False):
+    def __init__(self, cfg, sentences: List[Tuple[str, int]], device=None, host: bool = False,
+                 mesh=None):
         self.cfg = cfg
         self.sentences = sentences
         self.stats = cfg.stats
@@ -87,7 +89,7 @@ class _TrainerOps:
             from ..ops.unigram_em_step import DeviceEm
 
             t = time.perf_counter()
-            self.dev = DeviceEm(sentences, device)
+            self.dev = DeviceEm(sentences, device, mesh)
             self.stats.update(pack_s=time.perf_counter() - t, chunks=self.dev.stats["chunks"],
                               host_sentences=self.dev.stats["host_sentences"])
 
@@ -339,14 +341,16 @@ class _TrainerOps:
         return Unigram(special + pieces, unk_id=unk_id, byte_fallback=False)
 
 
-def do_train(cfg, word_counts: Dict[str, int], model, device=None, host: bool = False):
+def do_train(cfg, word_counts: Dict[str, int], model, device=None, host: bool = False,
+             mesh=None):
     """Train `model` (a port `models.unigram.Unigram`, re-initialised in
     place) on the word counts; -> the special tokens to add.  The E-step
     and the pruning statistics run on `device` (the card unless the
-    caller asks for the CPU), or with `host` on the host lattices."""
+    caller asks for the CPU), sharded over `mesh` when one is given, or
+    with `host` on the host lattices."""
     t0 = time.perf_counter()
     sentences = list(word_counts.items())
-    ops = _TrainerOps(cfg, sentences, device, host)
+    ops = _TrainerOps(cfg, sentences, device, host, mesh)
     st = ops.stats
 
     t = time.perf_counter()

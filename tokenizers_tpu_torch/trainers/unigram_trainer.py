@@ -1,10 +1,12 @@
 """UnigramTrainer: SentencePiece-style EM training; copy of
 `tokenizers_tpu.trainers.unigram_trainer` (reference
-`models/unigram/trainer.rs`) with `device` in place of `mesh`.  The
+`models/unigram/trainer.rs`) with a `device` beside its `mesh`.  The
 configuration and the word counts live here; `trainers/unigram_em.py`
 trains.  `train` runs the E-step and the pruning statistics on the
-trainer's `device` (the card unless the caller asks for `device="cpu"`);
-`do_train_host` runs them on the host lattices (the oracle)."""
+trainer's `device` (the card unless the caller asks for `device="cpu"`),
+sharded over `mesh` (a `DeviceMesh`; every rank trains on the same words)
+when one is given; `do_train_host` runs them on the host lattices (the
+oracle)."""
 
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ class UnigramTrainer:
         n_sub_iterations: int = 2,
         seed_size: int = 1_000_000,
         device=None,
+        mesh=None,
     ):
         self.vocab_size = vocab_size
         self.show_progress = show_progress  # accepted for the reference's surface; no bar
@@ -39,6 +42,7 @@ class UnigramTrainer:
         self.n_sub_iterations = n_sub_iterations
         self.seed_size = seed_size
         self.device = device
+        self.mesh = mesh
         self.words: Dict[str, int] = {}
         # what the last feed and train did: seconds of each part, host routes, ...
         self.stats: Dict[str, object] = {}
@@ -61,7 +65,7 @@ class UnigramTrainer:
         the pruning statistics on the trainer's device."""
         from .unigram_em import do_train
 
-        return do_train(self, self.words, model, device=self.device)
+        return do_train(self, self.words, model, device=self.device, mesh=self.mesh)
 
     def do_train_host(self, word_counts: Dict[str, int], model) -> List[AddedToken]:
         """`train` with every pass on the host lattices."""
