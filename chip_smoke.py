@@ -184,7 +184,36 @@
    `checked_run` (`multirank_dryrun_rank`), so that every launch of its
    sharded encode is held against its plain version.  Every run's seconds, its rank
    count and backend are printed beside the card's name and power limit.
-15. Prints a line of numbers per path, the per-kernel JSON line (with each
+15. The Tokenizer's full surface and the recipes (`recipes_path`): (a)
+   the gpt2 fixture's model written as `vocab.json` and `merges.txt` by
+   `BPE.save`, read by `ByteLevelBPETokenizer.from_file`, with
+   `<|endoftext|>` special and `smoke_data.RECIPE_TOKEN` (lstrip, rstrip;
+   in no document) added, truncation at 1,024 with stride 128 and padding
+   to a multiple of 8: `encode_batch_fast` and `encode_batch` on the 512
+   8 KB documents and `RECIPE_EXTRA` (they hold the added tokens: the
+   host path), then `to_str`, `from_str` on the card and
+   `encode_batch_fast` again, each cold, counts set to 0 just before and
+   read just after, every input against `data/recipes_digests.json` (the
+   wheel's same recipe and settings: ids, type ids, attention mask,
+   overflowing ids; offsets and word ids on the offsets path), B3, B2 and
+   B1 launched and each run repeated on a tokenizer in the same state
+   with every launch held bit for bit against its plain version
+   (`checked_again`); (b) `to_str` of every tokenizer phases 3-11 load or
+   train (the nine configs of `smoke_data.TO_STR_CONFIGS`, phase 11's
+   trained sp_bpe and WordLevel) against the wheel's `to_str` digest of
+   its source, `from_str` on the card and a cold `encode_batch_fast` of
+   the 8 KB documents under `checked_run` against that config's digests;
+   (c) `BertWordPieceTokenizer` on the bert fixture's `vocab.txt` written
+   by `WordPiece.save`: `encode_batch` and `encode_batch_fast` of 128
+   pairs of the documents' first 2,048 chars, `longest_first` truncation
+   at 512 and padding to 512, against the wheel's digests, no kernel of
+   `csrc/` launched; (d) `ByteLevelBPETokenizer.train_from_iterator` on
+   the corpus's first 1 MB at vocab 8,000 with `<|endoftext|>` (the dense
+   trainer, no kernel launched): its `to_str` against the wheel's digest,
+   then `encode_batch_fast` of the 512 documents cold against the wheel's
+   trained recipe's digests, B3, B2 and B1 launched and held as in (a).
+   Prints the phase's seconds with the card's name and power limit.
+16. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -256,6 +285,9 @@ CHAR_COLD = {  # the char-level phase's 8 KB runs (each B1 count holds its clust
 }
 # the ids each 8 KB run's first pass gave on the card, by config (phase 13)
 CARD_IDS = {}
+# the tokenizers phase 11 trained, by run, and the config whose frozen file
+# each must equal (phase 15 (b) round-trips them)
+TRAINED = {}
 EIGHT_KB_COLD = {
     "gpt2": {"layout_fused": 2, "layout_fused_wide": 0, "keys": 16,
              "merge_round_fused": 79, "merge_round_fused_wide": 0},
@@ -1304,6 +1336,7 @@ def train_path(torch, stats, counts, numbers):
         raise SystemExit(f"the trained sp_bpe's cold launches {cold}, want {CHAR_COLD['sp_bpe']}")
     runs["sp_bpe_30000"]["encode"] = {"docs_matched": len(build_docs()), "secs": enc["secs"],
                                       "program_s": enc["program_s"], "launches": enc["launches"]}
+    TRAINED["sp_bpe_30000"] = (tok, "sp_bpe")
     zero()
 
     # (c) the dense trainer at its widest
@@ -1330,6 +1363,7 @@ def train_path(torch, stats, counts, numbers):
     record("wordlevel_30000", wl, timed(lambda: tok_wl.train([CORPUS], wl)), "host")
     if tok_wl.model.vocab != json.loads(config_json("wordlevel"))["model"]["vocab"]:
         raise SystemExit("train wordlevel_30000: the vocab differs from data/wordlevel.json's")
+    TRAINED["wordlevel_30000"] = (tok_wl, "wordlevel")
 
     for k, n in read().items():
         launches[k] += n
@@ -1857,6 +1891,189 @@ def multirank_path(torch, stats, counts, numbers, smi):
                 s_["max_abs_err"] = max(s_["max_abs_err"], err.get(k, 0))
 
 
+RECIPE_KERNELS = ("layout_fused", "keys", "merge_round_fused")  # B3, B2, B1
+
+
+def recipes_path(torch, stats, counts, numbers, smi):
+    """Phase 15, the Tokenizer's full surface and the recipes (docstring
+    item 15).  Adds each kernel's `recipes_launches` ((a) and (d)) and
+    `to_str_launches` ((b)) to `stats`."""
+    import tempfile
+
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.added_vocabulary import AddedToken
+    from tokenizers_tpu_torch.implementations import BertWordPieceTokenizer, ByteLevelBPETokenizer
+    from tokenizers_tpu_torch.smoke_data import (
+        BERT_PAIR_SETTINGS, RECIPE_EXTRA, RECIPE_SETTINGS, RECIPE_TOKEN, RECIPE_TRAIN,
+        TO_STR_CONFIGS, apply_settings, bert_pairs, build_docs, config_json, ids_digest,
+        load_digests, load_recipes_digests, offsets_digest, recipe_digest, text_digest,
+        train_lines,
+    )
+
+    t_phase = time.perf_counter()
+    want = load_recipes_digests()
+    docs = build_docs()
+    if any(RECIPE_TOKEN in d for d in docs):
+        raise SystemExit(f"recipes: {RECIPE_TOKEN!r} lies in an 8 KB document")
+    inputs = docs + RECIPE_EXTRA
+    out = {}
+
+    def zero():
+        for c in counts.values():
+            for k in c:
+                c[k] = 0
+
+    def read():
+        return {k: c[k] for k, c in counts.items()}
+
+    def merge_errs(errs):
+        for k, e in errs.items():
+            stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], e)
+
+    def counted(name, tok, fn, digest, digests, checked_fn):
+        """fn() cold on `tok` (its engine built first), counts set to 0 just
+        before and read just after, every encoding against `digests`; B3, B2
+        and B1 must launch; then `checked_fn` (the same run on a tokenizer
+        in the same state) with every launch held against its plain
+        version."""
+        getattr(tok, "_tokenizer", tok)._get_device_engine()  # a recipe holds its Tokenizer
+        zero()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        encs = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = read()
+        bad = [i for i, e in enumerate(encs) if digest(e) != digests[i]]
+        if bad:
+            raise SystemExit(f"recipes {name}: {len(bad)} inputs differ from the wheel's "
+                             f"digests: {bad[:10]}")
+        missing = [k for k in RECIPE_KERNELS if launches[k] == 0]
+        if missing:
+            raise SystemExit(f"recipes {name}: {missing} never launched")
+        shapes, errs = checked_again(torch, checked_fn, f"recipes {name}", launches, digest,
+                                     digests)
+        merge_errs(errs)
+        r = {"secs": secs, "inputs": len(encs), "launches": launches,
+             "overflowing": sum(len(e.overflowing) for e in encs), "checked_shapes": shapes}
+        print("recipes " + json.dumps({"run": name, **{k: v for k, v in r.items()
+                                                       if k != "checked_shapes"}}), flush=True)
+        return r
+
+    # (a) the recipe path: ByteLevelBPETokenizer from the files BPE.save writes
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recipes_")
+    try:
+        files = Tokenizer.from_str(config_json("gpt2")).model.save(tmp)
+        vocab_txt = Tokenizer.from_str(config_json("bert")).model.save(tmp)[0]
+
+        def slice_tokenizer():
+            tok = ByteLevelBPETokenizer.from_file(*files)
+            tok.add_special_tokens(["<|endoftext|>"])
+            tok.add_tokens([AddedToken(RECIPE_TOKEN, lstrip=True, rstrip=True)])
+            apply_settings(tok, RECIPE_SETTINGS)
+            return tok
+
+        tok, other = slice_tokenizer(), slice_tokenizer()
+        a = {"fast": counted("a_fast", tok, lambda: tok.encode_batch_fast(inputs),
+                             recipe_digest, want["slice_fast"],
+                             lambda: other.encode_batch_fast(inputs))}
+        a["offsets"] = counted("a_offsets", tok, lambda: tok.encode_batch(inputs),
+                               offsets_digest, want["slice_offsets"],
+                               lambda: tok.encode_batch(inputs))
+        s = tok.to_str()
+        if text_digest(s) != want["slice_to_str"]:
+            raise SystemExit("recipes a: to_str unlike the wheel's")
+        back, back2 = Tokenizer.from_str(s), Tokenizer.from_str(s)
+        if back.to_str() != s:
+            raise SystemExit("recipes a: from_str(to_str()) does not give to_str back")
+        a["round_trip"] = counted("a_round_trip", back, lambda: back.encode_batch_fast(inputs),
+                                  recipe_digest, want["slice_fast"],
+                                  lambda: back2.encode_batch_fast(inputs))
+        a["host_inputs"] = len(RECIPE_EXTRA)
+        out["a"] = a
+
+        # (b) to_str -> from_str on the card for every tokenizer phases 3-13 load or train
+        b, b_launches = {}, {}
+        sources = [(c, Tokenizer.from_str(config_json(c)), c) for c in TO_STR_CONFIGS]
+        sources += [(run, tk, frozen) for run, (tk, frozen) in TRAINED.items()]
+        for name, src, frozen in sources:
+            t = time.perf_counter()
+            s = src.to_str()
+            if text_digest(s) != want["to_str"][frozen]:
+                raise SystemExit(f"recipes b {name}: to_str unlike the wheel's of {frozen}")
+            rt = Tokenizer.from_str(s)
+            zero()
+            encs, shapes, errs = checked_run(torch, lambda: rt.encode_batch_fast(docs))
+            launches = read()
+            merge_errs(errs)
+            digests = load_digests(frozen)
+            bad = [i for i, e in enumerate(encs) if ids_digest(e.ids) != digests[i]]
+            if bad:
+                raise SystemExit(f"recipes b {name}: {len(bad)} documents differ from the "
+                                 f"{frozen} digests: {bad[:10]}")
+            for k, n in launches.items():
+                b_launches[k] = b_launches.get(k, 0) + n
+            b[name] = {"secs": time.perf_counter() - t, "launches": launches,
+                       "checked_shapes": shapes}
+        out["b"] = {k: {"secs": v["secs"], "launches": v["launches"]} for k, v in b.items()}
+        print("recipes " + json.dumps({"run": "b_to_str", **out["b"]}), flush=True)
+
+        # (c) BertWordPieceTokenizer from the vocab.txt WordPiece.save writes, on pairs
+        bert = BertWordPieceTokenizer(vocab_txt)
+        apply_settings(bert, BERT_PAIR_SETTINGS)
+        pairs = bert_pairs(docs)
+        zero()
+        t = time.perf_counter()
+        encs = bert.encode_batch(pairs)
+        fast = bert.encode_batch_fast(pairs)
+        c_secs = time.perf_counter() - t
+        if [recipe_digest(e) for e in encs] != want["bert_pairs"] or \
+                [recipe_digest(e) for e in fast] != want["bert_pairs"]:
+            raise SystemExit("recipes c: the pairs' encodings differ from the wheel's digests")
+        if text_digest(bert.to_str()) != want["bert_to_str"]:
+            raise SystemExit("recipes c: to_str unlike the wheel's")
+        if any(read().values()):
+            raise SystemExit(f"recipes c: a kernel of csrc/ launched: {read()}")
+        out["c"] = {"pairs": len(pairs), "secs": c_secs,
+                    "overflowing": sum(len(e.overflowing) for e in encs)}
+    finally:
+        for f in os.listdir(tmp):
+            os.remove(os.path.join(tmp, f))
+        os.rmdir(tmp)
+
+    # (d) ByteLevelBPETokenizer trained on the card (the dense trainer)
+    trained = ByteLevelBPETokenizer()
+    zero()
+    t = time.perf_counter()
+    trained.train_from_iterator(train_lines(RECIPE_TRAIN["chars"]),
+                                vocab_size=RECIPE_TRAIN["vocab_size"],
+                                special_tokens=RECIPE_TRAIN["special_tokens"], show_progress=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    if any(read().values()):
+        raise SystemExit(f"recipes d: a kernel of csrc/ launched while training: {read()}")
+    s = trained.to_str()
+    if text_digest(s) != want["trained_to_str"]:
+        raise SystemExit("recipes d: the trained tokenizer's to_str unlike the wheel's")
+    again = Tokenizer.from_str(s)
+    d = counted("d_trained", trained, lambda: trained.encode_batch_fast(docs),
+                lambda e: ids_digest(e.ids), want["trained_fast"],
+                lambda: again.encode_batch_fast(docs))
+    d["train_s"] = train_s
+    d["vocab_size"] = trained.get_vocab_size()
+    out["d"] = d
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    numbers["recipes"] = out
+    print("numbers " + json.dumps({"recipes": out}), flush=True)
+    print(f"phase 15 (recipes): {out['phase_s']:.1f} s on {smi}", flush=True)
+    for k, s_ in stats.items():
+        s_["recipes_launches"] = {"a_fast": a["fast"]["launches"][k],
+                                  "a_offsets": a["offsets"]["launches"][k],
+                                  "d_trained": d["launches"][k]}
+        s_["to_str_launches"] = b_launches[k]
+
+
 def stats_launches(runs, k):
     return sum(r["cold"]["launches"][k] for r in runs.values())
 
@@ -2123,6 +2340,9 @@ def main() -> int:
     # ---- 14. the multi-rank runtime ------------------------------------------------
     multirank_path(torch, stats, counts, numbers, smi)
 
+    # ---- 15. the Tokenizer's full surface and the recipes ------------------------
+    recipes_path(torch, stats, counts, numbers, smi)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -2164,6 +2384,7 @@ def main() -> int:
          "char_level_launches": s["char_level_launches"],
          "char_level_shapes": s["char_level_shapes"],
          "multirank_launches": s["multirank_launches"],
+         "recipes_launches": s["recipes_launches"], "to_str_launches": s["to_str_launches"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "shape": s["shape"], **{x: s[x] for x in extra if x in s}}

@@ -5,8 +5,10 @@ the gpt2, llama3, bert, WordLevel, char-level BPE and Unigram pipelines;
 BPE training on the dense and the per-round path, WordPiece, WordLevel
 and Unigram training, `Tokenizer.train_from_iterator`, `decode` and
 `decode_stream`; a process group of one rank through the sharded encode,
-both trainers' mesh arguments and `entry`), and no source file of the
-package imports them."""
+both trainers' mesh arguments and `entry`; the five recipes trained, with
+added tokens, truncation, padding, pairs, pre-tokenized input, a
+post-processor, `to_str`, `from_str` and pickling), and no source file of
+the package imports them."""
 
 import os
 import re
@@ -114,6 +116,32 @@ trainer.train(Unigram([("<unk>", 0.0)], unk_id=0))
 fn, args = entry.entry("cpu")
 assert fn(*args)[0].shape == (2, 64)
 runtime.shutdown()
+import pickle
+from tokenizers_tpu_torch import implementations as recipes
+from tokenizers_tpu_torch.added_vocabulary import AddedToken
+from tokenizers_tpu_torch.processors import RobertaProcessing
+bl = recipes.ByteLevelBPETokenizer(device="cpu")
+bl.train_from_iterator(lines, vocab_size=280, special_tokens=["<|endoftext|>"])
+bl.add_tokens([AddedToken("zz", lstrip=True, rstrip=True, single_word=True)])
+bl.enable_truncation(6, stride=1)
+bl.enable_padding(pad_to_multiple_of=8)
+encs = bl.encode_batch_fast(["the lowest tokenizers zz", "a<|endoftext|>b"])
+assert [len(e.ids) for e in encs] == [8, 8] and encs[0].overflowing, encs
+assert len(bl.encode("the fox", "the dog").ids) == 8
+tok = Tokenizer.from_str(bl.to_str(), device="cpu")
+assert pickle.loads(pickle.dumps(tok)).to_str() == bl.to_str()
+tok.post_processor = RobertaProcessing(("</s>", 2), ("<s>", 1))
+assert tok.encode(["the", "fox"], is_pretokenized=True).ids[0] == 1
+for name, kw in (("CharBPETokenizer", {}), ("SentencePieceBPETokenizer", {}),
+                 ("BertWordPieceTokenizer", {}),
+                 ("SentencePieceUnigramTokenizer", {"special_tokens": ["<unk>"],
+                                                    "unk_token": "<unk>"})):
+    r = getattr(recipes, name)(device="cpu")
+    r.train_from_iterator(lines, vocab_size=80, **kw)
+    assert r.encode_batch(["the lowest", ("the", "fox")])[1].ids, name
+    back = Tokenizer.from_str(r.to_str(), device="cpu").to_str()
+    # Unigram scores read back as the wheel reads them (serde_f64): not the same bits
+    assert back == r.to_str() or "Unigram" in name, name
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

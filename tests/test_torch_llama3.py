@@ -347,10 +347,28 @@ BYTE_LEVEL = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": Tr
     (("pre_tokenizer", "pretokenizers", 1), {"type": "Digits", "individual_digits": True}),
     (("pre_tokenizer",), BYTE_LEVEL),  # ignore_merges without the Sequence
     (("model", "ignore_merges"), False),  # the Sequence without ignore_merges
-    (("post_processor", "single"), [{"Sequence": {"id": "A", "type_id": 0}}] * 2),
-    (("post_processor",), {"type": "BertProcessing", "sep": ["x", 1], "cls": ["y", 0]}),
     (("normalizer",), {"type": "NFC"}),
 ])
 def test_loader_refuses_what_it_does_not_honour(path, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Tokenizer.from_str(_edited(path, value), device="cpu")
+
+
+def _same_as_wheel(blob, texts):
+    """The port loads `blob` and encodes `texts` as the wheel does (ids,
+    tokens, type ids, offsets, masks)."""
+    ours = Tokenizer.from_str(blob, device="cpu")
+    ref = WheelTokenizer.from_str(blob)
+    for g, w in zip(ours.encode_batch(texts), ref.encode_batch(texts)):
+        assert (g.ids, g.tokens, g.type_ids, g.offsets, g.attention_mask) == (
+            w.ids, w.tokens, w.type_ids, [tuple(o) for o in w.offsets], w.attention_mask), g.ids
+
+
+@pytest.mark.parametrize("path,value", [
+    (("post_processor", "single"), [{"Sequence": {"id": "A", "type_id": 0}}] * 2),
+    (("post_processor",), {"type": "BertProcessing", "sep": ["x", 1], "cls": ["y", 0]}),
+])
+def test_loader_admits_what_it_now_honours(path, value):
+    """Post-processors refused before the Tokenizer's full surface was
+    ported: a template with the sequence twice, BertProcessing."""
+    _same_as_wheel(_edited(path, value), ["Hello world! <|endoftext|>a", "x  y\tz", "naïve café 12", ""])

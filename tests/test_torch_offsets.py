@@ -14,8 +14,9 @@ value is an id, a position, a count or a flag).
   llama3_128k, with rows flagged to the host and a long document split
   into pieces; byte offsets, device and host, against the JAX package's
   host path; `process_offsets` against the JAX package's.
-* `encode_batch_arrays` against `encode_batch_fast`, the entry points'
-  refusals, and on a card (`gpu`) the same encodings as on the CPU.
+* `encode_batch_arrays` against `encode_batch_fast`, the entry points
+  (pairs and pre-tokenized input against the wheel), and on a card
+  (`gpu`) the same encodings as on the CPU.
 """
 
 import json
@@ -216,11 +217,16 @@ def test_entry_points():
                                                          batch.tokens, batch.words)
     b = tok.encode_byte_offsets(s)
     assert b.offsets == tok.encode_batch_byte_offsets([s])[0].offsets != batch.offsets
-    for call in (lambda: tok.encode(s, "pair"), lambda: tok.encode_batch([(s, "pair")]),
-                 lambda: tok.encode_batch([["pre", "tokenized"]], is_pretokenized=True),
-                 lambda: tok.encode_byte_offsets(["pre"], is_pretokenized=True)):
-        with pytest.raises(NotImplementedError, match="a later slice"):
-            call()
+    # pairs and pre-tokenized input take the host pipeline, as the wheel's
+    wheel = WheelTokenizer.from_file(GPT2)
+    for got, want in ((tok.encode(s, "pair"), wheel.encode(s, "pair")),
+                      (tok.encode_batch([(s, "pair")])[0], wheel.encode_batch([(s, "pair")])[0]),
+                      (tok.encode_batch([["pre", "tokenized"]], is_pretokenized=True)[0],
+                       wheel.encode_batch([["pre", "tokenized"]], is_pretokenized=True)[0])):
+        assert (got.ids, got.offsets, got.tokens, got.words, got.type_ids) == (
+            want.ids, [tuple(o) for o in want.offsets], want.tokens, want.words, want.type_ids)
+    assert tok.encode_byte_offsets(["pre"], is_pretokenized=True).ids == \
+        wheel.encode(["pre"], is_pretokenized=True).ids
 
 
 # the JAX programs last: their ops compile for most of this file's time

@@ -455,7 +455,6 @@ def test_encode_batch_arrays(plain):
                         "split": True}}, "Metaspace"),
     ({"normalizer": {"type": "Replace", "pattern": {"Regex": "\\s+"}, "content": " "}},
      "Replace"),
-    ({"post_processor": {"type": "ByteLevel"}}, "post-processor"),
     ({"pre_tokenizer": {"type": "Metaspace", "replacement": "_", "prepend_scheme": "always",
                         "split": True}}, "replacement"),
 ])
@@ -464,6 +463,19 @@ def test_loader_refuses_other_unigram_pipelines(edit, what):
     d.update(edit)
     with pytest.raises(NotImplementedError, match=what):
         Tokenizer.from_str(json.dumps(d), device="cpu")
+
+
+def test_loader_admits_a_byte_level_post_processor():
+    """A ByteLevel post-processor behind Metaspace (refused before the
+    Tokenizer's full surface was ported) trims offsets as the wheel's."""
+    d = json.load(open(UNIGRAM, encoding="utf-8"))
+    d["post_processor"] = {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                           "use_regex": True}
+    blob = json.dumps(d)
+    texts = ["Hello  world! café", " x y", ""]
+    for g, w in zip(Tokenizer.from_str(blob, device="cpu").encode_batch(texts),
+                    WheelTokenizer.from_str(blob).encode_batch(texts)):
+        assert (g.ids, g.tokens, g.offsets) == (w.ids, w.tokens, [tuple(o) for o in w.offsets])
 
 
 def test_engine_refusals_take_the_host():

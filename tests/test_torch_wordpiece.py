@@ -302,8 +302,6 @@ def test_encode_batch_arrays(port):
     ({"normalizer": {"type": "NFC"}}, "BertNormalizer"),
     ({"normalizer": None}, "BertNormalizer"),
     ({"pre_tokenizer": {"type": "BertPreTokenizer", "x": 1}}, "options"),
-    ({"truncation": {"max_length": 8}}, "truncation"),
-    ({"post_processor": {"type": "ByteLevel"}}, "post-processor"),
     ({"model": {"type": "WordLevel", "vocab": {}, "unk_token": "[UNK]", "x": 1}}, "WordLevel"),
 ])
 def test_loader_refuses_other_bert_pipelines(edit, what):
@@ -313,6 +311,28 @@ def test_loader_refuses_other_bert_pipelines(edit, what):
     d.update(edit)
     with pytest.raises(NotImplementedError, match=what):
         Tokenizer.from_str(json.dumps(d), device="cpu")
+
+
+@pytest.mark.parametrize("edit", [
+    {"truncation": {"direction": "Right", "max_length": 8, "strategy": "LongestFirst",
+                    "stride": 2}},
+    {"post_processor": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                        "use_regex": True}},
+])
+def test_loader_admits_truncation_and_other_post_processors(edit):
+    """Truncation and a ByteLevel post-processor in the BERT pipeline
+    (refused before the Tokenizer's full surface was ported): the wheel's
+    encodings."""
+    import json
+
+    d = json.load(open(BERT, encoding="utf-8"))
+    d.update(edit)
+    blob = json.dumps(d)
+    texts = ["Hello, World! café 中文 and more words here", "a[SEP]b", ""]
+    for g, w in zip(Tokenizer.from_str(blob, device="cpu").encode_batch(texts),
+                    WheelTokenizer.from_str(blob).encode_batch(texts)):
+        assert (g.ids, g.tokens, g.offsets, [o.ids for o in g.overflowing]) == (
+            w.ids, w.tokens, [tuple(o) for o in w.offsets], [o.ids for o in w.overflowing])
 
 
 @pytest.mark.gpu

@@ -1,6 +1,8 @@
 """Regenerate the committed data files of this directory.
 
-    python -m tokenizers_tpu_torch.data.regen [--retrain]
+    python -m tokenizers_tpu_torch.data.regen [--retrain] [--recipes]
+
+(`--recipes`: `recipes_digests.json` alone.)
 
 * `char_class.npz`: the two-stage codepoint -> class table, derived from
   the `regex` module's \\p{L} and \\p{N} (the classes Oniguruma uses).
@@ -41,6 +43,20 @@
   KB documents, with and without `skip_special_tokens`, and for
   `STREAM_CONFIGS` the digests of the wheel's `DecodeStream` steps over
   the first `STREAM_DOCS` documents.
+* `recipes_digests.json` (`chip_smoke.py` phase 15): the wheel's
+  `ByteLevelBPETokenizer.from_file` on the gpt2 fixture's model written
+  by the port's `BPE.save`, with `<|endoftext|>` special,
+  `smoke_data.RECIPE_TOKEN` added (lstrip, rstrip) and
+  `RECIPE_SETTINGS` (truncation at 1,024, stride 128; padding to a
+  multiple of 8): per input of the 8 KB documents and `RECIPE_EXTRA`, the
+  `recipe_digest` of `encode_batch_fast` and the `offsets_digest` of
+  `encode_batch`, and its `to_str` digest; the `to_str` digest of each
+  of `TO_STR_CONFIGS`; `BertWordPieceTokenizer` on the bert fixture's
+  `vocab.txt` written by `WordPiece.save`, with `BERT_PAIR_SETTINGS`: the
+  `recipe_digest` of `encode_batch` of `bert_pairs`; and
+  `ByteLevelBPETokenizer().train_from_iterator` at `RECIPE_TRAIN` on the
+  lines of the corpus's first 1 MB: its `to_str` digest and the ids
+  digests of its `encode_batch_fast` of the 8 KB documents.
 * `unigram_digests.json`, `unigram_bf_digests.json` (ids of the 8 KB
   documents), `unigram_long_digests.json` (the long documents (a)) and
   `unigram_offsets_digests.json`, `unigram_bf_offsets_digests.json`
@@ -71,10 +87,11 @@ from ..ops.unicode_tables import (
 )
 from ..ops.wordlevel_encode import class_table_path
 from ..smoke_data import (
-    CHAR_CONFIGS, CONFIGS, CORPUS, DATA, DECODE_CONFIGS, STREAM_CONFIGS, STREAM_DOCS,
-    TRAIN_RUNS, UNIGRAM_CONFIGS, UNIGRAM_TRAIN, build_docs, config_json, digests_path,
-    ids_digest, long_parts, merges_digest, offsets_digest, recipe_json, stream_digest,
-    text_digest, train_lines, vocab_digest,
+    BERT_PAIR_SETTINGS, CHAR_CONFIGS, CONFIGS, CORPUS, DATA, DECODE_CONFIGS, RECIPE_EXTRA,
+    RECIPE_SETTINGS, RECIPE_TOKEN, RECIPE_TRAIN, STREAM_CONFIGS, STREAM_DOCS, TO_STR_CONFIGS,
+    TRAIN_RUNS, UNIGRAM_CONFIGS, UNIGRAM_TRAIN, apply_settings, bert_pairs, build_docs,
+    config_json, digests_path, ids_digest, long_parts, merges_digest, offsets_digest,
+    recipe_digest, recipe_json, stream_digest, text_digest, train_lines, vocab_digest,
 )
 
 # Oniguruma \s
@@ -213,7 +230,55 @@ def wheel_decode_digests():
     return out
 
 
+def wheel_recipes_digests():
+    """The digests of `recipes_digests.json` (the module docstring)."""
+    import tempfile
+
+    from ..tokenizer import Tokenizer
+
+    wheel = importlib.import_module("tokenizers")
+    recipes = importlib.import_module("tokenizers.implementations")
+    docs = build_docs()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        files = Tokenizer.from_str(config_json("gpt2"), device="cpu").model.save(d)
+        tok = recipes.ByteLevelBPETokenizer.from_file(*files)
+        tok.add_special_tokens(["<|endoftext|>"])
+        tok.add_tokens([wheel.AddedToken(RECIPE_TOKEN, lstrip=True, rstrip=True)])
+        apply_settings(tok, RECIPE_SETTINGS)
+        inputs = docs + RECIPE_EXTRA
+        out["slice_fast"] = [recipe_digest(e) for e in tok._tokenizer.encode_batch_fast(inputs)]
+        out["slice_offsets"] = [offsets_digest(e) for e in tok.encode_batch(inputs)]
+        out["slice_to_str"] = text_digest(tok.to_str())
+        out["to_str"] = {c: text_digest(wheel.Tokenizer.from_str(config_json(c)).to_str())
+                         for c in TO_STR_CONFIGS}
+        vocab_txt = Tokenizer.from_str(config_json("bert"), device="cpu").model.save(d)[0]
+        bert = recipes.BertWordPieceTokenizer(vocab_txt)
+        apply_settings(bert, BERT_PAIR_SETTINGS)
+        out["bert_pairs"] = [recipe_digest(e) for e in bert.encode_batch(bert_pairs(docs))]
+        out["bert_to_str"] = text_digest(bert.to_str())
+    trained = recipes.ByteLevelBPETokenizer()
+    trained.train_from_iterator(train_lines(RECIPE_TRAIN["chars"]),
+                                vocab_size=RECIPE_TRAIN["vocab_size"],
+                                special_tokens=RECIPE_TRAIN["special_tokens"],
+                                show_progress=False)
+    out["trained_to_str"] = text_digest(trained.to_str())
+    out["trained_fast"] = [ids_digest(e.ids) for e in trained._tokenizer.encode_batch_fast(docs)]
+    return out
+
+
+def write_recipes_digests():
+    path = os.path.join(DATA, "recipes_digests.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(wheel_recipes_digests(), f, indent=0)
+        f.write("\n")
+    print("wrote", path)
+
+
 def main():
+    if "--recipes" in sys.argv:  # recipes_digests.json alone
+        write_recipes_digests()
+        return
     stage1, stage2 = class_tables()
     np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
     print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes")
@@ -249,6 +314,7 @@ def main():
             json.dump({"sha256": sha}, f, indent=0)
             f.write("\n")
         print("wrote", digests_path(name))
+    write_recipes_digests()
 
 
 if __name__ == "__main__":

@@ -244,7 +244,7 @@ def from_json(d: Optional[dict]):
         prepend_scheme = d.get("prepend_scheme", "always")
         if d.get("add_prefix_space") is False:
             prepend_scheme = "never"
-        return Metaspace(prepend_scheme, d.get("replacement", "▁"))
+        return Metaspace(prepend_scheme, d.get("replacement", "▁"), d.get("split", True))
     if t == "WordPiece":
         return WordPiece(d.get("prefix", "##"), d.get("cleanup", True))
     if t == "BPEDecoder":

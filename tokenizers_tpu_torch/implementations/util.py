@@ -1,0 +1,18 @@
+"""Helpers shared by the recipes; copy of
+`tokenizers_tpu.implementations.util`."""
+
+from ..normalizers import NFC, NFD, NFKC, NFKD
+
+
+def unicode_normalizer_from_str(normalizer: str):
+    mapping = {"nfc": NFC, "nfd": NFD, "nfkc": NFKC, "nfkd": NFKD}
+    if normalizer not in mapping:
+        raise ValueError(f"{normalizer} is not a known unicode normalizer. "
+                         f"Available are {list(mapping)}")
+    return mapping[normalizer]()
+
+
+def refuse_dropout(dropout) -> None:
+    """BPE dropout is not ported: the loader and every recipe refuse it."""
+    if dropout not in (None, 0.0):
+        raise NotImplementedError("BPE dropout is not ported yet: it waits for a later slice")

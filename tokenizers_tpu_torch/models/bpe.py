@@ -21,7 +21,11 @@ the device program flags `row_bad`.
 from __future__ import annotations
 
 import heapq
+import json
+import os
 from typing import Dict, List, Optional, Tuple
+
+from ..errors import ModelError
 
 DEFAULT_CACHE_CAPACITY = 10_000
 MAX_CACHEABLE_LENGTH = 256
@@ -105,12 +109,17 @@ class _Word:
 
 
 class BPE:
-    def __init__(self, vocab: Dict[str, int], merges: List[Tuple[str, str]],
+    def __init__(self, vocab: Optional[Dict[str, int]] = None,
+                 merges: Optional[List[Tuple[str, str]]] = None,
                  unk_token: Optional[str] = None, fuse_unk: bool = False,
                  ignore_merges: bool = False, continuing_subword_prefix: Optional[str] = None,
                  end_of_word_suffix: Optional[str] = None, byte_fallback: bool = False,
-                 byte_spans: bool = False):
-        self.vocab: Dict[str, int] = dict(vocab)
+                 byte_spans: bool = False, dropout: Optional[float] = None):
+        """`dropout` is kept for `tokenizer.json`; the loader and the recipes
+        refuse any other value than None or 0.0 (not ported)."""
+        merges = merges or []
+        self.dropout = dropout
+        self.vocab: Dict[str, int] = dict(vocab or {})
         self.vocab_r: Dict[int, str] = {v: k for k, v in self.vocab.items()}
         self.unk_token = unk_token
         self.fuse_unk = fuse_unk
@@ -193,6 +202,61 @@ class BPE:
         from ..trainers.bpe_trainer import BpeTrainer
 
         return BpeTrainer(device=device)
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self.vocab.get(token)
+
+    def id_to_token(self, id: int) -> Optional[str]:
+        return self.vocab_r.get(id)
+
+    def get_vocab(self) -> Dict[str, int]:
+        return dict(self.vocab)
+
+    def get_vocab_size(self) -> int:
+        return len(self.vocab)
+
+    def ranked_merges(self) -> List[Tuple[str, str]]:
+        """The merges by rank, as strings (a pair listed twice keeps its
+        last rank, as the model's merge map does)."""
+        ranked = sorted((rank, pair) for pair, (rank, _new) in self.merges.items())
+        return [(self.vocab_r[a], self.vocab_r[b]) for _rank, (a, b) in ranked]
+
+    @staticmethod
+    def read_file(vocab_path: str, merges_path: str):
+        """(vocab, merges) of a `vocab.json` and a `merges.txt` (a first line
+        `#version...` and empty lines skipped; reference
+        `models/bpe/model.rs:254-290`)."""
+        with open(vocab_path, "r", encoding="utf-8") as f:
+            vocab = json.load(f)
+        merges = []
+        with open(merges_path, "r", encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                line = line.rstrip("\n")
+                if (i == 0 and line.startswith("#version")) or not line:
+                    continue
+                parts = line.split(" ")
+                if len(parts) != 2:
+                    raise ModelError(f"Invalid merges line: {line!r}")
+                merges.append((parts[0], parts[1]))
+        return vocab, merges
+
+    @classmethod
+    def from_file(cls, vocab_path: str, merges_path: str, **kwargs) -> "BPE":
+        vocab, merges = cls.read_file(vocab_path, merges_path)
+        return cls(vocab, merges, **kwargs)
+
+    def save(self, folder: str, prefix: Optional[str] = None) -> List[str]:
+        """Write `[prefix-]vocab.json` (tokens by id) and `[prefix-]merges.txt`
+        (`#version: 0.2`, then one merge a line by rank); the paths."""
+        vocab_path = os.path.join(folder, f"{prefix}-vocab.json" if prefix else "vocab.json")
+        merges_path = os.path.join(folder, f"{prefix}-merges.txt" if prefix else "merges.txt")
+        with open(vocab_path, "w", encoding="utf-8") as f:
+            json.dump({self.vocab_r[i]: i for i in sorted(self.vocab_r)}, f, ensure_ascii=False)
+        with open(merges_path, "w", encoding="utf-8") as f:
+            f.write("#version: 0.2\n")
+            for a, b in self.ranked_merges():
+                f.write(f"{a} {b}\n")
+        return [vocab_path, merges_path]
 
     def tokenize_spans(self, word: str) -> List[Tuple[int, int, int]]:
         """(id, start, end) of each token of one pre-tokenized word, the

@@ -24,7 +24,9 @@ trainer (`trainers/unigram_em.py`), whose models may hold a NaN score
 
 from __future__ import annotations
 
+import json
 import math
+import os
 from typing import Dict, List, Optional, Tuple
 
 from .bpe import MAX_CACHEABLE_LENGTH, Cache
@@ -33,8 +35,10 @@ K_UNK_PENALTY = 10.0
 
 
 class Unigram:
-    def __init__(self, pieces: List[Tuple[str, float]], unk_id: Optional[int] = None,
-                 byte_fallback: bool = False):
+    def __init__(self, pieces: Optional[List[Tuple[str, float]]] = None,
+                 unk_id: Optional[int] = None, byte_fallback: bool = False):
+        if pieces is None:  # the reference's default model
+            pieces, unk_id = [("<unk>", 0.0)], 0
         if unk_id is not None and unk_id >= len(pieces):
             raise ValueError("The `unk_id` is larger than vocabulary size")
         self.pieces: List[Tuple[str, float]] = [(t, float(s)) for t, s in pieces]
@@ -187,3 +191,19 @@ class Unigram:
         from ..trainers.unigram_trainer import UnigramTrainer
 
         return UnigramTrainer(device=device)
+
+    def get_vocab(self) -> Dict[str, int]:
+        return dict(self.vocab)
+
+    def get_vocab_size(self) -> int:
+        return len(self.pieces)
+
+    def save(self, folder: str, prefix: Optional[str] = None) -> List[str]:
+        """Write `[prefix-]unigram.json` (the model's tokenizer.json entry,
+        indented); the path."""
+        path = os.path.join(folder, f"{prefix}-unigram.json" if prefix else "unigram.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump({"type": "Unigram", "unk_id": self.unk_id,
+                       "vocab": [[t, s] for t, s in self.pieces],
+                       "byte_fallback": self.byte_fallback}, f, ensure_ascii=False, indent=2)
+        return [path]

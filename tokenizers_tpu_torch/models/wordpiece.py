@@ -7,14 +7,15 @@ match or the word has more than `max_input_chars_per_word` chars."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import os
+from typing import Dict, List, Optional, Tuple
 
 
 class WordPiece:
-    def __init__(self, vocab: Dict[str, int], unk_token: str = "[UNK]",
+    def __init__(self, vocab: Optional[Dict[str, int]] = None, unk_token: str = "[UNK]",
                  continuing_subword_prefix: str = "##",
                  max_input_chars_per_word: int = 100):
-        self.vocab: Dict[str, int] = dict(vocab)
+        self.vocab: Dict[str, int] = dict(vocab or {})
         self.vocab_r: Dict[int, str] = {v: k for k, v in self.vocab.items()}
         self.unk_token = unk_token
         self.continuing_subword_prefix = continuing_subword_prefix
@@ -59,3 +60,36 @@ class WordPiece:
 
         return WordPieceTrainer(device=device)
 
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self.vocab.get(token)
+
+    def id_to_token(self, id: int) -> Optional[str]:
+        return self.vocab_r.get(id)
+
+    def get_vocab(self) -> Dict[str, int]:
+        return dict(self.vocab)
+
+    def get_vocab_size(self) -> int:
+        return len(self.vocab)
+
+    @staticmethod
+    def read_file(vocab_path: str) -> Dict[str, int]:
+        """The vocab of a `vocab.txt`: one token a line, its id the line's
+        index."""
+        vocab: Dict[str, int] = {}
+        with open(vocab_path, "r", encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                vocab[line.rstrip("\n")] = i
+        return vocab
+
+    @classmethod
+    def from_file(cls, vocab_path: str, **kwargs) -> "WordPiece":
+        return cls(cls.read_file(vocab_path), **kwargs)
+
+    def save(self, folder: str, prefix: Optional[str] = None) -> List[str]:
+        """Write `[prefix-]vocab.txt`, the tokens by id; the path."""
+        path = os.path.join(folder, f"{prefix}-vocab.txt" if prefix else "vocab.txt")
+        with open(path, "w", encoding="utf-8") as f:
+            for i in sorted(self.vocab_r):
+                f.write(self.vocab_r[i] + "\n")
+        return [path]

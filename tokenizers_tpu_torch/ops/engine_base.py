@@ -166,9 +166,11 @@ class DeviceEngineBase:
         return s.encode("utf-8")
 
     def _needs_host(self, s: str, added) -> bool:
-        """An input holding an added token goes to the host pipeline,
-        which extracts those before the model."""
-        return any(t in s for t in added)
+        """An input holding an added token (`added`: their contents) goes to
+        the host pipeline, which extracts those before the model: in its
+        raw text, or, for a token matched on the normalized text, in that
+        (`AddedVocabulary.needs_host`)."""
+        return self.tokenizer.added_vocabulary.needs_host(s, self.tokenizer.normalizer)
 
     def _split_long(self, data: bytes, target: int) -> List[bytes]:
         return split_long(data, target)
@@ -339,7 +341,7 @@ class DeviceEngineBase:
             for i, parts in per_input.items():
                 ids = np.concatenate(parts) if len(parts) > 1 else parts[0]
                 encodings[i] = self.tokenizer.post_process(
-                    Encoding(ids=ids.tolist()), add_special_tokens
+                    Encoding(ids=ids.tolist()), None, add_special_tokens
                 )
             host_idx.extend(sorted(bad_inputs))
 
@@ -410,8 +412,7 @@ class DeviceEngineBase:
                                words=wd.tolist(),
                                offsets=map_offsets(inputs[i], st, en, kind,
                                                    "char" if chars else "byte"))
-                encodings[i] = self.tokenizer.post_process(enc, add_special_tokens,
-                                                           with_offsets=True)
+                encodings[i] = self.tokenizer.post_process(enc, None, add_special_tokens)
             host_idx.extend(sorted(bad_inputs))
 
         for i in host_idx:

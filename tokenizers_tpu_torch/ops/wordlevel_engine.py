@@ -61,8 +61,9 @@ class NormalizingEngine(DeviceEngineBase):
         return (s if nz is None else nz.normalize_str(s)).encode("utf-8")
 
     def _needs_host(self, s: str, added) -> bool:
-        """An added token in the raw text, or in the normalized one."""
-        if any(t in s for t in added):
+        """An added token in the raw text, or any added token's content in
+        the normalized one."""
+        if super()._needs_host(s, added):
             return True
         nz = self.tokenizer.normalizer
         if nz is None or not added:

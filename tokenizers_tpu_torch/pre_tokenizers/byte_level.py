@@ -93,6 +93,29 @@ class ByteLevel:
     def decode(self, tokens: List[str]) -> str:
         return "".join(self.decode_chain(tokens))
 
+    # the post-processor role: no tokens added, offsets trimmed
+    @staticmethod
+    def alphabet():
+        return set(BYTES_CHAR.values())
+
+    def added_tokens(self, is_pair: bool) -> int:
+        return 0
+
+    def process_encodings(self, encodings, add_special_tokens: bool):
+        if self.trim_offsets:
+            for encoding in encodings:
+                process_offsets(encoding, self.add_prefix_space)
+                for overflow in encoding.overflowing:
+                    process_offsets(overflow, self.add_prefix_space)
+        for i, encoding in enumerate(encodings):
+            encoding.set_sequence_id(i)
+        return encodings
+
+    def process(self, encoding, pair_encoding=None, add_special_tokens: bool = True):
+        from ..processors import process_pair
+
+        return process_pair(self, encoding, pair_encoding, add_special_tokens)
+
 
 def boundary_spans(data: bytes, boundaries) -> List[Tuple[int, int]]:
     """The byte spans of the words of UTF-8 bytes, cut at the match starts
@@ -135,6 +158,8 @@ def process_offsets(encoding, add_prefix_space: bool) -> None:
     from its offsets, in place (reference `byte_level.rs:202-234`).  A
     first token (the first, or one at offset 0) keeps one leading space
     when `add_prefix_space`: that space was added, not in the text."""
+    if not any(encoding.tokens):  # the ids-only paths' empty tokens
+        return
     for i, token in enumerate(encoding.tokens):
         leading = 0
         while leading < len(token) and _is_space(token[leading]):

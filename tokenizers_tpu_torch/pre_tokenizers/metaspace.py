@@ -18,13 +18,18 @@ REPLACEMENT = "▁"
 
 
 class Metaspace:
-    def __init__(self, prepend_scheme: str = "always", replacement: str = REPLACEMENT):
+    def __init__(self, prepend_scheme: str = "always", replacement: str = REPLACEMENT,
+                 split: bool = True):
+        """`split` is kept for `tokenizer.json`: the pre-tokenizer always
+        splits (the loader refuses `split: false` there), the decoder
+        does not use it."""
         if prepend_scheme not in ("always", "first", "never"):
             raise ValueError(f"Invalid prepend_scheme: {prepend_scheme}")
         if len(replacement) != 1:
             raise ValueError("replacement must be a single char")
         self.prepend_scheme = prepend_scheme
         self.replacement = replacement  # the decoder's; the split is `▁`'s
+        self.split = split
 
     def apply(self, ns, first: bool) -> None:
         """Replace and prepend on the NormalizedString `ns` in place;

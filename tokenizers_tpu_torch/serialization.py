@@ -1,0 +1,228 @@
+"""Writing `tokenizer.json`; port of the writing half of
+`tokenizers_tpu.serialization` (reference `tokenizer/serialization.rs`
+and each component's serde).
+
+`tokenizer_to_dict` gives `{version, truncation, padding, added_tokens,
+normalizer, pre_tokenizer, post_processor, decoder, model}` with each
+component a "type"-tagged object whose keys come in the reference's
+order, so that `Tokenizer.to_str` (the JSON of it, `separators=(",",
+":")`, `ensure_ascii=False`) is byte-equal to the reference's
+`to_str`.  Reading stays with the loader (`Tokenizer.from_str`).  A
+component the port does not know (a custom decoder) raises SerdeError.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from . import decoders as D
+from . import normalizers as N
+from . import processors as PP
+from .errors import SerdeError
+from .models.bpe import BPE
+from .models.unigram import Unigram
+from .models.wordlevel import WordLevel
+from .models.wordpiece import WordPiece
+from .normalizers.bert import BertNormalizer
+from .pre_tokenizers.bert import BertPreTokenizer
+from .pre_tokenizers.byte_level import ByteLevel
+from .pre_tokenizers.metaspace import Metaspace
+from .pre_tokenizers.split import LLAMA3_PATTERN, Sequence as PreSequence, Split
+from .pre_tokenizers.whitespace import Whitespace, WhitespaceSplit
+from .utils.padding import BATCH_LONGEST, PaddingParams
+from .utils.truncation import TruncationParams
+
+
+def _pattern(p: str, regex: bool) -> Dict[str, str]:
+    return {"Regex" if regex else "String": p}
+
+
+def _byte_level(b: ByteLevel) -> Dict[str, Any]:
+    return {"type": "ByteLevel", "add_prefix_space": b.add_prefix_space,
+            "trim_offsets": b.trim_offsets, "use_regex": b.use_regex}
+
+
+def _metaspace(m: Metaspace) -> Dict[str, Any]:
+    return {"type": "Metaspace", "replacement": m.replacement,
+            "prepend_scheme": m.prepend_scheme, "split": m.split}
+
+
+_SIMPLE_NORMALIZERS = ((N.NFD, "NFD"), (N.NFKD, "NFKD"), (N.NFC, "NFC"), (N.NFKC, "NFKC"),
+                       (N.Nmt, "Nmt"), (N.Lowercase, "Lowercase"),
+                       (N.StripAccents, "StripAccents"))
+
+
+def normalizer_to_dict(n) -> Optional[Dict[str, Any]]:
+    if n is None:
+        return None
+    if isinstance(n, N.Sequence):
+        return {"type": "Sequence", "normalizers": [normalizer_to_dict(x) for x in n.normalizers]}
+    if isinstance(n, BertNormalizer):
+        return {"type": "BertNormalizer", "clean_text": n.clean_text,
+                "handle_chinese_chars": n.handle_chinese_chars, "strip_accents": n.strip_accents,
+                "lowercase": n.lowercase}
+    for cls, name in _SIMPLE_NORMALIZERS:
+        if isinstance(n, cls):
+            return {"type": name}
+    if isinstance(n, N.Strip):
+        return {"type": "Strip", "strip_left": n.left, "strip_right": n.right}
+    if isinstance(n, N.Prepend):
+        return {"type": "Prepend", "prepend": n.prepend}
+    if isinstance(n, N.Replace):
+        return {"type": "Replace", "pattern": _pattern(n.pattern, n.regex), "content": n.content}
+    raise SerdeError(f"Cannot serialize normalizer {n!r}")
+
+
+def pre_tokenizer_to_dict(p) -> Optional[Dict[str, Any]]:
+    if p is None:
+        return None
+    if isinstance(p, PreSequence):
+        return {"type": "Sequence",
+                "pretokenizers": [pre_tokenizer_to_dict(p.split), _byte_level(p.byte_level)]}
+    if isinstance(p, Split):
+        return {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN}, "behavior": "Isolated",
+                "invert": False}
+    if isinstance(p, ByteLevel):
+        return _byte_level(p)
+    if isinstance(p, BertPreTokenizer):
+        return {"type": "BertPreTokenizer"}
+    if isinstance(p, Whitespace):
+        return {"type": "Whitespace"}
+    if isinstance(p, WhitespaceSplit):
+        return {"type": "WhitespaceSplit"}
+    if isinstance(p, Metaspace):
+        return _metaspace(p)
+    raise SerdeError(f"Cannot serialize pre-tokenizer {p!r}")
+
+
+def _ordered_vocab(vocab_r: Dict[int, str]) -> Dict[str, int]:
+    return {vocab_r[i]: i for i in sorted(vocab_r)}
+
+
+def model_to_dict(m) -> Dict[str, Any]:
+    if isinstance(m, BPE):
+        return {"type": "BPE", "dropout": m.dropout, "unk_token": m.unk_token,
+                "continuing_subword_prefix": m.continuing_subword_prefix,
+                "end_of_word_suffix": m.end_of_word_suffix, "fuse_unk": m.fuse_unk,
+                "byte_fallback": m.byte_fallback, "ignore_merges": m.ignore_merges,
+                "vocab": _ordered_vocab(m.vocab_r),
+                "merges": [list(pair) for pair in m.ranked_merges()]}
+    if isinstance(m, WordPiece):
+        return {"type": "WordPiece", "unk_token": m.unk_token,
+                "continuing_subword_prefix": m.continuing_subword_prefix,
+                "max_input_chars_per_word": m.max_input_chars_per_word,
+                "vocab": _ordered_vocab(m.vocab_r)}
+    if isinstance(m, WordLevel):
+        return {"type": "WordLevel", "vocab": _ordered_vocab(m.vocab_r), "unk_token": m.unk_token}
+    if isinstance(m, Unigram):
+        return {"type": "Unigram", "unk_id": m.unk_id, "vocab": [[t, s] for t, s in m.pieces],
+                "byte_fallback": m.byte_fallback}
+    raise SerdeError(f"Cannot serialize model {m!r}")
+
+
+def processor_to_dict(p) -> Optional[Dict[str, Any]]:
+    if p is None:
+        return None
+    if isinstance(p, PP.Sequence):
+        return {"type": "Sequence", "processors": [processor_to_dict(x) for x in p.processors]}
+    if isinstance(p, PP.TemplateProcessing):
+        return {"type": "TemplateProcessing",
+                "single": [x.to_json() for x in p.single.pieces],
+                "pair": [x.to_json() for x in p.pair.pieces],
+                "special_tokens": {k: {"id": v.id, "ids": v.ids, "tokens": v.tokens}
+                                   for k, v in sorted(p.special_tokens.items())}}
+    if isinstance(p, PP.BertProcessing):
+        return {"type": "BertProcessing", "sep": list(p.sep), "cls": list(p.cls)}
+    if isinstance(p, PP.RobertaProcessing):
+        return {"type": "RobertaProcessing", "sep": list(p.sep), "cls": list(p.cls),
+                "trim_offsets": p.trim_offsets, "add_prefix_space": p.add_prefix_space}
+    if isinstance(p, ByteLevel):
+        return _byte_level(p)
+    raise SerdeError(f"Cannot serialize processor {p!r}")
+
+
+def decoder_to_dict(dec) -> Optional[Dict[str, Any]]:
+    if dec is None:
+        return None
+    if isinstance(dec, D.Sequence):
+        return {"type": "Sequence", "decoders": [decoder_to_dict(x) for x in dec.decoders]}
+    if isinstance(dec, ByteLevel):
+        return _byte_level(dec)
+    if isinstance(dec, Metaspace):
+        return _metaspace(dec)
+    if isinstance(dec, D.WordPiece):
+        return {"type": "WordPiece", "prefix": dec.prefix, "cleanup": dec.cleanup}
+    if isinstance(dec, D.BPEDecoder):
+        return {"type": "BPEDecoder", "suffix": dec.suffix}
+    if isinstance(dec, D.ByteFallback):
+        return {"type": "ByteFallback"}
+    if isinstance(dec, D.Fuse):
+        return {"type": "Fuse"}
+    if isinstance(dec, D.Strip):
+        return {"type": "Strip", "content": dec.content, "start": dec.start, "stop": dec.stop}
+    if isinstance(dec, D.CTC):
+        return {"type": "CTC", "pad_token": dec.pad_token,
+                "word_delimiter_token": dec.word_delimiter_token, "cleanup": dec.cleanup}
+    if isinstance(dec, D.Replace):
+        return {"type": "Replace", "pattern": _pattern(dec.pattern, dec.regex),
+                "content": dec.content}
+    raise SerdeError(f"Cannot serialize decoder {dec!r}")
+
+
+_STRATEGIES = {"longest_first": "LongestFirst", "only_first": "OnlyFirst",
+               "only_second": "OnlySecond"}
+
+
+def truncation_to_dict(t: Optional[TruncationParams]):
+    if t is None:
+        return None
+    return {"direction": "Left" if t.direction == "left" else "Right",
+            "max_length": t.max_length, "strategy": _STRATEGIES[t.strategy], "stride": t.stride}
+
+
+def truncation_from_dict(d) -> Optional[TruncationParams]:
+    if d is None:
+        return None
+    strategy = {v: k for k, v in _STRATEGIES.items()}[d.get("strategy", "LongestFirst")]
+    return TruncationParams(d.get("max_length", 512), strategy, d.get("stride", 0),
+                            d.get("direction", "Right").lower())
+
+
+def padding_to_dict(p: Optional[PaddingParams]):
+    if p is None:
+        return None
+    return {"strategy": "BatchLongest" if p.strategy == BATCH_LONGEST
+            else {"Fixed": int(p.strategy)},
+            "direction": "Left" if p.direction == "left" else "Right",
+            "pad_to_multiple_of": p.pad_to_multiple_of, "pad_id": p.pad_id,
+            "pad_type_id": p.pad_type_id, "pad_token": p.pad_token}
+
+
+def padding_from_dict(d) -> Optional[PaddingParams]:
+    if d is None:
+        return None
+    strategy = d.get("strategy", "BatchLongest")
+    strategy = strategy["Fixed"] if isinstance(strategy, dict) else BATCH_LONGEST
+    return PaddingParams(strategy, d.get("direction", "Right").lower(),
+                         d.get("pad_to_multiple_of"), d.get("pad_id", 0),
+                         d.get("pad_type_id", 0), d.get("pad_token", "[PAD]"))
+
+
+def added_tokens_to_list(vocab) -> list:
+    return [{"id": i, "content": t.content, "single_word": t.single_word, "lstrip": t.lstrip,
+             "rstrip": t.rstrip, "normalized": t.normalized, "special": t.special}
+            for i, t in sorted(vocab.added_tokens_map_r.items())]
+
+
+def tokenizer_to_dict(tok) -> Dict[str, Any]:
+    return {
+        "version": "1.0",
+        "truncation": truncation_to_dict(tok.truncation),
+        "padding": padding_to_dict(tok.padding),
+        "added_tokens": added_tokens_to_list(tok.added_vocabulary),
+        "normalizer": normalizer_to_dict(tok.normalizer),
+        "pre_tokenizer": pre_tokenizer_to_dict(tok.pre_tokenizer),
+        "post_processor": processor_to_dict(tok.post_processor),
+        "decoder": decoder_to_dict(tok.decoder),
+        "model": model_to_dict(tok.model),
+    }

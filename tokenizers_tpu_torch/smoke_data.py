@@ -123,6 +123,22 @@ DECODE_CONFIGS = ("gpt2", "llama3", "bert", "unigram", "unigram_bf", "char_bpe",
                   "spm_bf", "wordlevel")
 STREAM_CONFIGS = ("gpt2", "unigram_bf")
 STREAM_DOCS = 32
+# the recipes phase (`chip_smoke.py` phase 15, `data/recipes_digests.json`):
+# a non-special added token (lstrip, rstrip) that no 8 KB document holds,
+# and the extra inputs that hold it or `<|endoftext|>` (the host path)
+RECIPE_TOKEN = "<|recipe token|>"
+RECIPE_EXTRA = ["a " + RECIPE_TOKEN + " b", RECIPE_TOKEN,
+                "x  " + RECIPE_TOKEN + "  y<|endoftext|>z", "tail<|endoftext|>"]
+RECIPE_SETTINGS = {"truncation": dict(max_length=1024, stride=128),
+                   "padding": dict(pad_to_multiple_of=8)}
+BERT_PAIRS = 128  # pairs of the documents' first BERT_PAIR_CHARS chars
+BERT_PAIR_CHARS = 2048
+BERT_PAIR_SETTINGS = {"truncation": dict(max_length=512, strategy="longest_first"),
+                      "padding": dict(length=512)}
+RECIPE_TRAIN = {"chars": 1 << 20, "vocab_size": 8000, "special_tokens": ["<|endoftext|>"]}
+# the tokenizers whose `to_str` phase 15 (b) round-trips on the card
+TO_STR_CONFIGS = ("gpt2", "llama3", "bert", "unigram", "unigram_bf", "char_bpe", "sp_bpe",
+                  "spm_bf", "wordlevel")
 
 
 def build_docs(target: int = TARGET_BYTES, doc_bytes: int = DOC_BYTES) -> List[str]:
@@ -240,7 +256,18 @@ def recipe_json(config: str) -> str:
     before training: the same pipeline with no added tokens and an empty
     vocab, for Unigram the reference's default model (`<unk>` alone, unk
     id 0) (the recipe adds its special tokens after training, so they
-    never split the training text)."""
+    never split the training text).  char_bpe and sp_bpe come from the
+    port's recipes (`CharBPETokenizer()`,
+    `SentencePieceBPETokenizer(fuse_unk=True)`), the others from the
+    frozen file cleared."""
+    if config == "char_bpe":
+        from .implementations import CharBPETokenizer
+
+        return CharBPETokenizer(device="cpu").to_str()
+    if config == "sp_bpe":
+        from .implementations import SentencePieceBPETokenizer
+
+        return SentencePieceBPETokenizer(fuse_unk=True, device="cpu").to_str()
     d = json.loads(config_json(config))
     d["added_tokens"] = []
     if d["model"]["type"] == "Unigram":
@@ -285,6 +312,33 @@ def offsets_digest(enc) -> str:
     return hashlib.sha256(np.asarray(
         list(enc.ids) + [x for o in enc.offsets for x in o] + words, dtype="<i4").tobytes()
     ).hexdigest()
+
+
+def recipe_digest(enc) -> str:
+    """SHA-256 of an encoding's ids, type ids and attention mask, then each
+    overflowing window's ids (-1 between windows), as little-endian
+    int32."""
+    flat = list(enc.ids) + list(enc.type_ids) + list(enc.attention_mask)
+    for o in enc.overflowing:
+        flat += [-1] + list(o.ids)
+    return hashlib.sha256(np.asarray(flat, dtype="<i4").tobytes()).hexdigest()
+
+
+def bert_pairs(docs: Sequence[str]) -> List[tuple]:
+    """BERT_PAIRS pairs of consecutive documents' first BERT_PAIR_CHARS
+    chars."""
+    return [(docs[2 * i][:BERT_PAIR_CHARS], docs[2 * i + 1][:BERT_PAIR_CHARS])
+            for i in range(BERT_PAIRS)]
+
+
+def apply_settings(tok, settings) -> None:
+    tok.enable_truncation(**settings["truncation"])
+    tok.enable_padding(**settings["padding"])
+
+
+def load_recipes_digests() -> Dict[str, object]:
+    with open(os.path.join(DATA, "recipes_digests.json"), encoding="utf-8") as f:
+        return json.load(f)
 
 
 def digests_path(config: str = "gpt2") -> str:

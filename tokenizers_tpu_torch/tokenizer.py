@@ -1,79 +1,75 @@
-"""Tokenizer of the port: loads a `tokenizer.json` of the shapes below and
-encodes batches on the card.
+"""Tokenizer of the port: the pipeline holder (normalizer, pre-tokenizer,
+model, post-processor, decoder, added vocabulary, truncation and
+padding), its `tokenizer.json` loader and writer, and the batch encode on
+the card.
 
-The loader admits exactly these pipelines, each with plain special added
-tokens:
+The loader admits exactly these pipelines:
 
 * gpt2 (`tests/fixtures/gpt2`): no normalizer, a plain BPE model, the
-  ByteLevel pre-tokenizer with its regex split, the ByteLevel
-  post-processor (or none) and the ByteLevel decoder (or none);
+  ByteLevel pre-tokenizer with its regex split, any decoder;
 * llama3 (`tests/fixtures/llama3*`): no normalizer, BPE with
   `ignore_merges`, the Sequence of the llama-3 Split and ByteLevel
-  without its regex or a prefix space, and a single-sequence
-  TemplateProcessing (or no post-processor);
+  without its regex or a prefix space;
 * bert (`tests/fixtures/bert`): BertNormalizer, BertPreTokenizer,
-  WordPiece, a single-sequence TemplateProcessing (or none) and the
-  WordPiece decoder (or none); its added tokens are matched on the raw
-  text (`normalized: false`);
+  WordPiece;
 * WordLevel with Whitespace, WhitespaceSplit or BertPreTokenizer, and
   char-level BPE (unk token, `fuse_unk`, `byte_fallback`,
   `continuing_subword_prefix`, `end_of_word_suffix`) with those, with
   Metaspace (replacement `▁`, split) or with no pre-tokenizer; either
   with no normalizer or one of `normalizers.from_json` (Lowercase, NFD,
   NFKD, NFC, NFKC, StripAccents, Strip, Replace of a string, Prepend,
-  BertNormalizer, a Sequence of them), a single-sequence
-  TemplateProcessing (or none) and the BPEDecoder or Metaspace decoder
-  (or none); added tokens `normalized: false`.  This covers the
+  BertNormalizer, a Sequence of them).  This covers the
   `CharBPETokenizer`, `SentencePieceBPETokenizer` and WordLevel recipes
   and the Llama-2 SPM shape;
 * Unigram (`tests/fixtures/unigram`, `unigram_bf`: an unk id, with or
   without `byte_fallback`) with no normalizer or one of
   `normalizers.from_json`, Nmt and the `" {2,}"` regex Replace among
-  them (the fixtures' Sequence; these two are admitted in this pipeline
-  only), Metaspace (replacement `▁`, prepend scheme "always", split), no
-  post-processor or a single-sequence TemplateProcessing; added tokens
-  `normalized: false`.
+  them (admitted in this pipeline only), Metaspace (replacement `▁`,
+  prepend scheme "always", split).
 
-Every pipeline takes any decoder of `decoders/` (`decoders.from_json`:
-ByteLevel, Metaspace, WordPiece, BPEDecoder, ByteFallback, Fuse, Strip,
-CTC, Replace and Sequences of them) or none.
-
-Floats are parsed as the wheel's serde_json parses them
-(`utils.serde_float.serde_f64`): Unigram's Viterbi ties turn on the last
-ulp of its scores.
-
-Anything else raises `NotImplementedError` naming the later slice of
-the port that brings it.
+Every pipeline takes any post-processor of `processors/`
+(TemplateProcessing with its pair template, BertProcessing,
+RobertaProcessing, ByteLevel, a Sequence of them) or none, any decoder
+of `decoders/` or none, truncation and padding, and added tokens with
+any options (`added_vocabulary.py`).  Floats are parsed as the wheel's
+serde_json parses them (`utils.serde_float.serde_f64`): Unigram's
+Viterbi ties turn on the last ulp of its scores.  Anything else raises
+`NotImplementedError` naming the later slice of the port that brings it;
+a pipeline put together through the settable components
+(`Tokenizer(model)`, then `normalizer`, `pre_tokenizer`, ...) is held to
+the same rules at its first encode or train (`_check`).
 
 `encode_batch_fast` (ids) and `encode_batch` (ids with char offsets,
 token strings and word ids; `encode_batch_byte_offsets` for byte
 offsets) run the device engine (`ops/engine.py`) on the tokenizer's
-device and the host pipeline for what the device does not take.  The
-device is `cuda` unless the caller asks for `device="cpu"`, where every
-kernel runs its plain PyTorch version.  Pairs and pre-tokenized input
-wait for a later slice.
+device for a batch of strings, and the host pipeline for what the device
+does not take: inputs holding an added token, pairs and pre-tokenized
+input (as the JAX package routes any input that is not a `str`).  Every
+encoding then goes through `post_process` (truncate, add the special
+tokens, pad), and the batch is padded.  The device is `cuda` unless the
+caller asks for `device="cpu"`, where every kernel runs its plain
+PyTorch version.
 
-`train` and `train_from_iterator` train the BPE, WordPiece, WordLevel or
-Unigram model with a trainer of `trainers/` (BPE and WordPiece on the
-trainer's device, Unigram's E-step and pruning statistics too) on the
-words of `train_words`, then add the trainer's special tokens
-(`add_special_tokens`) and drop the device engine.
+`to_str`, `save` (`serialization.py`), `from_str`, `from_file`,
+`from_buffer`, `from_pretrained` (a path, a directory, the hub cache's
+snapshots, else a download) and pickling (through the JSON) round-trip a
+tokenizer.
 
-`decode`, `decode_batch` (serial) and `decode_stream` (`DecodeStream`)
-turn ids back into text on the host, as the reference does
-(`tokenizer/mod.rs:1017-1127`, `:1329-1345`): each id's token from the
-added tokens or the model, special ones dropped with
-`skip_special_tokens`, through the decoder (tokens joined by spaces
-without one).
+`train` and `train_from_iterator` train the model with a trainer of
+`trainers/` on the words of `train_words`, then add the trainer's special
+tokens and drop the device engine.  `decode`, `decode_batch` (serial)
+and `decode_stream` turn ids back into text on the host, as the
+reference does (`tokenizer/mod.rs:1017-1127`, `:1329-1345`).
 """
 
 from __future__ import annotations
 
 import json
-import re
-from typing import Iterable, List, Optional, Union
+import os
+from typing import Dict, Iterable, List, Optional, Sequence as Seq, Union
 
 from . import pick_device
+from .added_vocabulary import AddedToken, AddedVocabulary
 from .decoders import from_json as decoder_from_json
 from .encoding import Encoding
 from .models.bpe import BPE
@@ -86,12 +82,15 @@ from .normalizers import Sequence as NormalizerSequence
 from .normalizers import from_json as normalizer_from_json
 from .normalizers.bert import BertNormalizer
 from .pre_tokenizers.bert import BertPreTokenizer
-from .pre_tokenizers.byte_level import ByteLevel, process_offsets
+from .pre_tokenizers.byte_level import ByteLevel
 from .pre_tokenizers.metaspace import Metaspace
 from .pre_tokenizers.split import LLAMA3_PATTERN, Sequence, Split
 from .pre_tokenizers.whitespace import Whitespace, WhitespaceSplit
-from .processors.template import TemplateProcessing
+from .processors import BertProcessing, RobertaProcessing, TemplateProcessing, default_process
+from .processors import Sequence as ProcessorSequence
+from .utils.padding import BATCH_LONGEST, PaddingParams, pad_encodings
 from .utils.serde_float import serde_f64
+from .utils.truncation import TruncationParams, truncate_encodings
 
 _BYTE_LEVEL_KEYS = {"type", "add_prefix_space", "trim_offsets", "use_regex"}
 _BERT_NORMALIZER_KEYS = {"type", "clean_text", "handle_chinese_chars", "strip_accents",
@@ -111,14 +110,66 @@ def _unsupported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported yet: it waits for {slice_name}")
 
 
-def _single_sequences(inputs, is_pretokenized: bool) -> List[str]:
-    inputs = list(inputs)
-    if is_pretokenized:
-        _unsupported("pre-tokenized input", "a later slice")
-    if not all(isinstance(s, str) for s in inputs):
-        _unsupported("pairs of sequences", "a later slice")
-    return inputs
+# ------------------------------------------------------------------ inputs
 
+def _as_sequence(x):
+    """numpy unicode/object arrays and numpy strings as plain Python
+    (reference `bindings/python/src/tokenizer.rs:282-345`)."""
+    import numpy as np
+
+    if isinstance(x, np.str_):
+        return str(x)
+    if isinstance(x, np.ndarray):
+        if x.dtype.kind in ("U", "S", "O"):
+            return [_as_sequence(v) for v in x.tolist()]
+        raise TypeError("numpy array inputs must have unicode (U), bytes (S) or object (O) "
+                        f"dtype, got {x.dtype}")
+    return x
+
+
+def _parse_text_input(sequence) -> str:
+    sequence = _as_sequence(sequence)
+    if isinstance(sequence, bytes):
+        sequence = sequence.decode("utf-8")
+    if not isinstance(sequence, str):
+        raise TypeError("TextInputSequence must be str")
+    return sequence
+
+
+def _parse_pretokenized_input(sequence) -> List[str]:
+    sequence = _as_sequence(sequence)
+    if isinstance(sequence, str) or not isinstance(sequence, (list, tuple)):
+        raise TypeError("PreTokenizedInputSequence must be Union[List[str], Tuple[str]]")
+    out = []
+    for item in sequence:
+        item = _as_sequence(item)
+        if isinstance(item, bytes):
+            item = item.decode("utf-8")
+        if not isinstance(item, str):
+            raise TypeError("PreTokenizedInputSequence must be Union[List[str], Tuple[str]]")
+        out.append(item)
+    return out
+
+
+def _parse_encode_input(input, is_pretokenized: bool):
+    """A batch item as (sequence, pair or None), as the reference binding
+    reads it (`bindings/python/src/tokenizer.rs:195-276`): a 2-element
+    tuple or list of sequences is a pair."""
+    input = _as_sequence(input)
+    if is_pretokenized:
+        if (isinstance(input, (tuple, list)) and len(input) == 2
+                and all(isinstance(_as_sequence(x), (list, tuple)) for x in input)):
+            return _parse_pretokenized_input(input[0]), _parse_pretokenized_input(input[1])
+        return _parse_pretokenized_input(input), None
+    if isinstance(input, (tuple, list)):
+        if len(input) == 2:
+            return _parse_text_input(input[0]), _parse_text_input(input[1])
+        raise TypeError("TextEncodeInput must be Union[TextInputSequence, "
+                        "Tuple[InputSequence, InputSequence]]")
+    return _parse_text_input(input), None
+
+
+# ------------------------------------------------------------------ loader
 
 def _load_model(d: dict, llama3: bool) -> BPE:
     if d.get("type", "BPE") != "BPE":
@@ -134,7 +185,9 @@ def _load_model(d: dict, llama3: bool) -> BPE:
         _unsupported("BPE byte_fallback", "the CharBPE/SPM slice")
     return BPE(d.get("vocab", {}), _merges(d), unk_token=d.get("unk_token"),
                fuse_unk=bool(d.get("fuse_unk", False)),
-               ignore_merges=bool(d.get("ignore_merges", False)))
+               ignore_merges=bool(d.get("ignore_merges", False)),
+               continuing_subword_prefix=d.get("continuing_subword_prefix"),
+               end_of_word_suffix=d.get("end_of_word_suffix"), dropout=d.get("dropout"))
 
 
 def _load_byte_level(d: Optional[dict], role: str) -> Optional[ByteLevel]:
@@ -168,9 +221,8 @@ def _load_llama3_sequence(d: dict) -> Sequence:
 
 
 def _load_bert(d: dict):
-    """(normalizer, pre-tokenizer, model, decoder) of the BERT pipeline:
-    exactly BertNormalizer, BertPreTokenizer, WordPiece and
-    TemplateProcessing (or no post-processor)."""
+    """(normalizer, pre-tokenizer, model) of the BERT pipeline: exactly
+    BertNormalizer, BertPreTokenizer and WordPiece."""
     nz = d.get("normalizer")
     if nz is None or nz.get("type") != "BertNormalizer" or set(nz) - _BERT_NORMALIZER_KEYS:
         _unsupported("the BertPreTokenizer without its BertNormalizer", "a later slice")
@@ -179,15 +231,12 @@ def _load_bert(d: dict):
     m = d["model"]
     if m.get("type") != "WordPiece" or set(m) - _WORDPIECE_KEYS:
         _unsupported(f"model {m.get('type')!r} in the BERT pipeline", "its engine's slice")
-    pp = d.get("post_processor")
-    if pp is not None and pp.get("type") != "TemplateProcessing":
-        _unsupported(f"post-processor {pp.get('type')!r} in the BERT pipeline", "a later slice")
     normalizer = BertNormalizer(nz.get("clean_text", True), nz.get("handle_chinese_chars", True),
                                 nz.get("strip_accents"), nz.get("lowercase", True))
     model = WordPiece(m.get("vocab", {}), unk_token=m.get("unk_token", "[UNK]"),
                       continuing_subword_prefix=m.get("continuing_subword_prefix", "##"),
                       max_input_chars_per_word=int(m.get("max_input_chars_per_word", 100)))
-    return normalizer, BertPreTokenizer(), model, decoder_from_json(d.get("decoder"))
+    return normalizer, BertPreTokenizer(), model
 
 
 def _merges(d: dict):
@@ -196,9 +245,9 @@ def _merges(d: dict):
 
 
 def _load_aligned(d: dict):
-    """(normalizer, pre-tokenizer, model, post-processor, decoder) of a
-    WordLevel, char-level BPE or Unigram pipeline, whose host offsets map
-    through the normalizer's alignments."""
+    """(normalizer, pre-tokenizer, model) of a WordLevel, char-level BPE or
+    Unigram pipeline, whose host offsets map through the normalizer's
+    alignments."""
     nz = d.get("normalizer")
     normalizer = None if nz is None else normalizer_from_json(nz)
     pt_d, m = d.get("pre_tokenizer"), d["model"]
@@ -237,16 +286,11 @@ def _load_aligned(d: dict):
                     fuse_unk=bool(m.get("fuse_unk", False)),
                     continuing_subword_prefix=m.get("continuing_subword_prefix"),
                     end_of_word_suffix=m.get("end_of_word_suffix"),
-                    byte_fallback=bool(m.get("byte_fallback", False)), byte_spans=True)
-    pp = d.get("post_processor")
-    if pp is not None and pp.get("type") != "TemplateProcessing":
-        _unsupported(f"post-processor {pp.get('type')!r} behind a "
-                     f"{'no' if pt_d is None else pt_d.get('type')} pre-tokenizer",
-                     "a later slice")
+                    byte_fallback=bool(m.get("byte_fallback", False)), byte_spans=True,
+                    dropout=m.get("dropout"))
     if not isinstance(model, Unigram) and _unigram_only(normalizer):
         _unsupported("Nmt or a regex Replace outside the Unigram pipeline", "a later slice")
-    return (normalizer, pt, model, _load_post_processor(pp, True),
-            decoder_from_json(d.get("decoder")))
+    return normalizer, pt, model
 
 
 def _unigram_only(normalizer) -> bool:
@@ -256,155 +300,470 @@ def _unigram_only(normalizer) -> bool:
     return any(isinstance(n, Nmt) or (isinstance(n, Replace) and n.regex) for n in parts)
 
 
-def _load_post_processor(d: Optional[dict], template_ok: bool):
-    if d is None or d.get("type") != "TemplateProcessing":
-        return _load_byte_level(d, "post_processor")
-    if not template_ok:
-        _unsupported("TemplateProcessing outside the llama-3 and BERT pipelines",
-                     "a later slice")
-    pieces = [next(iter(p)) for p in d.get("single", [])]
-    if pieces.count("Sequence") != 1:
-        _unsupported("a template without exactly one sequence", "a later slice")
-    return TemplateProcessing.from_json(d)
+def _load_post_processor(d: Optional[dict]):
+    if d is None:
+        return None
+    t = d.get("type")
+    if t == "TemplateProcessing":
+        return TemplateProcessing.from_json(d)
+    if t == "BertProcessing":
+        return BertProcessing(tuple(d["sep"]), tuple(d["cls"]))
+    if t == "RobertaProcessing":
+        return RobertaProcessing(tuple(d["sep"]), tuple(d["cls"]), d.get("trim_offsets", True),
+                                 d.get("add_prefix_space", True))
+    if t == "Sequence":
+        return ProcessorSequence([_load_post_processor(x) for x in d["processors"]])
+    return _load_byte_level(d, "post_processor")
+
+
+def _load_components(d: dict):
+    """(normalizer, pre-tokenizer, model, post-processor) of a tokenizer.json
+    dict; raises NotImplementedError on a pipeline the port does not run."""
+    pt_d = d.get("pre_tokenizer")
+    pt_type = None if pt_d is None else pt_d.get("type")
+    m_type = d["model"].get("type", "BPE")
+    bert = pt_type == "BertPreTokenizer" and m_type == "WordPiece"
+    aligned = m_type in ("WordLevel", "Unigram") or (m_type == "BPE" and pt_type in (
+        None, "Whitespace", "WhitespaceSplit", "BertPreTokenizer", "Metaspace"))
+    pp = _load_post_processor(d.get("post_processor"))
+    if d.get("normalizer") is not None and not (bert or aligned):
+        _unsupported("a normalizer in a byte-level pipeline", "a later slice")
+    if aligned:
+        return (*_load_aligned(d), pp)
+    if bert:
+        return (*_load_bert(d), pp)
+    if pt_type == "Sequence":
+        pt = _load_llama3_sequence(pt_d)
+    else:
+        pt = _load_byte_level(pt_d, "pre_tokenizer")
+    if pt is None:
+        _unsupported("a pipeline without the ByteLevel pre-tokenizer", "a later slice")
+    return None, pt, _load_model(d["model"], isinstance(pt, Sequence)), pp
+
+
+def _hub_cache() -> str:
+    return os.environ.get("HF_HUB_CACHE", os.path.join(
+        os.environ.get("HF_HOME", os.path.expanduser("~/.cache/huggingface")), "hub"))
+
+
+def _ns_slice(ns: NormalizedString, start: int, end: int) -> NormalizedString:
+    """The normalized bytes [start, end) of `ns`, with their alignments."""
+    out = NormalizedString.__new__(NormalizedString)
+    out.original = ns.original
+    out.normalized = ns.normalized.encode("utf-8")[start:end].decode("utf-8")
+    out.alignments = ns.alignments[start:end]
+    return out
 
 
 class Tokenizer:
-    def __init__(self, model: Union[BPE, WordPiece, WordLevel, Unigram], pre_tokenizer,
-                 added_tokens: Iterable[dict] = (),
-                 post_processor: Union[ByteLevel, TemplateProcessing, None] = None,
-                 decoder=None,
+    def __init__(self, model: Union[BPE, WordPiece, WordLevel, Unigram], pre_tokenizer=None,
+                 added_tokens: Iterable = (), post_processor=None, decoder=None,
                  device=None, normalizer=None):
-        self.model = model
-        # WordLevel, char-level BPE and Unigram: offsets through the alignments
-        self.aligned = isinstance(model, (WordLevel, Unigram)) or (
-            isinstance(model, BPE) and not isinstance(pre_tokenizer, (ByteLevel, Sequence)))
-        self.normalizer = normalizer
-        self.pre_tokenizer = pre_tokenizer
-        self.post_processor = post_processor
+        """The JAX package's `Tokenizer(model)` with settable components, or
+        the whole pipeline at once; `added_tokens`: tokenizer.json entries
+        (their ids kept)."""
+        self._model = model
+        self._normalizer = normalizer
+        self._pre_tokenizer = pre_tokenizer
+        self._post_processor = post_processor
         self.decoder = decoder
         self.device = pick_device(device)
-        self.added = {t["content"]: t["id"] for t in added_tokens}
-        contents = sorted(self.added, key=len, reverse=True)  # leftmost-longest
-        self._added_re = re.compile("|".join(map(re.escape, contents))) if contents else None
+        self.added_vocabulary = AddedVocabulary()
+        self.truncation: Optional[TruncationParams] = None
+        self.padding: Optional[PaddingParams] = None
         self._engine = None
         self._engine_built = False
-        self._added_r = None  # id -> added token, built at first decode
+        self._checked = False
+        self._add_entries(added_tokens)
+
+    # ------------------------------------------------------------ components
+
+    def _changed(self) -> None:
+        """A component changed: check the pipeline again and rebuild the
+        device engine at the next encode (JAX keys its engine on the
+        model's id only, Queue C)."""
+        self._checked = False
+        self._engine = None
+        self._engine_built = False
+
+    @property
+    def model(self):
+        return self._model
+
+    @model.setter
+    def model(self, m) -> None:
+        self._model = m
+        self._changed()
+
+    @property
+    def normalizer(self):
+        return self._normalizer
+
+    @normalizer.setter
+    def normalizer(self, n) -> None:
+        self._normalizer = n
+        self._changed()
+
+    @property
+    def pre_tokenizer(self):
+        return self._pre_tokenizer
+
+    @pre_tokenizer.setter
+    def pre_tokenizer(self, p) -> None:
+        self._pre_tokenizer = p
+        self._changed()
+
+    @property
+    def post_processor(self):
+        return self._post_processor
+
+    @post_processor.setter
+    def post_processor(self, p) -> None:
+        self._post_processor = p
+        self._changed()
+
+    @property
+    def aligned(self) -> bool:
+        """WordLevel, char-level BPE and Unigram: offsets through the
+        normalizer's alignments."""
+        m, pt = self._model, self._pre_tokenizer
+        return isinstance(m, (WordLevel, Unigram)) or (
+            isinstance(m, BPE) and not isinstance(pt, (ByteLevel, Sequence)))
+
+    @property
+    def added(self) -> Dict[str, int]:
+        """content -> id of every added token."""
+        return dict(self.added_vocabulary.added_tokens_map)
+
+    def _check(self) -> None:
+        """Hold a pipeline put together through the components to the
+        loader's rules (once after each change)."""
+        if self._checked:
+            return
+        from .serialization import (model_to_dict, normalizer_to_dict, pre_tokenizer_to_dict,
+                                    processor_to_dict)
+
+        _load_components({"normalizer": normalizer_to_dict(self._normalizer),
+                          "pre_tokenizer": pre_tokenizer_to_dict(self._pre_tokenizer),
+                          "post_processor": processor_to_dict(self._post_processor),
+                          "model": model_to_dict(self._model)})
+        m = self._model
+        if isinstance(m, BPE) and m.byte_spans != self.aligned:
+            # spans in the word's bytes where they map through alignments
+            m.byte_spans = self.aligned
+            m.cache = type(m.cache)(m.cache.capacity)
+        self._checked = True
 
     # ------------------------------------------------------------------ io
 
     @classmethod
     def from_str(cls, s: str, device=None) -> "Tokenizer":
-        d = json.loads(s, parse_float=serde_f64)
-        pt_d = d.get("pre_tokenizer")
-        pt_type = None if pt_d is None else pt_d.get("type")
-        m_type = d["model"].get("type", "BPE")
-        bert = pt_type == "BertPreTokenizer" and m_type == "WordPiece"
-        aligned = m_type in ("WordLevel", "Unigram") or (m_type == "BPE" and pt_type in (
-            None, "Whitespace", "WhitespaceSplit", "BertPreTokenizer", "Metaspace"))
-        nz_d = d.get("normalizer")
-        if nz_d is not None and not (bert or aligned):
-            _unsupported("a normalizer in a byte-level pipeline", "a later slice")
-        if d.get("truncation") is not None or d.get("padding") is not None:
-            _unsupported("truncation and padding", "a later slice")
-        added = d.get("added_tokens") or []
-        for t in added:
-            if not t.get("special") or t.get("single_word") or t.get("lstrip") or t.get("rstrip"):
-                _unsupported(f"added token {t.get('content')!r} with these options", "a later slice")
-            if (bert or aligned) and t.get("normalized"):
-                _unsupported(f"added token {t.get('content')!r} matched on normalized text",
-                             "a later slice")
-        if aligned:
-            normalizer, pt, model, pp, decoder = _load_aligned(d)
-            return cls(model, pt, added, post_processor=pp, decoder=decoder, device=device,
-                       normalizer=normalizer)
-        if bert:
-            normalizer, pt, model, decoder = _load_bert(d)
-            return cls(model, pt, added,
-                       post_processor=_load_post_processor(d.get("post_processor"), True),
-                       decoder=decoder, device=device, normalizer=normalizer)
-        if pt_d is not None and pt_d.get("type") == "Sequence":
-            pt = _load_llama3_sequence(pt_d)
-        else:
-            pt = _load_byte_level(pt_d, "pre_tokenizer")
-        if pt is None:
-            _unsupported("a pipeline without the ByteLevel pre-tokenizer", "a later slice")
-        llama3 = isinstance(pt, Sequence)
-        return cls(
-            _load_model(d["model"], llama3), pt, added,
-            post_processor=_load_post_processor(d.get("post_processor"), llama3),
-            decoder=decoder_from_json(d.get("decoder")),
-            device=device,
-        )
+        return cls._from_dict(json.loads(s, parse_float=serde_f64), device)
+
+    @classmethod
+    def _from_dict(cls, d: dict, device=None) -> "Tokenizer":
+        from .serialization import padding_from_dict, truncation_from_dict
+
+        normalizer, pt, model, pp = _load_components(d)
+        tok = cls(model, pt, d.get("added_tokens") or [], post_processor=pp,
+                  decoder=decoder_from_json(d.get("decoder")), device=device,
+                  normalizer=normalizer)
+        tok.truncation = truncation_from_dict(d.get("truncation"))
+        tok.padding = padding_from_dict(d.get("padding"))
+        tok._checked = True
+        return tok
 
     @classmethod
     def from_file(cls, path: str, device=None) -> "Tokenizer":
         with open(path, "r", encoding="utf-8") as f:
             return cls.from_str(f.read(), device=device)
 
+    @classmethod
+    def from_buffer(cls, buffer: bytes, device=None) -> "Tokenizer":
+        return cls.from_str(buffer.decode("utf-8"), device=device)
+
+    @classmethod
+    def from_pretrained(cls, identifier: str, revision: str = "main",
+                        token: Optional[str] = None, device=None) -> "Tokenizer":
+        """A `tokenizer.json` from a path, a directory holding one, the hub
+        cache's snapshots, else downloaded from the hub into that cache
+        (reference `utils/from_pretrained.rs:26-68`); with
+        `HF_HUB_OFFLINE=1` a missing file raises instead."""
+        candidates = [identifier, os.path.join(identifier, "tokenizer.json")]
+        model_dir = os.path.join(_hub_cache(), "models--" + identifier.replace("/", "--"))
+        snapshots = os.path.join(model_dir, "snapshots")
+        if os.path.isdir(snapshots):
+            candidates += [os.path.join(snapshots, snap, "tokenizer.json")
+                           for snap in sorted(os.listdir(snapshots))]
+        for cand in candidates:
+            if os.path.isfile(cand):
+                return cls.from_file(cand, device=device)
+        if os.environ.get("HF_HUB_OFFLINE") not in (None, "", "0"):
+            raise FileNotFoundError(f"Could not find a local tokenizer.json for {identifier!r} "
+                                    "and HF_HUB_OFFLINE is set")
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"https://huggingface.co/{identifier}/resolve/{revision}/tokenizer.json",
+            headers={"User-Agent": "tokenizers-tpu-torch/0.1.0",
+                     **({"Authorization": f"Bearer {token}"} if token else {})})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                data = r.read()
+        except (urllib.error.URLError, OSError) as e:
+            raise FileNotFoundError(f"Could not find a local tokenizer.json for {identifier!r} "
+                                    f"and the hub download failed: {e}") from e
+        snap_dir = os.path.join(snapshots, revision)
+        os.makedirs(snap_dir, exist_ok=True)
+        path = os.path.join(snap_dir, "tokenizer.json")
+        with open(path, "wb") as f:
+            f.write(data)
+        return cls.from_file(path, device=device)
+
+    def to_str(self, pretty: bool = False) -> str:
+        from .serialization import tokenizer_to_dict
+
+        d = tokenizer_to_dict(self)
+        if pretty:
+            return json.dumps(d, ensure_ascii=False, indent=2)
+        return json.dumps(d, ensure_ascii=False, separators=(",", ":"))
+
+    def save(self, path: str, pretty: bool = True) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(self.to_str(pretty))
+
+    # pickling through the JSON, as the reference binding does
+    # (`bindings/python/src/tokenizer.rs:598-621`); the device engine is
+    # rebuilt at the next encode
+    def __getstate__(self):
+        return {"tokenizer_json": self.to_str(), "device": str(self.device)}
+
+    def __setstate__(self, state):
+        fresh = Tokenizer.from_str(state["tokenizer_json"], device=state["device"])
+        self.__dict__.update(fresh.__dict__)
+
+    def __reduce__(self):
+        return (Tokenizer.from_str, (self.to_str(), str(self.device)))
+
+    # -------------------------------------------------------------- settings
+
+    def enable_truncation(self, max_length: int, stride: int = 0,
+                          strategy: str = "longest_first", direction: str = "right") -> None:
+        self.truncation = TruncationParams(max_length, strategy, stride, direction)
+
+    def no_truncation(self) -> None:
+        self.truncation = None
+
+    def get_truncation(self) -> Optional[TruncationParams]:
+        return self.truncation
+
+    def enable_padding(self, direction: str = "right", pad_id: int = 0, pad_type_id: int = 0,
+                       pad_token: str = "[PAD]", length: Optional[int] = None,
+                       pad_to_multiple_of: Optional[int] = None) -> None:
+        self.padding = PaddingParams(BATCH_LONGEST if length is None else length, direction,
+                                     pad_to_multiple_of, pad_id, pad_type_id, pad_token)
+
+    def no_padding(self) -> None:
+        self.padding = None
+
+    def get_padding(self) -> Optional[PaddingParams]:
+        return self.padding
+
+    def set_encode_special_tokens(self, value: bool) -> None:
+        self.added_vocabulary.encode_special_tokens = value
+
+    def get_encode_special_tokens(self) -> bool:
+        return self.added_vocabulary.encode_special_tokens
+
+    # ----------------------------------------------------------------- vocab
+
+    def get_vocab(self, with_added_tokens: bool = True) -> Dict[str, int]:
+        vocab = self._model.get_vocab()
+        if with_added_tokens:
+            vocab.update(self.added_vocabulary.get_vocab())
+        return vocab
+
+    def get_vocab_size(self, with_added_tokens: bool = True) -> int:
+        n = self._model.get_vocab_size()
+        if with_added_tokens:
+            n += sum(self._model.token_to_id(c) is None for c in self.added_vocabulary.get_vocab())
+        return n
+
+    def get_added_tokens_decoder(self) -> Dict[int, AddedToken]:
+        return self.added_vocabulary.get_added_tokens_decoder()
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self.added_vocabulary.token_to_id(token, self._model)
+
+    def id_to_token(self, id: int) -> Optional[str]:
+        """The added token of `id`, else the model's token (None if neither
+        has it)."""
+        return self.added_vocabulary.id_to_token(id, self._model)
+
+    def _add(self, tokens: List[AddedToken]) -> int:
+        self._engine = None
+        self._engine_built = False
+        return self.added_vocabulary.add_tokens(tokens, self._model, self._normalizer)
+
+    def add_tokens(self, tokens: Seq[Union[str, AddedToken]]) -> int:
+        """Add tokens (a string is a non-special token matched on the
+        normalized text); returns how many were new."""
+        return self._add([t if isinstance(t, AddedToken) else AddedToken(t, normalized=True)
+                          for t in tokens])
+
+    def add_special_tokens(self, tokens: Seq[Union[str, AddedToken]]) -> int:
+        """Add special tokens (a string is matched on the raw text; an
+        `AddedToken` is made special, `AddedToken.as_special`); returns how
+        many were new."""
+        return self._add([t.as_special() if isinstance(t, AddedToken)
+                          else AddedToken(t, special=True) for t in tokens])
+
+    def _add_entries(self, entries: Iterable) -> None:
+        """Add tokenizer.json entries in id order, each keeping the id it
+        records where `add_tokens` would assign another
+        (`tokenizers_tpu/serialization.py:650-668`)."""
+        for e in sorted(entries, key=lambda e: e["id"]):
+            special = e.get("special", False)
+            token = AddedToken(e["content"], single_word=e.get("single_word", False),
+                               lstrip=e.get("lstrip", False), rstrip=e.get("rstrip", False),
+                               normalized=e.get("normalized", not special), special=special)
+            self._add([token])
+            if self.token_to_id(token.content) != e["id"]:
+                self.added_vocabulary.force_id(token, e["id"], self._model, self._normalizer)
+
+    def num_special_tokens_to_add(self, is_pair: bool) -> int:
+        return self._post_processor.added_tokens(is_pair) if self._post_processor else 0
+
+    def normalize(self, sequence: str) -> str:
+        """The normalizer alone (the reference binding's `normalize`)."""
+        ns = NormalizedString(sequence)
+        if self._normalizer is not None:
+            self._normalizer.normalize(ns)
+        return ns.get()
+
     # ---------------------------------------------------------------- encode
 
-    def encode_batch_fast(self, inputs: Iterable[str],
+    def encode_batch_fast(self, inputs, is_pretokenized: bool = False,
                           add_special_tokens: bool = True) -> List[Encoding]:
-        """Ids of each input (no offsets), through the device engine."""
-        inputs = list(inputs)
-        if not all(isinstance(s, str) for s in inputs):
-            raise TypeError("encode_batch_fast takes a sequence of str")
-        engine = self._get_device_engine()
-        if engine is None:
-            return [self.encode_host(s, add_special_tokens) for s in inputs]
-        return engine.encode_batch(inputs, add_special_tokens)
+        """Ids of each input (no offsets, token strings or word ids)."""
+        return self._encode_batch(inputs, is_pretokenized, add_special_tokens, None)
 
-    def encode_fast(self, sequence: str, add_special_tokens: bool = True) -> Encoding:
-        return self.encode_batch_fast([sequence], add_special_tokens)[0]
-
-    def _encode_batch(self, inputs, is_pretokenized: bool, add_special_tokens: bool,
-                      offsets: str) -> List[Encoding]:
-        inputs = _single_sequences(inputs, is_pretokenized)
-        engine = self._get_device_engine()
-        if engine is None or not engine.supports_offsets:
-            return [self.encode_host(s, add_special_tokens, offsets=offsets) for s in inputs]
-        return engine.encode_batch_offsets(inputs, add_special_tokens, offsets)
-
-    def encode_batch(self, inputs: Iterable[str], is_pretokenized: bool = False,
+    def encode_batch(self, inputs, is_pretokenized: bool = False,
                      add_special_tokens: bool = True) -> List[Encoding]:
         """Ids with char offsets, token strings and word ids, as the
         reference's Python binding gives them."""
         return self._encode_batch(inputs, is_pretokenized, add_special_tokens, "char")
 
-    def encode_batch_char_offsets(self, inputs: Iterable[str], is_pretokenized: bool = False,
+    def encode_batch_char_offsets(self, inputs, is_pretokenized: bool = False,
                                   add_special_tokens: bool = True) -> List[Encoding]:
         return self._encode_batch(inputs, is_pretokenized, add_special_tokens, "char")
 
-    def encode_batch_byte_offsets(self, inputs: Iterable[str], is_pretokenized: bool = False,
+    def encode_batch_byte_offsets(self, inputs, is_pretokenized: bool = False,
                                   add_special_tokens: bool = True) -> List[Encoding]:
         """As `encode_batch`, with byte offsets (the reference's Rust
         default), each widened to whole chars."""
         return self._encode_batch(inputs, is_pretokenized, add_special_tokens, "byte")
 
-    def _encode(self, sequence, pair, is_pretokenized, add_special_tokens, offsets):
-        if pair is not None:
-            _unsupported("pairs of sequences", "a later slice")
-        return self._encode_batch([sequence], is_pretokenized, add_special_tokens, offsets)[0]
+    def _encode_batch(self, inputs, is_pretokenized: bool, add_special_tokens: bool,
+                      offsets: Optional[str]) -> List[Encoding]:
+        inputs = list(_as_sequence(inputs))
+        engine = self._get_device_engine()
+        if engine is not None and offsets is not None and not engine.supports_offsets:
+            engine = None
+        if engine is not None and not is_pretokenized and all(isinstance(s, str) for s in inputs):
+            if offsets is None:
+                encodings = engine.encode_batch(inputs, add_special_tokens)
+            else:
+                encodings = engine.encode_batch_offsets(inputs, add_special_tokens, offsets)
+        else:
+            encodings = [self._encode(*_parse_encode_input(x, is_pretokenized),
+                                      add_special_tokens, offsets, is_pretokenized)
+                         for x in inputs]
+        if self.padding is not None:
+            pad_encodings(encodings, self.padding)
+        return encodings
 
-    def encode(self, sequence: str, pair=None, is_pretokenized: bool = False,
+    def _encode(self, sequence, pair, add_special_tokens: bool, offsets: Optional[str],
+                is_pretokenized: bool = False) -> Encoding:
+        """The host pipeline of one input and its pair, post-processed."""
+        self._check()
+        parse = _parse_pretokenized_input if is_pretokenized else _parse_text_input
+        encoding = self._encode_single(parse(sequence), 0, offsets)
+        pair_encoding = None if pair is None else self._encode_single(parse(pair), 1, offsets)
+        return self.post_process(encoding, pair_encoding, add_special_tokens)
+
+    def _encode_one_input(self, sequence, pair, is_pretokenized, add_special_tokens, offsets):
+        if pair is None and not is_pretokenized and isinstance(_as_sequence(sequence), str):
+            return self._encode_batch([sequence], False, add_special_tokens, offsets)[0]
+        return self._encode(sequence, pair, add_special_tokens, offsets, is_pretokenized)
+
+    def encode(self, sequence, pair=None, is_pretokenized: bool = False,
                add_special_tokens: bool = True) -> Encoding:
-        return self._encode(sequence, pair, is_pretokenized, add_special_tokens, "char")
+        """Char offsets, as the reference's Python binding gives them."""
+        return self._encode_one_input(sequence, pair, is_pretokenized, add_special_tokens,
+                                      "char")
 
-    def encode_char_offsets(self, sequence: str, pair=None, is_pretokenized: bool = False,
+    def encode_char_offsets(self, sequence, pair=None, is_pretokenized: bool = False,
                             add_special_tokens: bool = True) -> Encoding:
-        return self._encode(sequence, pair, is_pretokenized, add_special_tokens, "char")
+        return self._encode_one_input(sequence, pair, is_pretokenized, add_special_tokens,
+                                      "char")
 
-    def encode_byte_offsets(self, sequence: str, pair=None, is_pretokenized: bool = False,
+    def encode_byte_offsets(self, sequence, pair=None, is_pretokenized: bool = False,
                             add_special_tokens: bool = True) -> Encoding:
-        return self._encode(sequence, pair, is_pretokenized, add_special_tokens, "byte")
+        return self._encode_one_input(sequence, pair, is_pretokenized, add_special_tokens,
+                                      "byte")
+
+    def encode_fast(self, sequence, pair=None, is_pretokenized: bool = False,
+                    add_special_tokens: bool = True) -> Encoding:
+        """Ids only (reference `tokenizer/mod.rs:785`)."""
+        return self._encode_one_input(sequence, pair, is_pretokenized, add_special_tokens, None)
 
     def encode_batch_arrays(self, inputs: Iterable[str]):
         """Per packed chunk (ids, ntok, row_bad, (input, piece) of each row),
-        the ids left on the device (`DeviceEngineBase.encode_batch_arrays`)."""
+        the ids left on the device (`DeviceEngineBase.encode_batch_arrays`):
+        no post-processing, truncation or padding."""
         engine = self._get_device_engine()
         if engine is None:
             raise RuntimeError("this tokenizer has no device engine")
-        return engine.encode_batch_arrays(_single_sequences(inputs, False))
+        inputs = list(inputs)
+        if not all(isinstance(s, str) for s in inputs):
+            raise TypeError("encode_batch_arrays takes a sequence of str")
+        return engine.encode_batch_arrays(inputs)
+
+    # async variants (the reference binding's, `tokenizer.rs:1135-1432`):
+    # the blocking work runs in asyncio's default thread pool
+
+    async def async_encode(self, sequence, pair=None, is_pretokenized: bool = False,
+                           add_special_tokens: bool = True) -> Encoding:
+        import asyncio
+
+        return await asyncio.to_thread(self.encode, sequence, pair, is_pretokenized,
+                                       add_special_tokens)
+
+    async def async_encode_batch(self, inputs, is_pretokenized: bool = False,
+                                 add_special_tokens: bool = True) -> List[Encoding]:
+        import asyncio
+
+        return await asyncio.to_thread(self.encode_batch, inputs, is_pretokenized,
+                                       add_special_tokens)
+
+    async def async_encode_batch_fast(self, inputs, is_pretokenized: bool = False,
+                                      add_special_tokens: bool = True) -> List[Encoding]:
+        import asyncio
+
+        return await asyncio.to_thread(self.encode_batch_fast, inputs, is_pretokenized,
+                                       add_special_tokens)
+
+    async def async_decode(self, ids: Seq[int], skip_special_tokens: bool = True) -> str:
+        import asyncio
+
+        return await asyncio.to_thread(self.decode, ids, skip_special_tokens)
+
+    async def async_decode_batch(self, sequences, skip_special_tokens: bool = True) -> List[str]:
+        import asyncio
+
+        return await asyncio.to_thread(self.decode_batch, sequences, skip_special_tokens)
 
     # ----------------------------------------------------------------- train
 
@@ -416,94 +775,63 @@ class Tokenizer:
 
     def train_from_iterator(self, iterator: Iterable[str], trainer=None,
                             length: Optional[int] = None) -> "Tokenizer":
-        """Feed the trainer the words of each sequence (`train_words`: the
-        host pipeline's normalizer and pre-tokenizer; an added token is a
-        word of its own), train the model, add the trainer's special
-        tokens, and drop the device engine so that the next encode builds
-        its tables from the trained model.  Without a trainer the model's
-        default one runs on this tokenizer's device.  `length` is accepted
-        for the reference's surface; there is no progress bar."""
+        """Feed the trainer the words of each sequence (`train_words`), train
+        the model, add the trainer's special tokens, and drop the device
+        engine so that the next encode builds its tables from the trained
+        model.  Without a trainer the model's default one runs on this
+        tokenizer's device.  `length` is accepted for the reference's
+        surface; there is no progress bar."""
+        self._check()
         if trainer is None:
-            trainer = self.model.get_trainer(device=self.device)
+            trainer = self._model.get_trainer(device=self.device)
         trainer.feed(iterator, self.train_words)
-        special_tokens = trainer.train(self.model)
+        special_tokens = trainer.train(self._model)
         self.add_special_tokens(special_tokens)
+        self._changed()
         return self
 
     def train_words(self, sequence: str) -> List[str]:
         """The words a trainer counts in `sequence`, as the reference's
-        `Tokenizer::train` gives them: the added tokens split out of the
-        raw text, each a word of its own, and on each piece between them
-        the normalizer and the pre-tokenizer (Metaspace prepends to each
-        piece as its scheme says)."""
+        `Tokenizer::train` gives them: the added tokens split out (each a
+        word of its own, as matched), and on each piece between them the
+        normalizer and the pre-tokenizer (Metaspace prepends as its scheme
+        says)."""
         words: List[str] = []
-        pos = 0
-        pt = self.pre_tokenizer
-        matches = self._added_re.finditer(sequence) if self._added_re else ()
-        for m in list(matches) + [None]:
-            piece = sequence[pos : m.start() if m else len(sequence)]
-            text = piece if self.normalizer is None else self.normalizer.normalize_str(piece)
+        av, nz, pt = self.added_vocabulary, self._normalizer, self._pre_tokenizer
+
+        def pre_tokenize(text: str, first: bool):
             if not text:
-                pass
-            elif isinstance(pt, Metaspace):
-                words.extend(pt.pre_tokenize(text, pos == 0))
+                return
+            if isinstance(pt, Metaspace):
+                words.extend(pt.pre_tokenize(text, first))
             elif pt is None:
                 words.append(text)
             else:
                 words.extend(pt.pre_tokenize(text))
-            if m:
-                words.append(m.group())
-                pos = m.end()
-        return words
 
-    def add_special_tokens(self, tokens) -> int:
-        """Add special tokens (strings or `trainers.AddedToken`), matched on
-        the raw text: a token in the model's vocab keeps its id, another
-        takes the next id past the vocab and the added tokens.  Returns how
-        many were new; drops the device engine."""
-        added = 0
-        for t in tokens:
-            content = getattr(t, "content", t)
-            if not content or content in self.added:
+        for tid, cs, ce in av.split(sequence, False):
+            if tid is not None:
+                words.append(sequence[cs:ce])
                 continue
-            tid = self.model.vocab.get(content)
-            if tid is None:
-                size = len(self.model.vocab)
-                top = max(self.added.values(), default=None)
-                tid = top + 1 if top is not None and (top >= size or size == 0) else size
-            self.added[content] = tid
-            added += 1
-        contents = sorted(self.added, key=len, reverse=True)  # leftmost-longest
-        self._added_re = re.compile("|".join(map(re.escape, contents))) if contents else None
-        self._engine = None
-        self._engine_built = False
-        self._added_r = None
-        return added
-
-    def token_to_id(self, token: str) -> Optional[int]:
-        tid = self.added.get(token)
-        return tid if tid is not None else self.model.vocab.get(token)
-
-    def id_to_token(self, id: int) -> Optional[str]:
-        """The added token of `id`, else the model's token (None if neither
-        has it)."""
-        if self._added_r is None:
-            self._added_r = {v: k for k, v in self.added.items()}
-        tok = self._added_r.get(id)
-        if tok is not None:
-            return tok
-        return self.model.vocab_r.get(id)
+            text = sequence[cs:ce] if nz is None else nz.normalize_str(sequence[cs:ce])
+            for ntid, a, b in av.split(text, True):
+                if ntid is not None:
+                    words.append(text[a:b])
+                else:
+                    pre_tokenize(text[a:b], cs == 0 and a == 0)
+        return words
 
     # ---------------------------------------------------------------- decode
 
     def decode(self, ids: Iterable[int], skip_special_tokens: bool = True) -> str:
-        """The text of `ids`: each id's token (unknown ids dropped; the added
-        tokens, all special, dropped with `skip_special_tokens`) through
-        the decoder, or joined by spaces without one."""
+        """The text of `ids`: each id's token (unknown ids dropped; special
+        added tokens dropped with `skip_special_tokens`) through the
+        decoder, or joined by spaces without one."""
         tokens = []
+        av = self.added_vocabulary
         for i in ids:
             token = self.id_to_token(int(i))
-            if token is None or (skip_special_tokens and token in self.added):
+            if token is None or (skip_special_tokens and av.is_special_token(token)):
                 continue
             tokens.append(token)
         if self.decoder is not None:
@@ -519,55 +847,184 @@ class Tokenizer:
         return DecodeStream(self, skip_special_tokens)
 
     def _get_device_engine(self):
-        """The device engine, built once; None when the vocab lacks a byte
-        of the byte-level alphabet or two whole-word entries collide
-        (everything then runs on the host)."""
+        """The device engine, built once after each change; None when the
+        vocab lacks a byte of the byte-level alphabet or two whole-word
+        entries collide (everything then runs on the host)."""
         if not self._engine_built:
             from .ops.engine import build_device_engine
 
+            self._check()
             self._engine = build_device_engine(self, self.device)
             self._engine_built = True
         return self._engine
 
+    # ---------------------------------------------------------- host pipeline
+
     def encode_host(self, text: str, add_special_tokens: bool = True,
                     offsets: Optional[str] = None) -> Encoding:
-        """The host pipeline: added tokens split out of the raw text, then
-        on each piece between them the normalizer, the pre-tokenizer's
-        split and the model, then the template.  With `offsets` ("char" or
-        "byte") it also gives each token's offsets, string and word index
-        (an added token is a word of its own); without, ids only."""
-        if offsets is not None:
-            return self._encode_host_offsets(text, add_special_tokens, offsets)
-        ids: List[int] = []
-        pos = 0
-        matches = self._added_re.finditer(text) if self._added_re else ()
-        for m in list(matches) + [None]:
-            piece = text[pos : m.start() if m else len(text)]
-            if piece and self.aligned:
-                for word in self._aligned_word_spans(piece, pos == 0):
-                    ids.extend(t[0] for t in word)
-            elif piece:
-                if self.normalizer is not None:
-                    piece = self.normalizer.normalize_chars(piece)[0]
-                for word in self.pre_tokenizer.pre_tokenize(piece):
-                    ids.extend(self.model.tokenize(word))
-            if m:
-                ids.append(self.added[m.group()])
-                pos = m.end()
-        return self.post_process(Encoding(ids=ids), add_special_tokens)
+        """The host pipeline of one string, post-processed: with `offsets`
+        ("char" or "byte") each token's offsets, string and word index
+        too; without, ids only."""
+        self._check()
+        return self.post_process(self._encode_one(text, offsets), None, add_special_tokens)
+
+    def _encode_single(self, sequence, type_id: int, offsets: Optional[str]) -> Encoding:
+        """One sequence: a string, or pre-tokenized words (each encoded on
+        its own, its tokens of word index its position, offsets within
+        the word; `tokenizer/mod.rs:711-745`)."""
+        if isinstance(sequence, str):
+            return self._encode_one(sequence, offsets, type_id)
+        merged = Encoding()
+        for i, word in enumerate(sequence):
+            merged.merge_with(self._encode_one(word, offsets, type_id, word_idx=i), False)
+        return merged
+
+    def _encode_one(self, text: str, offsets: Optional[str], type_id: int = 0,
+                    word_idx: Optional[int] = None) -> Encoding:
+        """The host pipeline of one string, before post-processing: added
+        tokens split out (`_host_items`), the normalizer, the
+        pre-tokenizer's split and the model on each piece between them.
+        Spans are taken in the text's chars (bert) or bytes and mapped to
+        chars or whole-char bytes as the device's spans are
+        (`engine_base.map_offsets`).  Ids only (offsets None): tokens "",
+        offsets (0, 0), no word ids, type ids 0, as the JAX package's
+        `into_encoding(..., "none")` gives them."""
+        if offsets is None:
+            ids: List[int] = []
+            for item in self._host_items(text, False):
+                ids.extend(item[1])
+            return Encoding(ids=ids)
+        from .ops.engine_base import map_offsets
+
+        ids, tokens, words, starts, ends = [], [], [], [], []
+        n_words = 0
+        vr = self._model.vocab_r
+        for kind, body in self._host_items(text, True):
+            if kind == "added":
+                tid, token, st, en = body
+                ids.append(tid)
+                tokens.append(token)
+                words.append(n_words)
+                starts.append(st)
+                ends.append(en)
+                n_words += 1
+                continue
+            for word in body:
+                for t in word:
+                    ids.append(t[0])
+                    tokens.append(t[3] if len(t) > 3 else vr[t[0]])
+                    words.append(n_words)
+                    starts.append(t[1])
+                    ends.append(t[2])
+                n_words += 1
+        n = len(ids)
+        chars = isinstance(self._model, WordPiece)  # the unit of the spans
+        return Encoding(ids=ids, type_ids=[type_id] * n, tokens=tokens,
+                        words=words if word_idx is None else [word_idx] * n,
+                        offsets=map_offsets(text, starts, ends, offsets,
+                                            "char" if chars else "byte"))
+
+    def _host_items(self, text: str, spans: bool):
+        """Per split of `text`, in order: ("added", (id, token, start, end))
+        for an added token (its text as matched, lstrip and rstrip spaces
+        included, the normalized text for one matched there), else
+        ("ids", ids) of a text piece, or with `spans` ("words", words),
+        each word a list of (id, start, end[, token]).  Spans are absolute,
+        in the text's chars (bert) or bytes."""
+        av, nz = self.added_vocabulary, self._normalizer
+        chars = isinstance(self._model, WordPiece)
+        if not spans or chars or text.isascii():
+            def unit(c: int) -> int:  # chars, or bytes of ASCII (no span needed: any)
+                return c
+        else:
+            cb = char_to_byte_offsets(text)
+
+            def unit(c: int) -> int:
+                return cb[c]
+
+        for tid, cs, ce in av.split(text, False):
+            if tid is not None:
+                yield "added", (tid, text[cs:ce], unit(cs), unit(ce)) if spans else [tid]
+                continue
+            piece, first = text[cs:ce], cs == 0
+            if not av.has_normalized():
+                yield from self._piece_items(piece, first, unit(cs), spans)
+            elif nz is None:
+                for ntid, a, b in av.split(piece, True):
+                    if ntid is not None:
+                        yield "added", ((ntid, piece[a:b], unit(cs + a), unit(cs + b))
+                                        if spans else [ntid])
+                    else:
+                        yield from self._piece_items(piece[a:b], first and a == 0,
+                                                     unit(cs + a), spans)
+            elif chars:
+                yield from self._bert_normalized_items(piece, cs, av, spans)
+            else:
+                yield from self._aligned_normalized_items(piece, first, unit(cs), av, spans)
+
+    def _piece_items(self, piece: str, first: bool, base: int, spans: bool):
+        """`_host_items` of a text piece (raw text) at `base`."""
+        if not spans:
+            if self.aligned:
+                yield "ids", [t[0] for word in self._aligned_word_spans(piece, first)
+                              for t in word]
+                return
+            if self._normalizer is not None:
+                piece = self._normalizer.normalize_chars(piece)[0]
+            tok = self._model.tokenize
+            yield "ids", [i for word in self._pre_tokenizer.pre_tokenize(piece)
+                          for i in tok(word)]
+            return
+        yield "words", [[(t[0], t[1] + base, t[2] + base) + tuple(t[3:]) for t in word]
+                        for word in self._word_spans(piece, first)]
+
+    def _bert_normalized_items(self, piece: str, cs: int, av, spans: bool):
+        """The bert pipeline's piece (at char `cs`) with tokens matched on
+        its normalized text: spans through the normalizer's source chars."""
+        norm, src = self._normalizer.normalize_chars(piece)
+        for ntid, a, b in av.split(norm, True):
+            if ntid is not None:
+                span = (cs + src[a], cs + src[b - 1] + 1)
+                yield "added", (ntid, norm[a:b], *span) if spans else [ntid]
+                continue
+            words = [[(tid, cs + st, cs + en) for tid, st, en in word]
+                     for word in self._char_words(norm[a:b], src[a:b])]
+            yield ("words", words) if spans else ("ids", [t[0] for w in words for t in w])
+
+    def _aligned_normalized_items(self, piece: str, first: bool, base: int, av, spans: bool):
+        """An aligned pipeline's piece (at byte `base`) with tokens matched
+        on its normalized text: spans through the alignments."""
+        ns = NormalizedString(piece)
+        self._normalizer.normalize(ns)
+        norm = ns.get()
+        nb = char_to_byte_offsets(norm)
+        al = ns.alignments
+        for ntid, a, b in av.split(norm, True):
+            b0, b1 = nb[a], nb[b]
+            if ntid is not None:
+                span = (base + al[b0][0], base + al[b1 - 1][1])
+                yield "added", (ntid, norm[a:b], *span) if spans else [ntid]
+                continue
+            words = [[(t[0], t[1] + base, t[2] + base) + tuple(t[3:]) for t in word]
+                     for word in self._aligned_ns_words(_ns_slice(ns, b0, b1), first and a == 0)]
+            yield ("words", words) if spans else ("ids", [t[0] for w in words for t in w])
 
     def _aligned_word_spans(self, piece: str, first: bool):
         """`_word_spans` of the WordLevel, char-level BPE and Unigram
-        pipelines: the normalizer (and Metaspace's replacement and prepend;
-        `first`: the piece starts the text) on a NormalizedString, the
-        pre-tokenizer's words in its text, each token's byte span in its
-        word mapped to the piece's original bytes through the alignments.
-        A Unigram token also carries its string (an unk token's is the text
-        it covers)."""
+        pipelines: the normalizer on a NormalizedString, then
+        `_aligned_ns_words`."""
         ns = NormalizedString(piece)
-        if self.normalizer is not None:
-            self.normalizer.normalize(ns)
-        pt, text = self.pre_tokenizer, ns.get()
+        if self._normalizer is not None:
+            self._normalizer.normalize(ns)
+        yield from self._aligned_ns_words(ns, first)
+
+    def _aligned_ns_words(self, ns: NormalizedString, first: bool):
+        """The words of the normalized `ns` (Metaspace's replacement and
+        prepend applied; `first`: it starts the text): each token's byte
+        span in its word mapped to the original bytes through the
+        alignments.  A Unigram token also carries its string (an unk
+        token's is the text it covers)."""
+        pt, text = self._pre_tokenizer, ns.get()
         if isinstance(pt, Metaspace):
             pt.apply(ns, first)
             text = ns.get()
@@ -579,7 +1036,14 @@ class Tokenizer:
         cb, al = char_to_byte_offsets(text), ns.alignments
         for ws, we in spans:
             yield [(t[0], al[cb[ws] + t[1]][0], al[cb[ws] + t[2] - 1][1]) + t[3:]
-                   for t in self.model.tokenize_spans(text[ws:we])]
+                   for t in self._model.tokenize_spans(text[ws:we])]
+
+    def _char_words(self, norm: str, src: List[int]):
+        """The bert pipeline's words of normalized text `norm`, each token's
+        span in the chars that `src` maps `norm`'s chars to."""
+        for word, ws, _we in self._pre_tokenizer.pre_tokenize_spans(norm):
+            yield [(tid, src[ws + ts], src[ws + te - 1] + 1)
+                   for tid, ts, te in self._model.tokenize_spans(word)]
 
     def _word_spans(self, piece: str, first: bool):
         """Per word of a piece of text between added tokens, (id, start,
@@ -591,71 +1055,33 @@ class Tokenizer:
         if self.aligned:
             yield from self._aligned_word_spans(piece, first)
             return
-        if self.normalizer is not None:
-            norm, src = self.normalizer.normalize_chars(piece)
-            for word, ws, _we in self.pre_tokenizer.pre_tokenize_spans(norm):
-                yield [(tid, src[ws + ts], src[ws + te - 1] + 1)
-                       for tid, ts, te in self.model.tokenize_spans(word)]
+        if self._normalizer is not None:
+            yield from self._char_words(*self._normalizer.normalize_chars(piece))
             return
-        pre, shift = self.pre_tokenizer.pre_tokenize_spans(piece)
+        pre, shift = self._pre_tokenizer.pre_tokenize_spans(piece)
         for word, ws, _we in pre:
             yield [(tid, max(ws + ts - shift, 0), max(ws + te - shift, 0))
-                   for tid, ts, te in self.model.tokenize_spans(word)]
+                   for tid, ts, te in self._model.tokenize_spans(word)]
 
-    def _encode_host_offsets(self, text: str, add_special_tokens: bool,
-                             offsets: str) -> Encoding:
-        """`encode_host` with offsets.  Spans are taken in the text's chars
-        (bert) or bytes (`_word_spans`) and mapped to chars or whole-char
-        bytes as the device's spans are (`engine_base.map_offsets`)."""
-        from .ops.engine_base import map_offsets
-
-        chars = isinstance(self.model, WordPiece)  # the unit of the spans
-
-        def size(s: str) -> int:
-            return len(s) if chars else len(s.encode("utf-8"))
-
-        ids, tokens, words, starts, ends = [], [], [], [], []
-        pos = base = 0  # the next piece's start, in chars and in span units
-
-        def add(tid, token, st, en):
-            ids.append(tid)
-            tokens.append(token)
-            words.append(n_words)
-            starts.append(st)
-            ends.append(en)
-
-        n_words = 0
-        matches = self._added_re.finditer(text) if self._added_re else ()
-        for m in list(matches) + [None]:
-            piece = text[pos : m.start() if m else len(text)]
-            if piece:
-                for word in self._word_spans(piece, pos == 0):
-                    for t in word:
-                        add(t[0], t[3] if len(t) > 3 else self.model.vocab_r[t[0]],
-                            base + t[1], base + t[2])
-                    n_words += 1
-                base += size(piece)
-            if m:
-                n = size(m.group())
-                add(self.added[m.group()], m.group(), base, base + n)
-                n_words += 1
-                pos, base = m.end(), base + n
-        enc = Encoding(ids=ids, tokens=tokens, words=words,
-                       offsets=map_offsets(text, starts, ends, offsets,
-                                           "char" if chars else "byte"))
-        return self.post_process(enc, add_special_tokens, with_offsets=True)
-
-    def post_process(self, encoding: Encoding, add_special_tokens: bool = True,
-                     with_offsets: bool = False) -> Encoding:
-        """The template's special tokens and type ids; with offsets tracked,
-        the ByteLevel post-processor's trimming of spaces from them
-        (`trim_offsets`).  It adds no tokens."""
-        if isinstance(self.post_processor, TemplateProcessing):
-            return self.post_processor.process(encoding, add_special_tokens)
-        if with_offsets and self.post_processor is not None and self.post_processor.trim_offsets:
-            process_offsets(encoding, self.post_processor.add_prefix_space)
-        encoding.set_sequence_id(0)
-        return encoding
+    def post_process(self, encoding: Encoding, pair_encoding: Optional[Encoding] = None,
+                     add_special_tokens: bool = True) -> Encoding:
+        """Truncate, then the post-processor (or `default_process`), then
+        pad (reference `tokenizer/mod.rs:1206`)."""
+        if self.truncation is not None:
+            params = self.truncation
+            n_added = self.num_special_tokens_to_add(pair_encoding is not None)
+            if add_special_tokens and n_added > 0:
+                params = TruncationParams(max(0, params.max_length - n_added), params.strategy,
+                                          params.stride, params.direction)
+            encoding, pair_encoding = truncate_encodings(encoding, pair_encoding, params)
+        if self._post_processor is not None:
+            final = self._post_processor.process(encoding, pair_encoding, add_special_tokens)
+        else:
+            encodings = [encoding] if pair_encoding is None else [encoding, pair_encoding]
+            (final,) = default_process(encodings, add_special_tokens)
+        if self.padding is not None:
+            pad_encodings([final], self.padding)
+        return final
 
 
 class DecodeStream:

@@ -25,19 +25,7 @@ import time
 from collections import Counter
 from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
 
-
-class AddedToken:
-    """A special token a trainer puts first in the vocab (the port's added
-    tokens are all special and matched on the raw text)."""
-
-    __slots__ = ("content", "special")
-
-    def __init__(self, content: str, special: bool = True):
-        self.content = content
-        self.special = special
-
-    def __repr__(self):
-        return f"AddedToken({self.content!r}, special={self.special})"
+from ..added_vocabulary import AddedToken
 
 
 def merged_token(part_a: str, part_b: str, prefix: Optional[str]) -> str:
@@ -49,7 +37,8 @@ def merged_token(part_a: str, part_b: str, prefix: Optional[str]) -> str:
 
 
 def special_tokens_of(tokens) -> List[AddedToken]:
-    return [t if isinstance(t, AddedToken) else AddedToken(t) for t in (tokens or [])]
+    return [t if isinstance(t, AddedToken) else AddedToken(t, special=True)
+            for t in (tokens or [])]
 
 
 class BpeTrainer:
