@@ -213,7 +213,23 @@
    then `encode_batch_fast` of the 512 documents cold against the wheel's
    trained recipe's digests, B3, B2 and B1 launched and held as in (a).
    Prints the phase's seconds with the card's name and power limit.
-16. Prints a line of numbers per path, the per-kernel JSON line (with each
+16. The general host pipeline and the byte-level engine's new pipelines
+   (`host_pipelines_path`, the six of `smoke_data.host_pipelines()`):
+   (a) gpt2_lower, qwen2_shape, char_bpe_punct and wordlevel_scripts,
+   which no engine takes (`_get_device_engine()` must be None):
+   `encode_batch_fast` and `encode_batch` on the first 16 8 KB documents,
+   every document against `data/host_pipelines_digests.json` (the
+   wheel's ids and `offsets_digest`s), no kernel of `csrc/` launched,
+   each pipeline's seconds and MB/s printed; (b) gpt2_ignore_merges (B3,
+   B2, B1 with the whole-word bypass) and llama3_prefix (B2, B1; the
+   prefix spaces put on the device) on the 512 documents through
+   `drive_path`, cold then cached, against the same file, each kernel of
+   the pipeline launched, and the cold run once more on a new tokenizer
+   under `checked_again` (every launch bit for bit against its plain
+   version); (c) `to_str` -> `from_str` of all six, `to_str` given back,
+   and one cold `encode_batch_fast` against the digests.  Adds each
+   kernel's `host_pipelines_launches` (the (b) cold runs).
+17. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -2074,6 +2090,122 @@ def recipes_path(torch, stats, counts, numbers, smi):
         s_["to_str_launches"] = b_launches[k]
 
 
+HOST_PIPELINE_KERNELS = {"gpt2_ignore_merges": ("layout_fused", "keys", "merge_round_fused"),
+                         "llama3_prefix": ("keys", "merge_round_fused")}
+
+
+def host_pipelines_path(torch, stats, counts, numbers, smi):
+    """Phase 16, the general host pipeline and the byte-level engine's new
+    pipelines (docstring item 16).  Adds each kernel's
+    `host_pipelines_launches` to `stats`."""
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.ops.bpe_engine import ByteLevelBpeEngine
+    from tokenizers_tpu_torch.smoke_data import (
+        ENGINE_PIPELINES, HOST_PIPELINES, host_pipeline_docs, host_pipelines, ids_digest,
+        load_host_pipelines_digests, offsets_digest,
+    )
+
+    t_phase = time.perf_counter()
+    blobs, want = host_pipelines(), load_host_pipelines_digests()
+    out = {"a": {}, "b": {}, "c": {}}
+
+    def zero():
+        for c in counts.values():
+            for k in c:
+                c[k] = 0
+
+    def read():
+        return {k: c[k] for k, c in counts.items()}
+
+    def check(name, encs, digest, digests):
+        bad = [i for i, e in enumerate(encs) if digest(e) != digests[i]]
+        if bad:
+            raise SystemExit(f"host pipelines {name}: {len(bad)} documents differ from the "
+                             f"wheel's digests: {bad[:10]}")
+
+    # (a) the general host pipeline
+    for name in HOST_PIPELINES:
+        tok = Tokenizer.from_str(blobs[name])
+        if tok._get_device_engine() is not None:
+            raise SystemExit(f"host pipelines {name}: a device engine took it")
+        docs = host_pipeline_docs(name)
+        mb = sum(len(d.encode("utf-8")) for d in docs) / 1e6
+        zero()
+        t = time.perf_counter()
+        fast = tok.encode_batch_fast(docs)
+        fast_s = time.perf_counter() - t
+        check(f"{name} fast", fast, lambda e: ids_digest(e.ids), want[name]["fast"])
+        t = time.perf_counter()
+        offs = tok.encode_batch(docs)
+        offs_s = time.perf_counter() - t
+        check(f"{name} offsets", offs, offsets_digest, want[name]["offsets"])
+        if any(read().values()):
+            raise SystemExit(f"host pipelines {name}: a kernel of csrc/ launched: {read()}")
+        out["a"][name] = {"docs": len(docs), "mb": mb, "fast_s": fast_s,
+                          "fast_mb_s": mb / fast_s, "offsets_s": offs_s,
+                          "offsets_mb_s": mb / offs_s}
+        print(f"host pipeline {name}: {len(docs)} documents, {mb:.3f} MB, encode_batch_fast "
+              f"{fast_s:.3f} s ({mb / fast_s:.3f} MB/s), encode_batch {offs_s:.3f} s "
+              f"({mb / offs_s:.3f} MB/s), every digest equal, on {smi}", flush=True)
+
+    # (b) the byte-level engine's new pipelines, every launch held
+    b_launches = {k: {} for k in stats}
+    for name in ENGINE_PIPELINES:
+        tok = Tokenizer.from_str(blobs[name])
+        if not isinstance(tok._get_device_engine(), ByteLevelBpeEngine):
+            raise SystemExit(f"host pipelines {name}: not on the byte-level engine")
+        docs = host_pipeline_docs(name)
+        runs = drive_path(torch, tok, docs, name, counts, digests=want[name]["fast"])
+        cold = runs["cold"]["launches"]
+        missing = [k for k in HOST_PIPELINE_KERNELS.get(name, ()) if cold[k] == 0]
+        if missing:
+            raise SystemExit(f"host pipelines {name}: {missing} never launched")
+        other = Tokenizer.from_str(blobs[name])
+        other._get_device_engine()
+        zero()
+        shapes, errs = checked_again(torch, lambda: other.encode_batch_fast(docs),
+                                     f"host pipelines {name}", cold,
+                                     lambda e: ids_digest(e.ids), want[name]["fast"])
+        for k, e in errs.items():
+            stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], e)
+        for k in stats:
+            b_launches[k][name] = cold[k]
+        mb = sum(len(d.encode("utf-8")) for d in docs) / 1e6
+        out["b"][name] = {r: {"secs": v["secs"], "mb_s": mb / v["secs"],
+                              "program_s": v["program_s"], "launches": v["launches"],
+                              "bad_row_fraction": v["bad_row_fraction"]}
+                          for r, v in runs.items()}
+        out["b"][name]["checked_shapes"] = shapes
+        print("host pipelines " + json.dumps({"run": name, **out["b"][name]}), flush=True)
+
+    # (c) to_str -> from_str, then one cold pass
+    for name in HOST_PIPELINES + ENGINE_PIPELINES:
+        s = Tokenizer.from_str(blobs[name]).to_str()
+        rt = Tokenizer.from_str(s)
+        if rt.to_str() != s:
+            raise SystemExit(f"host pipelines {name}: from_str(to_str()) gives another to_str")
+        docs = host_pipeline_docs(name)
+        zero()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        encs = rt.encode_batch_fast(docs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        check(f"{name} round trip", encs, lambda e: ids_digest(e.ids), want[name]["fast"])
+        launches = read()
+        missing = [k for k in HOST_PIPELINE_KERNELS.get(name, ()) if launches[k] == 0]
+        if missing:
+            raise SystemExit(f"host pipelines {name} round trip: {missing} never launched")
+        out["c"][name] = {"secs": secs, "launches": launches}
+    print("host pipelines " + json.dumps({"run": "c_round_trip", **out["c"]}), flush=True)
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    numbers["host_pipelines"] = out
+    print(f"phase 16 (host pipelines): {out['phase_s']:.1f} s on {smi}", flush=True)
+    for k, s_ in stats.items():
+        s_["host_pipelines_launches"] = b_launches[k]
+
+
 def stats_launches(runs, k):
     return sum(r["cold"]["launches"][k] for r in runs.values())
 
@@ -2343,6 +2475,9 @@ def main() -> int:
     # ---- 15. the Tokenizer's full surface and the recipes ------------------------
     recipes_path(torch, stats, counts, numbers, smi)
 
+    # ---- 16. the general host pipeline and the engine's new pipelines ---------------
+    host_pipelines_path(torch, stats, counts, numbers, smi)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -2385,6 +2520,7 @@ def main() -> int:
          "char_level_shapes": s["char_level_shapes"],
          "multirank_launches": s["multirank_launches"],
          "recipes_launches": s["recipes_launches"], "to_str_launches": s["to_str_launches"],
+         "host_pipelines_launches": s["host_pipelines_launches"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "shape": s["shape"], **{x: s[x] for x in extra if x in s}}

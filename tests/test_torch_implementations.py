@@ -18,7 +18,7 @@ tolerance against the wheel (rel 1e-6, abs 1.6e-3,
 `tests/test_unigram_trainer.py`) and to 1e-9 relative against JAX's, the
 rest of its `to_str` exactly.  JAX's Unigram trainer
 runs its host EM (`TOKENIZERS_TPU_DEVICE_EM=0`): no JAX device program is
-compiled.  Options the port does not run raise NotImplementedError."""
+compiled."""
 
 import asyncio
 import json
@@ -129,17 +129,38 @@ def test_sentencepiece_unigram():
 
 
 def test_refused_options_and_async():
-    with pytest.raises(NotImplementedError):
-        port_recipes.ByteLevelBPETokenizer(lowercase=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_recipes.ByteLevelBPETokenizer(unicode_normalizer="nfkc", device="cpu")
+    """The options once refused run as the wheel's: `lowercase` and a
+    `unicode_normalizer` before the byte-level model, `dropout` in every
+    BPE recipe (at 1.0: no merge), and a Unigram trained without
+    `unk_token` (which raises on a char outside its pieces, as the wheel
+    and JAX do); then the async surface."""
+    gpt2 = json.load(open(os.path.join(REPO, "tests", "fixtures", "gpt2", "tokenizer.json"),
+                          encoding="utf-8"))["model"]
+    vocab = gpt2["vocab"]
+    merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
+              for m in gpt2["merges"]]
+    for kw in (dict(lowercase=True), dict(lowercase=True, unicode_normalizer="nfkc")):
+        ours = port_recipes.ByteLevelBPETokenizer(vocab, merges, device="cpu", **kw)
+        theirs = wheel_recipes.ByteLevelBPETokenizer(vocab, merges, **kw)
+        assert ours.to_str() == theirs.to_str()
+        _encode_like(ours, theirs)
     for name in ("ByteLevelBPETokenizer", "CharBPETokenizer", "SentencePieceBPETokenizer"):
-        with pytest.raises(NotImplementedError):
-            getattr(port_recipes, name)(dropout=0.1, device="cpu")
+        w = getattr(wheel_recipes, name)()
+        w.train_from_iterator(_lines(8000), vocab_size=300, show_progress=False)
+        model = json.loads(w.to_str())["model"]
+        args = (model["vocab"], [tuple(m) for m in model["merges"]])
+        ours = getattr(port_recipes, name)(*args, dropout=1.0, device="cpu")
+        theirs = getattr(wheel_recipes, name)(*args, dropout=1.0)
+        assert ours.to_str() == theirs.to_str() and '"dropout":1.0' in ours.to_str()
+        _encode_like(ours, theirs)
     tok = port_recipes.SentencePieceUnigramTokenizer(device="cpu")
     tok.train_from_iterator(_lines(3000), vocab_size=200, show_progress=False)
-    with pytest.raises(NotImplementedError):  # no unk token: the port needs an unk id
-        tok.encode("hello")
+    ref = hf.Tokenizer.from_str(tok.to_str())
+    assert tok.encode("hello").ids == ref.encode("hello").ids
+    with pytest.raises(Exception):
+        ref.encode("☃")
+    with pytest.raises(ValueError, match="unk_id"):  # as the JAX package's Unigram
+        tok.encode("☃")
     w, _j, p = _train("SentencePieceBPETokenizer", dict(vocab_size=280), nchars=8000)
 
     async def run(t):

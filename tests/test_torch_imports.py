@@ -7,8 +7,10 @@ and Unigram training, `Tokenizer.train_from_iterator`, `decode` and
 `decode_stream`; a process group of one rank through the sharded encode,
 both trainers' mesh arguments and `entry`; the five recipes trained, with
 added tokens, truncation, padding, pairs, pre-tokenized input, a
-post-processor, `to_str`, `from_str` and pickling), and no source file of
-the package imports them."""
+post-processor, `to_str`, `from_str` and pickling; the patterns, the
+general host pipeline on every pipeline of `smoke_data.host_pipelines`,
+UnicodeScripts, the ByteLevel normalizer and a regex Replace decoder),
+and no source file of the package imports them."""
 
 import os
 import re
@@ -142,6 +144,20 @@ for name, kw in (("CharBPETokenizer", {}), ("SentencePieceBPETokenizer", {}),
     back = Tokenizer.from_str(r.to_str(), device="cpu").to_str()
     # Unigram scores read back as the wheel reads them (serde_f64): not the same bits
     assert back == r.to_str() or "Unigram" in name, name
+from tokenizers_tpu_torch import pre_tokenizers as P
+from tokenizers_tpu_torch.decoders import Replace as ReplaceDecoder
+from tokenizers_tpu_torch.normalizers import ByteLevel as ByteLevelNormalizer
+from tokenizers_tpu_torch.pattern import SysRegex, find_matches
+from tokenizers_tpu_torch.smoke_data import host_pipelines
+assert find_matches(SysRegex(r"\\p{L}+"), "ab 12") == [((0, 2), True), ((2, 5), False)]
+assert P.UnicodeScripts().pre_tokenize_str("abc日本") == [("abc", (0, 3)), ("日本", (3, 5))]
+assert ByteLevelNormalizer().normalize_str(" é") == "ĠÃ©"
+assert ReplaceDecoder(r"\\s+", "_", regex=True).decode(["a  b"]) == "a_b"
+for name, blob in host_pipelines().items():
+    tok = Tokenizer.from_str(blob, device="cpu")
+    encs = tok.encode_batch(["Hello World! 2024 x²y 日本語", "a"])
+    assert encs[0].ids == tok.encode_batch_fast(["Hello World! 2024 x²y 日本語"])[0].ids, name
+    assert Tokenizer.from_str(tok.to_str(), device="cpu").to_str() == tok.to_str(), name
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

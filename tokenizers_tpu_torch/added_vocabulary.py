@@ -21,10 +21,12 @@ of `lstrip`/`rstrip` is the reference's explicit list (`SPACE_CHARS`).
 
 `split(sentence, normalized)` gives the pieces of a text as
 (id or None, start, end) in chars, covering the whole text; the
-tokenizer's host pipelines run the normalizer, the pre-tokenizer and the
-model on the text pieces (`Tokenizer._host_items`).  The JAX package's
-`extract_and_normalize` returns a PreTokenizedString instead, which the
-port does not have.
+tokenizer's fast host path runs the normalizer, the pre-tokenizer and the
+model on the text pieces (`Tokenizer._host_items`).  The general host
+pipeline starts from `extract_and_normalize`, as the JAX package's: a
+PreTokenizedString whose splits are the raw tokens' matches, then on each
+other split the normalizer and the normalized tokens' matches, every
+match a split already tokenized.
 """
 
 from __future__ import annotations
@@ -219,6 +221,42 @@ class AddedVocabulary:
             return False
         return self.split_normalized_trie[0].any_in(
             s if normalizer is None else normalizer.normalize_str(s))
+
+    def extract_and_normalize(self, normalizer, sequence: str):
+        """`sequence` as a PreTokenizedString (reference
+        `added_vocabulary.rs:455-521`)."""
+        from .pretokenized import PreTokenizedString
+
+        pretokenized = PreTokenizedString(sequence)
+        pretokenized.split(lambda _i, ns: self._split_ns(ns, False))
+
+        def norm_and_split(_i, ns):
+            if normalizer is not None:
+                normalizer.normalize(ns)
+            return self._split_ns(ns, True)
+
+        pretokenized.split(norm_and_split)
+        return pretokenized
+
+    def _split_ns(self, ns, normalized: bool):
+        """`split` of a NormalizedString's text, as (part, tokens or None)."""
+        from .normalized import char_to_byte_offsets
+        from .pretokenized import Token
+
+        text = ns.get()
+        pieces = self.split(text, normalized)
+        cb = char_to_byte_offsets(text)
+        out = []
+        for tid, cs, ce in pieces:
+            part = ns.slice(cb[cs], cb[ce])
+            if part is None:
+                raise RuntimeError("AddedVocabulary bad split")
+            if tid is None:
+                out.append((part, None))
+            else:
+                value = part.get()
+                out.append((part, [Token(tid, value, (0, len(value.encode("utf-8"))))]))
+        return out
 
     def split(self, sentence: str, normalized: bool) -> List[Tuple[Optional[int], int, int]]:
         """(id or None, start, end) in chars of each piece of `sentence`,

@@ -1,11 +1,20 @@
 """Regenerate the committed data files of this directory.
 
-    python -m tokenizers_tpu_torch.data.regen [--retrain] [--recipes]
+    python -m tokenizers_tpu_torch.data.regen [--retrain] [--recipes] [--uprops]
+                                              [--host-pipelines]
 
-(`--recipes`: `recipes_digests.json` alone.)
+(`--recipes`, `--uprops`, `--host-pipelines`: that file alone.)
 
 * `char_class.npz`: the two-stage codepoint -> class table, derived from
   the `regex` module's \\p{L} and \\p{N} (the classes Oniguruma uses).
+* `uprops.npz`: the code-point ranges of every General_Category value
+  and group, `Alphabetic`, `White_Space` and the scripts of
+  `UnicodeScripts` (`uprops.table_names`), each found as the runs of
+  the `regex` module's class over a string of every code point.
+* `host_pipelines_digests.json` (`chip_smoke.py` phase 16): for each
+  pipeline of `smoke_data.host_pipelines()`, the wheel's ids digests of
+  `encode_batch_fast` and `smoke_data.offsets_digest` of `encode_batch`
+  on the documents that phase encodes with it.
 * `gpt2_digests.json`, `llama3_digests.json`, `bert_digests.json`:
   per-document SHA-256 of the ids that the `tokenizers` wheel gives for
   `smoke_data.build_docs()` on the gpt2, llama3_128k and bert fixtures;
@@ -137,6 +146,53 @@ def wordlevel_class_table(kind: str):
     cls[np.array(WS_CODEPOINTS, dtype=np.int64)] = WL_WS
     uniq, s1 = np.unique(cls.reshape(-1, PAGE_SIZE), axis=0, return_inverse=True)
     return s1.reshape(-1).astype(np.int32), uniq.reshape(-1).astype(np.int8)
+
+
+def uprops_tables():
+    """{name: int32 [n, 2] half-open ranges} of every `uprops.table_names`
+    entry, from the `regex` module's class over every code point."""
+    from ..uprops import MAX_CP, regex_class, table_names
+
+    re_mod = importlib.import_module("regex")
+    every = "".join(map(chr, range(MAX_CP)))
+    out = {}
+    for name in table_names():
+        runs = [m.span() for m in re_mod.finditer("(?:%s)+" % regex_class(name), every)]
+        out[name] = np.array(runs, np.int32).reshape(-1, 2)
+    return out
+
+
+def write_uprops():
+    from ..uprops import UPROPS_PATH
+
+    tables = uprops_tables()
+    np.savez_compressed(UPROPS_PATH, **{k.replace(":", "_"): v for k, v in tables.items()})
+    print("wrote", UPROPS_PATH, os.path.getsize(UPROPS_PATH), "bytes")
+
+
+def wheel_host_pipelines_digests():
+    """{pipeline: {"fast": [...], "offsets": [...]}} of the wheel on each of
+    `smoke_data.host_pipelines()`'s tokenizers and its documents."""
+    from ..smoke_data import host_pipeline_docs, host_pipelines
+
+    wheel = importlib.import_module("tokenizers")
+    out = {}
+    for name, s in host_pipelines().items():
+        tok = wheel.Tokenizer.from_str(s)
+        docs = host_pipeline_docs(name)
+        out[name] = {
+            "fast": [ids_digest(e.ids) for e in tok.encode_batch_fast(docs)],
+            "offsets": [offsets_digest(e) for e in tok.encode_batch(docs)],
+        }
+    return out
+
+
+def write_host_pipelines_digests():
+    path = os.path.join(DATA, "host_pipelines_digests.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(wheel_host_pipelines_digests(), f, indent=0)
+        f.write("\n")
+    print("wrote", path)
 
 
 def train_char_configs(retrain: bool = False):
@@ -276,9 +332,14 @@ def write_recipes_digests():
 
 
 def main():
-    if "--recipes" in sys.argv:  # recipes_digests.json alone
-        write_recipes_digests()
+    alone = {"--recipes": write_recipes_digests, "--uprops": write_uprops,
+             "--host-pipelines": write_host_pipelines_digests}
+    if any(a in alone for a in sys.argv[1:]):  # those files alone
+        for a in sys.argv[1:]:
+            if a in alone:
+                alone[a]()
         return
+    write_uprops()
     stage1, stage2 = class_tables()
     np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
     print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes")
@@ -315,6 +376,7 @@ def main():
             f.write("\n")
         print("wrote", digests_path(name))
     write_recipes_digests()
+    write_host_pipelines_digests()
 
 
 if __name__ == "__main__":

@@ -10,7 +10,6 @@ pre-tokenizers of `pre_tokenizers/` play the decoder role too (their
 
 from __future__ import annotations
 
-import re
 from typing import List, Optional
 
 from ..pre_tokenizers.byte_level import ByteLevel
@@ -216,15 +215,18 @@ class Strip(Decoder):
 class Replace(Decoder):
     """A pattern replaced by `content` in each token (reference
     `normalizers/replace.rs:82-96`, the decoder role): a literal string,
-    or a regex matched with Python's `re` (the port has no Oniguruma)."""
+    or a regex of the reference's syntax (`pattern.SysRegex`: `\\w` and
+    `\\s` are Oniguruma's classes, as in the JAX package)."""
 
     def __init__(self, pattern: str, content: str, regex: bool = False):
+        from ..pattern import SysRegex
+
         self.pattern, self.content, self.regex = pattern, content, regex
-        self._re = re.compile(pattern) if regex else None
+        self._re = SysRegex(pattern) if regex else None
 
     def decode_chain(self, tokens: List[str]) -> List[str]:
         if self._re is not None:
-            return [self._re.sub(lambda _m: self.content, t) for t in tokens]
+            return [self._re.compiled.sub(lambda _m: self.content, t) for t in tokens]
         if not self.pattern:
             return list(tokens)
         return [t.replace(self.pattern, self.content) for t in tokens]

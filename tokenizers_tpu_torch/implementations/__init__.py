@@ -1,9 +1,8 @@
 """The five recipes (reference `bindings/python/py_src/tokenizers/
 implementations/`; port of `tokenizers_tpu.implementations`): each wires a
 (normalizer, pre-tokenizer, model, post-processor, decoder) of the port
-and trains through the port's trainers on the tokenizer's device.  A
-recipe option whose pipeline the port does not run raises
-NotImplementedError."""
+and trains through the port's trainers on the tokenizer's device; every
+option of the JAX package's recipes is taken."""
 
 from .base_tokenizer import BaseTokenizer
 from .bert_wordpiece import BertWordPieceTokenizer

@@ -1,9 +1,10 @@
 """ByteLevelBPETokenizer: GPT-2's byte-level BPE; port of
 `tokenizers_tpu.implementations.byte_level_bpe` (reference
 `implementations/byte_level_bpe.py`).  With its defaults it is the
-pipeline of the port's byte-level engine (B3, B2 and B1 on the card).
-`lowercase`, `unicode_normalizer` (a normalizer in a byte-level
-pipeline) and `dropout` are not ported and raise NotImplementedError."""
+pipeline of the port's byte-level engine (B3, B2 and B1 on the card);
+with `lowercase`, `unicode_normalizer` (a normalizer before the
+byte-level model) or `dropout` it runs the general host pipeline, as in
+the JAX package."""
 
 from __future__ import annotations
 
@@ -12,12 +13,14 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 from ..added_vocabulary import AddedToken
 from ..decoders import ByteLevel as ByteLevelDecoder
 from ..models.bpe import BPE
+from ..normalizers import Lowercase
+from ..normalizers import Sequence as NormSequence
 from ..pre_tokenizers.byte_level import ByteLevel
 from ..processors import ByteLevel as ByteLevelProcessor
 from ..tokenizer import Tokenizer
 from ..trainers.bpe_trainer import BpeTrainer
 from .base_tokenizer import BaseTokenizer
-from .util import refuse_dropout
+from .util import unicode_normalizer_from_str
 
 
 class ByteLevelBPETokenizer(BaseTokenizer):
@@ -28,11 +31,6 @@ class ByteLevelBPETokenizer(BaseTokenizer):
                  continuing_subword_prefix: Optional[str] = None,
                  end_of_word_suffix: Optional[str] = None, trim_offsets: bool = False,
                  device=None):
-        if lowercase or unicode_normalizer:
-            raise NotImplementedError("a normalizer in a byte-level pipeline (lowercase, "
-                                      "unicode_normalizer) is not ported yet: it waits for a "
-                                      "later slice")
-        refuse_dropout(dropout)
         if isinstance(vocab, str) and isinstance(merges, str):
             vocab, merges = BPE.read_file(vocab, merges)
         if vocab is not None and merges is not None:
@@ -42,6 +40,10 @@ class ByteLevelBPETokenizer(BaseTokenizer):
         else:
             model = BPE()
         tokenizer = Tokenizer(model, device=device)
+        norms = [unicode_normalizer_from_str(unicode_normalizer)] if unicode_normalizer else []
+        norms += [Lowercase()] if lowercase else []
+        if norms:
+            tokenizer.normalizer = norms[0] if len(norms) == 1 else NormSequence(norms)
         tokenizer.pre_tokenizer = ByteLevel(add_prefix_space=add_prefix_space)
         tokenizer.decoder = ByteLevelDecoder()
         tokenizer.post_processor = ByteLevelProcessor(trim_offsets=trim_offsets)

@@ -1,7 +1,6 @@
 """CharBPETokenizer: Sennrich-style char BPE with a `</w>` suffix; port of
 `tokenizers_tpu.implementations.char_level_bpe` (reference
-`implementations/char_level_bpe.py`).  `dropout` is not ported and
-raises NotImplementedError."""
+`implementations/char_level_bpe.py`)."""
 
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ from ..pre_tokenizers.whitespace import WhitespaceSplit
 from ..tokenizer import Tokenizer
 from ..trainers.bpe_trainer import BpeTrainer
 from .base_tokenizer import BaseTokenizer
-from .util import refuse_dropout, unicode_normalizer_from_str
+from .util import unicode_normalizer_from_str
 
 
 class CharBPETokenizer(BaseTokenizer):
@@ -28,7 +27,6 @@ class CharBPETokenizer(BaseTokenizer):
                  dropout: Optional[float] = None, lowercase: bool = False,
                  unicode_normalizer: Optional[str] = None, bert_normalizer: bool = True,
                  split_on_whitespace_only: bool = False, device=None):
-        refuse_dropout(dropout)
         if isinstance(vocab, str) and isinstance(merges, str):
             vocab, merges = BPE.read_file(vocab, merges)
         if vocab is not None and merges is not None:

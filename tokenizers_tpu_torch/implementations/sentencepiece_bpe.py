@@ -1,7 +1,6 @@
 """SentencePieceBPETokenizer: BPE over Metaspace pieces, NFKC; port of
 `tokenizers_tpu.implementations.sentencepiece_bpe` (reference
-`implementations/sentencepiece_bpe.py`).  `dropout` is not ported and
-raises NotImplementedError."""
+`implementations/sentencepiece_bpe.py`)."""
 
 from __future__ import annotations
 
@@ -14,7 +13,6 @@ from ..pre_tokenizers.metaspace import Metaspace
 from ..tokenizer import Tokenizer
 from ..trainers.bpe_trainer import BpeTrainer
 from .base_tokenizer import BaseTokenizer
-from .util import refuse_dropout
 
 
 class SentencePieceBPETokenizer(BaseTokenizer):
@@ -23,7 +21,6 @@ class SentencePieceBPETokenizer(BaseTokenizer):
                  unk_token: Union[str, AddedToken] = "<unk>", replacement: str = "▁",
                  add_prefix_space: bool = True, dropout: Optional[float] = None,
                  fuse_unk: Optional[bool] = False, device=None):
-        refuse_dropout(dropout)
         if isinstance(vocab, str) and isinstance(merges, str):
             vocab, merges = BPE.read_file(vocab, merges)
         if vocab is not None and merges is not None:

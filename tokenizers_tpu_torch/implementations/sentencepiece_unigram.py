@@ -1,9 +1,10 @@
 """SentencePieceUnigramTokenizer: Unigram over Metaspace pieces, with Nmt,
 NFKC and the `" {2,}"` space collapse; port of
 `tokenizers_tpu.implementations.sentencepiece_unigram` (reference
-`implementations/sentencepiece_unigram.py`).  The port's Unigram
-pipeline needs an unk id: train with `unk_token` (without one the first
-encode raises NotImplementedError)."""
+`implementations/sentencepiece_unigram.py`).  Trained without
+`unk_token`, it has no unk id: it runs the general host pipeline, and
+an encode meeting a char outside its pieces raises, as in the JAX
+package."""
 
 from __future__ import annotations
 

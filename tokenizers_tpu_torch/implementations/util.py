@@ -10,9 +10,3 @@ def unicode_normalizer_from_str(normalizer: str):
         raise ValueError(f"{normalizer} is not a known unicode normalizer. "
                          f"Available are {list(mapping)}")
     return mapping[normalizer]()
-
-
-def refuse_dropout(dropout) -> None:
-    """BPE dropout is not ported: the loader and every recipe refuse it."""
-    if dropout not in (None, 0.0):
-        raise NotImplementedError("BPE dropout is not ported yet: it waits for a later slice")

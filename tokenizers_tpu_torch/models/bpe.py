@@ -8,7 +8,12 @@ fuse_unk; without one an unknown char is dropped), `ignore_merges`, which
 looks a whole word up in the vocab before merging it, and for the
 char-level pipelines `continuing_subword_prefix` (on every char but a
 word's first), `end_of_word_suffix` (on its last) and `byte_fallback`
-(an unknown char as its bytes' `<0xXX>` tokens when all exist).
+(an unknown char as its bytes' `<0xXX>` tokens when all exist), and BPE
+dropout: each merge popped from the heap is skipped with probability
+`dropout`, drawn from the model's `random.Random` (`rng`, a fresh one by
+default) in the JAX package's order (`tokenizers_tpu/models/bpe.py:83`);
+under dropout a word is merged anew each time (no word cache, no
+`ignore_merges` lookup), as there.
 `tokenize_spans` gives each token's span in the word: in chars when
 `byte_spans` is False (a word of the byte-level pipelines has one char
 for each byte of the text), else in UTF-8 bytes of the word (the
@@ -23,6 +28,7 @@ from __future__ import annotations
 import heapq
 import json
 import os
+import random
 from typing import Dict, List, Optional, Tuple
 
 from ..errors import ModelError
@@ -69,7 +75,8 @@ class _Word:
         self.prev.append(n - 1)
         self.next.append(-1)
 
-    def merge_all(self, merges: Dict[Tuple[int, int], Tuple[int, int]]) -> None:
+    def merge_all(self, merges: Dict[Tuple[int, int], Tuple[int, int]],
+                  dropout: Optional[float] = None, rng: Optional[random.Random] = None) -> None:
         ids, lens, prev, nxt = self.ids, self.lens, self.prev, self.next
         heap: List[Tuple[int, int, int]] = []  # (rank, pos, new_id)
         for i in range(len(ids) - 1):
@@ -77,8 +84,17 @@ class _Word:
             if m is not None:
                 heap.append((m[0], i, m[1]))
         heapq.heapify(heap)
+        drop = dropout is not None and dropout > 0.0
+        skip: List[Tuple[int, int, int]] = []
         while heap:
-            rank, pos, new_id = heapq.heappop(heap)
+            top = heapq.heappop(heap)
+            if drop and rng.random() < dropout:
+                skip.append(top)
+                continue
+            for item in skip:
+                heapq.heappush(heap, item)
+            skip.clear()
+            rank, pos, new_id = top
             if lens[pos] == 0 or nxt[pos] == -1:
                 continue
             next_pos = nxt[pos]
@@ -114,11 +130,13 @@ class BPE:
                  unk_token: Optional[str] = None, fuse_unk: bool = False,
                  ignore_merges: bool = False, continuing_subword_prefix: Optional[str] = None,
                  end_of_word_suffix: Optional[str] = None, byte_fallback: bool = False,
-                 byte_spans: bool = False, dropout: Optional[float] = None):
-        """`dropout` is kept for `tokenizer.json`; the loader and the recipes
-        refuse any other value than None or 0.0 (not ported)."""
+                 byte_spans: bool = False, dropout: Optional[float] = None,
+                 rng: Optional[random.Random] = None):
         merges = merges or []
+        if dropout is not None and not 0.0 <= dropout <= 1.0:
+            raise ValueError("dropout must be between 0 and 1")
         self.dropout = dropout
+        self.rng = rng if rng is not None else random.Random()
         self.vocab: Dict[str, int] = dict(vocab or {})
         self.vocab_r: Dict[int, str] = {v: k for k, v in self.vocab.items()}
         self.unk_token = unk_token
@@ -177,11 +195,13 @@ class BPE:
                 unk = (unk_id, n)
         if unk is not None:
             word.add(*unk)
-        word.merge_all(self.merges)
+        word.merge_all(self.merges, self.dropout, self.rng)
         return word.tokens()
 
     def _tokens(self, word: str) -> Tuple[List[int], List[int]]:
         """(ids, lengths in chars) of one pre-tokenized word."""
+        if self.dropout:
+            return self._merge_word(word)
         if self.ignore_merges:
             tid = self.vocab.get(word)
             if tid is not None:

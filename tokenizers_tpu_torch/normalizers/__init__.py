@@ -1,12 +1,15 @@
-"""Normalizers of the host path; copies of those of
-`tokenizers_tpu.normalizers` that the WordLevel, char-level BPE and
-Unigram pipelines use.  Each normalizes a `NormalizedString` in place
-(`normalize`), so offsets map back through its alignments.
-`normalize_str` gives the same text without the alignments, by string
-operations (the ids path prepares every input with it; the tests hold
-the two equal).  `BertNormalizer` (`bert.py`) has the same two methods.
-`from_json` reads a tokenizer.json normalizer node of these types and
-raises `NotImplementedError` on any other.
+"""Normalizers of the host path; copies of `tokenizers_tpu.normalizers`.
+Each normalizes a `NormalizedString` in place (`normalize`), so offsets
+map back through its alignments.  `normalize_str` gives the same text
+without the alignments, by string operations where the normalizer has a
+faster form (the ids paths prepare every input with it; the tests hold
+the two equal), else through a NormalizedString.  `BertNormalizer`
+(`bert.py`) has the same two methods.  `Replace` matches a literal or a
+regex of the reference's syntax (`pattern.py`); `CustomNormalizer` wraps
+a user object (host only; `to_str` refuses it); `ByteLevel` maps every
+byte to its byte-level char.  `from_json` reads every normalizer node
+the JAX package reads (`tokenizers_tpu/serialization.py:109-150`) but
+`Precompiled`, which raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -21,7 +24,27 @@ class Normalizer:
         raise NotImplementedError
 
     def normalize_str(self, s: str) -> str:
-        raise NotImplementedError
+        from ..normalized import NormalizedString
+
+        ns = NormalizedString(s)
+        self.normalize(ns)
+        return ns.get()
+
+    @staticmethod
+    def custom(obj) -> "CustomNormalizer":
+        """Wrap a user object with a `normalize(NormalizedString)` method
+        (reference `bindings/python/src/normalizers.rs:146`)."""
+        return CustomNormalizer(obj)
+
+
+class CustomNormalizer(Normalizer):
+    def __init__(self, obj):
+        if not callable(getattr(obj, "normalize", None)):
+            raise TypeError("custom normalizer must have a normalize(NormalizedString) method")
+        self.obj = obj
+
+    def normalize(self, ns) -> None:
+        self.obj.normalize(ns)
 
 
 class Sequence(Normalizer):
@@ -126,26 +149,28 @@ class Prepend(Normalizer):
 
 
 class Replace(Normalizer):
-    """A literal pattern replaced by `content`; with `regex`, the one regex
-    pattern the port admits, `" {2,}"` (a run of two or more spaces),
-    matched with `re` on the UTF-8 bytes (a space byte never lies inside a
-    multi-byte char).  As for a literal, the content takes the alignment
-    of the match's last byte (reference `normalizer.rs:571`)."""
+    """Every match of `pattern` replaced by `content` (reference
+    `normalizers/replace.rs`); as for any replace, the content takes the
+    alignment of the match's last byte.  `pattern`: a literal string (a
+    regex of the reference's syntax with `regex=True`), a
+    `pattern.Regex`, or ("Regex", text) as the JAX package takes it."""
 
-    REGEX_PATTERNS = (" {2,}",)  # the only ones `from_json` admits
+    def __init__(self, pattern, content: str, regex: bool = False):
+        from ..pattern import SysRegex
 
-    def __init__(self, pattern: str, content: str, regex: bool = False):
+        if isinstance(pattern, tuple) and len(pattern) == 2 and pattern[0] == "Regex":
+            pattern, regex = pattern[1], True
+        elif isinstance(pattern, SysRegex):
+            pattern, regex = pattern.pattern, True
         self.pattern, self.content, self.regex = pattern, content, regex
-        if regex:
-            self._re = re.compile(pattern)
-            self._re_bytes = re.compile(pattern.encode("utf-8"))
+        self._re = SysRegex(pattern) if regex else None
 
     def normalize(self, ns) -> None:
-        ns.replace(self._re_bytes if self.regex else self.pattern, self.content)
+        ns.replace(self._re if self.regex else self.pattern, self.content)
 
     def normalize_str(self, s: str) -> str:
         if self.regex:
-            return self._re.sub(self.content, s)
+            return self._re.compiled.sub(lambda _m: self.content, s)
         return s.replace(self.pattern, self.content) if self.pattern else s
 
 
@@ -179,40 +204,64 @@ class Nmt(Normalizer):
         return s.translate(self._TABLE) if self._ANY.search(s) else s
 
 
+class ByteLevel(Normalizer):
+    """Every byte as its byte-level char (reference
+    `normalizers/byte_level.rs:9`): a char's first byte takes its place,
+    the others are insertions."""
+
+    def normalize(self, ns) -> None:
+        from ..pre_tokenizers.byte_level import to_byte_chars
+
+        if not ns.is_empty():
+            to_byte_chars(ns)
+
+    def normalize_str(self, s: str) -> str:
+        from ..pre_tokenizers.byte_level import BYTES_CHAR
+
+        return "".join(BYTES_CHAR[b] for b in s.encode("utf-8"))
+
+    @staticmethod
+    def alphabet():
+        from ..pre_tokenizers.byte_level import BYTES_CHAR
+
+        return set(BYTES_CHAR.values())
+
+
 _SIMPLE = {"Lowercase": Lowercase, "NFD": NFD, "NFKD": NFKD, "NFC": NFC, "NFKC": NFKC,
            "StripAccents": StripAccents, "Nmt": Nmt}
-_BERT_KEYS = {"type", "clean_text", "handle_chinese_chars", "strip_accents", "lowercase"}
 
 
 def from_json(d: dict):
-    """The normalizer of a tokenizer.json node: Lowercase, NFD, NFKD, NFC,
-    NFKC, StripAccents, Nmt, Strip, Replace (a String pattern, or the
-    Regex `" {2,}"`), Prepend, BertNormalizer or a Sequence of them."""
+    """The normalizer of a tokenizer.json node, as the JAX package's
+    `normalizer_from_dict` reads it (keys it does not read are ignored);
+    `Precompiled` raises NotImplementedError, an unknown type SerdeError."""
+    from ..errors import SerdeError
     from .bert import BertNormalizer
 
+    if d is None:
+        return None
     t = d.get("type")
-
-    def refuse(what):
-        raise NotImplementedError(f"{what} is not ported yet: it waits for a later slice")
-
     if t in _SIMPLE:
-        if set(d) != {"type"}:
-            refuse(f"normalizer {t} with options {sorted(set(d) - {'type'})}")
         return _SIMPLE[t]()
-    if t == "Sequence" and set(d) == {"type", "normalizers"}:
+    if t == "Sequence":
         return Sequence([from_json(n) for n in d["normalizers"]])
-    if t == "Strip" and set(d) <= {"type", "strip_left", "strip_right"}:
+    if t == "Strip":
         return Strip(d.get("strip_left", True), d.get("strip_right", True))
-    if t == "Prepend" and set(d) == {"type", "prepend"}:
+    if t == "Prepend":
         return Prepend(d["prepend"])
-    if t == "Replace" and set(d) == {"type", "pattern", "content"}:
+    if t == "Replace":
         pat = d["pattern"]
-        if set(pat) == {"Regex"} and pat["Regex"] in Replace.REGEX_PATTERNS:
+        if "String" in pat:
+            return Replace(pat["String"], d["content"])
+        if "Regex" in pat:
             return Replace(pat["Regex"], d["content"], regex=True)
-        if set(pat) != {"String"}:
-            refuse(f"a Replace normalizer with the pattern {pat}")
-        return Replace(pat["String"], d["content"])
-    if t == "BertNormalizer" and set(d) <= _BERT_KEYS:
+        raise SerdeError(f"Unknown pattern: {pat}")
+    if t == "BertNormalizer":
         return BertNormalizer(d.get("clean_text", True), d.get("handle_chinese_chars", True),
                               d.get("strip_accents"), d.get("lowercase", True))
-    refuse(f"normalizer {t!r}")
+    if t == "ByteLevel":
+        return ByteLevel()
+    if t == "Precompiled":
+        raise NotImplementedError("the Precompiled normalizer (a SentencePiece charsmap) is "
+                                  "not ported yet: it waits for a later slice")
+    raise SerdeError(f"Unknown normalizer type: {t}")

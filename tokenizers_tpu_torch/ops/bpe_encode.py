@@ -168,7 +168,9 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False,
     `cache`: the persistent `WordCache`, updated in place; when this chunk
     could overflow its token buffer the epoch is reset first (rows zeroed,
     p = 0, no hits).  `ascii_only`: every byte < 128 (the layout kernel's
-    chunks).  `boundary`: the pre-split rule set, "gpt2" or "llama3".
+    chunks).  `boundary`: the pre-split rule set, "gpt2", "llama3", or
+    "llama3_prefix" (the llama-3 pieces, a space put before each that
+    lacks one: `prefix_pieces`, which widens the rows).
     `whole_word`: the BPE `ignore_merges` bypass through the whole-word
     table (`tables["ww_rows0"]`, `["ww_rows1"]`, `["ww_seed"]`).
     `geom_rows`: the rows the buffers are sized for (default B; a rank's
@@ -183,8 +185,13 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False,
     b = torch.where(inb, b, 0)
     seed = tables["seed"]
 
-    bnd, nxt_bnd, hashes = _boundaries(b, inb, lengths, tables, ascii_only, boundary,
-                                       whole_word)
+    if boundary == "llama3_prefix":
+        b, inb, lengths, bnd = prefix_pieces(b, inb, lengths, tables["cls_table"], ascii_only)
+        B, L = b.shape
+        pos = torch.arange(L, device=dev).expand(B, L)
+        nxt_bnd, hashes = next_boundary(bnd), None
+    else:
+        bnd, nxt_bnd, hashes = _boundaries(b, inb, lengths, tables, ascii_only, boundary)
 
     word_id = torch.where(inb, torch.cumsum(bnd.int(), 1, dtype=torch.int32) - 1, -1)
     # word-length guard (fill depth in the merge loop is bounded by WORD_CAP)
@@ -230,6 +237,36 @@ def encode_core(bytes_u8, lengths, tables, cache=None, ascii_only=False,
     return ids_pk, ntok, row_bad | badm
 
 
+def prefix_pieces(b, inb, lengths, cls_table, ascii_only):
+    """The llama-3 pieces of int32 bytes [B, L] with a space put before
+    each piece that does not start with one (the reference's ByteLevel
+    with `add_prefix_space` after the llama-3 Split prepends to every
+    split, `pre_tokenizers/byte_level.rs:126-135`): (bytes [B, L2], inb,
+    lengths, piece starts), L2 = L plus the most spaces a row gains,
+    rounded up to a multiple of 64.  The pieces are the llama-3 rule's on
+    the original bytes; every original byte moves right by the spaces put
+    at or before it."""
+    bnd, _ = llama3_boundaries(b, inb, cls_table, ascii_only=ascii_only)
+    bnd = bnd & inb
+    ins = bnd & (b != 0x20)
+    shift = torch.cumsum(ins.int(), 1)
+    grown = shift[:, -1]
+    B, L = b.shape
+    L2 = -(-(L + int(grown.max())) // 64) * 64
+    rows = torch.arange(B, device=b.device)[:, None].expand(B, L)
+    dest = (torch.arange(L, device=b.device)[None, :] + shift).to(torch.int64)
+    b2 = torch.zeros((B, L2), dtype=b.dtype, device=b.device)
+    bnd2 = torch.zeros((B, L2), dtype=torch.bool, device=b.device)
+    b2[rows[inb], dest[inb]] = b[inb]
+    b2[rows[ins], dest[ins] - 1] = 0x20
+    bnd2[rows[ins], dest[ins] - 1] = True
+    keep = bnd & ~ins
+    bnd2[rows[keep], dest[keep]] = True
+    lengths2 = (lengths + grown).to(lengths.dtype)
+    inb2 = torch.arange(L2, device=b.device)[None, :] < lengths2[:, None]
+    return b2, inb2, lengths2, bnd2
+
+
 def _whole_word_full(ids0, b, bnd, inb, nxt_bnd, lengths, tables):
     """The whole-word bypass over a [B, L] chunk: each word's two rolling
     hashes, read at its last byte (unbounded, as the JAX program's scan)."""
@@ -260,11 +297,13 @@ def _branch_full(ids0, word_id, tables, out_w):
     return packed, torch.where(over, 0, ntok), bad2 | over
 
 
-def _boundaries(b, inb, lengths, tables, ascii_only, boundary, whole_word):
+def _boundaries(b, inb, lengths, tables, ascii_only, boundary):
     """(bnd, nxt_bnd, hashes): the pre-split boundaries, the next boundary
-    of every position and, from the layout kernel (B3, gpt2 ASCII chunks
-    without the whole-word bypass), the two word hashes (else None)."""
-    if boundary == "gpt2" and ascii_only and not whole_word and supported(b.shape):
+    of every position and, from the layout kernel (B3, gpt2 ASCII chunks),
+    the two word hashes (else None).  The JAX program leaves B3 out under
+    the whole-word bypass; its outputs are those of the plain rule and the
+    same hashes, so the port runs it there too."""
+    if boundary == "gpt2" and ascii_only and supported(b.shape):
         bnd, nxt_bnd, h1k, h2k = layout_fused(b, lengths)
         return bnd, nxt_bnd, (h1k, h2k)
     if boundary == "gpt2":
@@ -311,8 +350,7 @@ def encode_core_offsets(bytes_u8, lengths, tables, ascii_only=False,
     pos = torch.arange(L, device=dev, dtype=torch.int32).expand(B, L)
     inb = pos < lengths[:, None]
     b = torch.where(inb, b, 0)
-    bnd, nxt_bnd, _h = _boundaries(b, inb, lengths, tables, ascii_only, boundary,
-                                   whole_word)
+    bnd, nxt_bnd, _h = _boundaries(b, inb, lengths, tables, ascii_only, boundary)
     word_id = torch.where(inb, torch.cumsum(bnd.int(), 1, dtype=torch.int32) - 1, -1)
     wend = torch.minimum(nxt_bnd, lengths[:, None])  # each position's word end
     row_bad = (bnd & (wend - pos > WORD_CAP)).any(1)
@@ -341,11 +379,16 @@ def encode_program_scan(bytes_u8, lengths, tables, cache=None, ascii_only=False,
     """N same-shape chunks (uint8[N, B, L], int32[N, B]) in order, carrying
     the word cache from chunk to chunk, so each distinct word of the whole
     batch is merged once.  Returns (ids int32[N, B, out_w], ntok int32[N, B],
-    row_bad bool[N, B]); the cache is updated in place."""
+    row_bad bool[N, B]); the cache is updated in place.  Under "llama3_prefix"
+    each chunk's rows widen by its own spaces: the ids are padded with -1
+    to the widest."""
     outs = [
         encode_core(bytes_u8[k], lengths[k], tables, cache=cache,
                     ascii_only=ascii_only, boundary=boundary,
                     whole_word=whole_word)
         for k in range(bytes_u8.shape[0])
     ]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    w = max(o[0].shape[1] for o in outs)
+    ids = torch.stack([torch.nn.functional.pad(o[0], (0, w - o[0].shape[1]), value=-1)
+                       for o in outs])
+    return (ids,) + tuple(torch.stack(x) for x in list(zip(*outs))[1:])

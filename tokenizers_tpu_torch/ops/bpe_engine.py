@@ -4,9 +4,18 @@
 * **gpt2**: the ByteLevel pre-tokenizer with its GPT-2 regex split and a
   plain BPE model;
 * **llama3**: Split(the llama-3 pattern, Isolated) then ByteLevel without
-  its regex, and BPE with `ignore_merges`: a word that is itself a vocab
-  entry takes that id without merging, through a second cuckoo table of
-  the vocab's words keyed by their two rolling hashes.
+  its regex.
+
+Either with BPE `ignore_merges`: a word that is itself a vocab entry
+takes that id without merging, through a second cuckoo table of the
+vocab's words keyed by their two rolling hashes.  `try_build` takes the
+pipelines the JAX engine's takes (`tokenizers_tpu/ops/bpe_engine.py:96-141`).
+Where the llama-3 Sequence's ByteLevel adds a prefix space, the reference
+adds it to every llama-3 piece that lacks one, where the JAX engine adds
+one to the whole text (its ids then differ from the reference's): the
+port's program splits the text first and inserts those spaces on the
+device (`bpe_encode.prefix_pieces`, boundary "llama3_prefix"), and the
+offsets of such a pipeline are the host's (`supports_offsets` False).
 
 The engine holds its tables as tensors on its device, and the persistent
 cross-batch word cache (`bpe_dedup.WordCache`: 1M direct-mapped rows and a
@@ -94,6 +103,8 @@ class ByteLevelBpeEngine(DeviceEngineBase):
     def __init__(self, tokenizer, tables: dict, add_prefix_space: bool, device):
         self.tokenizer = tokenizer
         self.add_prefix_space = add_prefix_space
+        if tables["boundary"] == "llama3_prefix":  # each piece's space comes on the device
+            self.add_prefix_space, self.supports_offsets = False, False
         self.device = torch.device(device)
         self.tables = tables
         self._wc: Optional[WordCache] = None
@@ -133,24 +144,38 @@ class ByteLevelBpeEngine(DeviceEngineBase):
         return tables_from_numpy(d, device)
 
     @staticmethod
-    def try_build(tokenizer, device) -> Optional["ByteLevelBpeEngine"]:
-        """The engine for the tokenizer's pipeline: gpt2 for the ByteLevel
-        pre-tokenizer, llama3 for the Sequence of the llama-3 Split and
-        ByteLevel (the loader admits no other, and its Split no other
-        pattern).  None for another model or pre-tokenizer, or when
-        `build_tables` gives none.  On a card it
-        builds every kernel first, all at once."""
+    def pipeline(tokenizer):
+        """(boundary, add_prefix_space) of the pipelines the JAX engine
+        takes: no normalizer, BPE without dropout, affixes or byte
+        fallback, and the ByteLevel pre-tokenizer with its regex ("gpt2")
+        or the Sequence of the llama-3 Split (a regex, Isolated, not
+        inverted) and ByteLevel without its regex ("llama3", or
+        "llama3_prefix" with a prefix space); else None."""
         from ..models.bpe import BPE
+        from ..pre_tokenizers import Sequence, Split
         from ..pre_tokenizers.byte_level import ByteLevel
-        from ..pre_tokenizers.split import Sequence
 
-        pt = tokenizer.pre_tokenizer
-        if not (isinstance(tokenizer.model, BPE) and isinstance(pt, (ByteLevel, Sequence))):
+        m, pt = tokenizer.model, tokenizer.pre_tokenizer
+        if tokenizer.normalizer is not None or not isinstance(m, BPE) or m.dropout or (
+                m.continuing_subword_prefix or m.end_of_word_suffix or m.byte_fallback):
             return None
-        if isinstance(pt, Sequence):
-            boundary, add_prefix_space = "llama3", pt.byte_level.add_prefix_space
-        else:
-            boundary, add_prefix_space = "gpt2", pt.add_prefix_space
+        if isinstance(pt, ByteLevel) and pt.use_regex:
+            return "gpt2", pt.add_prefix_space
+        if isinstance(pt, Sequence) and len(pt) == 2 and isinstance(pt[0], Split) \
+                and isinstance(pt[1], ByteLevel) and pt[0].is_llama3() and not pt[1].use_regex:
+            return ("llama3_prefix" if pt[1].add_prefix_space else "llama3"), \
+                pt[1].add_prefix_space
+        return None
+
+    @staticmethod
+    def try_build(tokenizer, device) -> Optional["ByteLevelBpeEngine"]:
+        """The engine for the tokenizer's pipeline (`pipeline`), or None:
+        another pipeline, or no tables (`build_tables`).  On a card it
+        builds every kernel first, all at once."""
+        shape = ByteLevelBpeEngine.pipeline(tokenizer)
+        if shape is None:
+            return None
+        boundary, add_prefix_space = shape
         tables = ByteLevelBpeEngine.build_tables(tokenizer.model, device, boundary)
         if tables is None:
             return None

@@ -88,6 +88,8 @@ class CharBpeEngine(NormalizingEngine):
         if pt is None:
             return "none", True
         if isinstance(pt, Metaspace):
+            if pt.replacement != "▁" or not pt.split:
+                return None
             # an input of the engine holds no added token, so it is its
             # text's first piece: "first" prepends as "always" does
             return "metaspace", pt.prepend_scheme in ("always", "first")
@@ -136,7 +138,7 @@ class CharBpeEngine(NormalizingEngine):
         from ..models.bpe import BPE
 
         m = tokenizer.model
-        if not isinstance(m, BPE) or m.ignore_merges or getattr(m, "dropout", None):
+        if not isinstance(m, BPE) or m.ignore_merges or m.dropout:
             return None
         kp = CharBpeEngine.kind_of(tokenizer)
         if kp is None:

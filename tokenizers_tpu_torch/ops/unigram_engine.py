@@ -138,7 +138,8 @@ class UnigramEngine(DeviceEngineBase):
                 and isinstance(nz.normalizers[1], Replace) and nz.normalizers[1].regex
                 and nz.normalizers[1].pattern == " {2,}" and nz.normalizers[1].content == " "):
             return None
-        if not (isinstance(pt, Metaspace) and pt.prepend_scheme == "always"):
+        if not (isinstance(pt, Metaspace) and pt.replacement == "▁" and pt.split
+                and pt.prepend_scheme == "always"):
             return None
         tables = unigram_tables(m.pieces, m.unk_id, m.min_score, bf_ids, device)
         return None if tables is None else UnigramEngine(tokenizer, tables, device)

@@ -8,6 +8,7 @@ import unicodedata
 from typing import List, Tuple
 
 from ..normalizers.bert import is_whitespace
+from .base import PreTokenizer, slices
 
 _ASCII_PUNCT = frozenset("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
 
@@ -17,7 +18,7 @@ def is_punc(c: str) -> bool:
     return c in _ASCII_PUNCT or unicodedata.category(c).startswith("P")
 
 
-class BertPreTokenizer:
+class BertPreTokenizer(PreTokenizer):
     def pre_tokenize_spans(self, text: str) -> List[Tuple[str, int, int]]:
         """(word, start, end) of each word, spans in chars of `text`."""
         out = []
@@ -35,5 +36,9 @@ class BertPreTokenizer:
             out.append((text[start:], start, len(text)))
         return out
 
-    def pre_tokenize(self, text: str) -> List[str]:
+    def words(self, text: str) -> List[str]:
         return [w for w, _s, _e in self.pre_tokenize_spans(text)]
+
+    def _split(self, pretokenized) -> None:
+        pretokenized.split(lambda _i, ns: slices(
+            ns, [(s, e) for _w, s, e in self.pre_tokenize_spans(ns.get())]))

@@ -5,10 +5,13 @@ post-processor, the trimming of whitespace from token offsets
 (`process_offsets`, copied from the same module); as a decoder
 (`decode_chain`), the byte-level chars back to bytes and UTF-8 text.
 
-The split does not run the GPT-2 regex.  It takes the match starts of
-`'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|
-\\s+(?!\\S)|\\s+` from `ops.bpe_encode.gpt2_boundaries`, the rule the
-device program uses, run on the CPU over one row as long as the text.
+The fast host path's split does not run the GPT-2 regex.  It takes the
+match starts of `GPT2_PATTERN` from `ops.bpe_encode.gpt2_boundaries`, the
+rule the device program uses, run on the CPU over one row as long as the
+text.  The general pipeline's `pre_tokenize` of a PreTokenizedString
+(reference `pre_tokenizers/byte_level.rs:126-150`) prepends the space to
+each split that lacks one, splits it by the pattern (`pattern.SysRegex`),
+and maps every byte of each part to its char.
 """
 
 from __future__ import annotations
@@ -17,6 +20,10 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from .base import PreTokenizer
+
+GPT2_PATTERN = r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
 
 
 def bytes_char() -> Dict[int, str]:
@@ -51,17 +58,47 @@ def _cpu_cls_table() -> torch.Tensor:
     return _cls_table
 
 
-class ByteLevel:
+_GPT2_RE = None
+
+
+def _gpt2_re():
+    global _GPT2_RE
+    if _GPT2_RE is None:
+        from ..pattern import SysRegex
+
+        _GPT2_RE = SysRegex(GPT2_PATTERN)
+    return _GPT2_RE
+
+
+def to_byte_chars(ns) -> None:
+    """Every byte of the NormalizedString `ns` as its char, in place (a
+    char's first byte takes its place, the others are insertions)."""
+    ns.transform([(BYTES_CHAR[b], 1 if k else 0) for c in ns.get()
+                  for k, b in enumerate(c.encode("utf-8"))])
+
+
+class ByteLevel(PreTokenizer):
     def __init__(self, add_prefix_space: bool = True, trim_offsets: bool = True,
                  use_regex: bool = True):
         self.add_prefix_space = add_prefix_space
         self.trim_offsets = trim_offsets
         self.use_regex = use_regex
 
-    def pre_tokenize(self, text: str) -> List[str]:
+    def words(self, text: str) -> List[str]:
         """`text` -> its words, each as byte-level chars: the GPT-2 words,
         or without the regex the whole text as one word."""
         return [w for w, _s, _e in self.pre_tokenize_spans(text)[0]]
+
+    def _split(self, pretokenized) -> None:
+        from ..normalized import ISOLATED
+
+        def split_fn(_i, ns):
+            if self.add_prefix_space and not ns.get().startswith(" "):
+                ns.prepend(" ")
+            return ns.split(_gpt2_re(), ISOLATED) if self.use_regex else [ns]
+
+        pretokenized.split(split_fn)
+        pretokenized.normalize(to_byte_chars)
 
     def pre_tokenize_spans(self, text: str) -> Tuple[List[Tuple[str, int, int]], int]:
         """(words, shift): each word as byte-level chars with its byte span

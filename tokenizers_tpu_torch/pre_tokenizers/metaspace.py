@@ -1,10 +1,13 @@
 """Metaspace pre-tokenizer of the host path; copy of
 `tokenizers_tpu.pre_tokenizers.metaspace` (reference
-`pre_tokenizers/metaspace.rs:123-147`) for the replacement `▁` with its
-split (the loader admits no other): every space becomes `▁`, which is
-prepended to the text where the prepend scheme asks ("always"; "first":
-only the text's first piece; "never") and it does not already start
-with one; each `▁` starts a word (MergedWithNext).  As a decoder
+`pre_tokenizers/metaspace.rs:123-147`): every space becomes the
+replacement char, which is prepended to the text where the prepend
+scheme asks ("always"; "first": only the text's first piece; "never")
+and it does not already start with one; with `split` each replacement
+char starts a word (MergedWithNext).  `pre_tokenize` of a
+PreTokenizedString (the general pipeline) takes any replacement and
+`split`; the fast host path's `apply`, `words` and `word_spans` serve
+the replacement `▁` with its split.  As a decoder
 (`decode_chain`, `metaspace.rs:150-170`) every replacement char becomes a
 space, and the first token's are dropped unless the scheme is "never";
 the decoder may name another replacement char."""
@@ -13,22 +16,21 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+from .base import PreTokenizer
 
 REPLACEMENT = "▁"
 
 
-class Metaspace:
+class Metaspace(PreTokenizer):
     def __init__(self, prepend_scheme: str = "always", replacement: str = REPLACEMENT,
                  split: bool = True):
-        """`split` is kept for `tokenizer.json`: the pre-tokenizer always
-        splits (the loader refuses `split: false` there), the decoder
-        does not use it."""
+        """The decoder does not use `split`."""
         if prepend_scheme not in ("always", "first", "never"):
             raise ValueError(f"Invalid prepend_scheme: {prepend_scheme}")
         if len(replacement) != 1:
             raise ValueError("replacement must be a single char")
         self.prepend_scheme = prepend_scheme
-        self.replacement = replacement  # the decoder's; the split is `▁`'s
+        self.replacement = replacement
         self.split = split
 
     def apply(self, ns, first: bool) -> None:
@@ -43,7 +45,21 @@ class Metaspace:
         return (self.prepend_scheme == "always" or (self.prepend_scheme == "first" and first)) \
             and not text.startswith(REPLACEMENT)
 
-    def pre_tokenize(self, text: str, first: bool = True) -> List[str]:
+    def _split(self, pretokenized) -> None:
+        from ..normalized import MERGED_WITH_NEXT
+
+        rep = self.replacement
+
+        def split_fn(_i, ns):
+            ns.replace(" ", rep)
+            if not ns.get().startswith(rep) and (self.prepend_scheme == "always" or (
+                    self.prepend_scheme == "first" and ns.original_shift == 0)):
+                ns.prepend(rep)
+            return ns.split(rep, MERGED_WITH_NEXT) if self.split else [ns]
+
+        pretokenized.split(split_fn)
+
+    def words(self, text: str, first: bool = True) -> List[str]:
         """The words of `text` (replaced and prepended as `apply` does)."""
         text = text.replace(" ", REPLACEMENT)
         if self._prepends(text, first):

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 from ..ops.wordlevel_encode import WL_END, WL_PUNCT, WL_WS, char_classes
+from .base import PreTokenizer, slices
 
 
 def class_spans(classes) -> List[Tuple[int, int]]:
@@ -28,15 +29,19 @@ def class_spans(classes) -> List[Tuple[int, int]]:
     return out
 
 
-class _ClassSplit:
+class _ClassSplit(PreTokenizer):
     kind = ""
 
     def pre_tokenize_spans(self, text: str) -> List[Tuple[str, int, int]]:
         """(word, start, end) of each word, spans in chars of `text`."""
         return [(text[s:e], s, e) for s, e in class_spans(char_classes(self.kind, text))]
 
-    def pre_tokenize(self, text: str) -> List[str]:
+    def words(self, text: str) -> List[str]:
         return [w for w, _s, _e in self.pre_tokenize_spans(text)]
+
+    def _split(self, pretokenized) -> None:
+        pretokenized.split(lambda _i, ns: slices(
+            ns, class_spans(char_classes(self.kind, ns.get()))))
 
 
 class Whitespace(_ClassSplit):

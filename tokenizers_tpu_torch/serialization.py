@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 
 from . import decoders as D
 from . import normalizers as N
+from . import pre_tokenizers as P
 from . import processors as PP
 from .errors import SerdeError
 from .models.bpe import BPE
@@ -27,7 +28,6 @@ from .normalizers.bert import BertNormalizer
 from .pre_tokenizers.bert import BertPreTokenizer
 from .pre_tokenizers.byte_level import ByteLevel
 from .pre_tokenizers.metaspace import Metaspace
-from .pre_tokenizers.split import LLAMA3_PATTERN, Sequence as PreSequence, Split
 from .pre_tokenizers.whitespace import Whitespace, WhitespaceSplit
 from .utils.padding import BATCH_LONGEST, PaddingParams
 from .utils.truncation import TruncationParams
@@ -70,18 +70,30 @@ def normalizer_to_dict(n) -> Optional[Dict[str, Any]]:
         return {"type": "Prepend", "prepend": n.prepend}
     if isinstance(n, N.Replace):
         return {"type": "Replace", "pattern": _pattern(n.pattern, n.regex), "content": n.content}
+    if isinstance(n, N.ByteLevel):
+        return {"type": "ByteLevel"}
     raise SerdeError(f"Cannot serialize normalizer {n!r}")
 
 
 def pre_tokenizer_to_dict(p) -> Optional[Dict[str, Any]]:
     if p is None:
         return None
-    if isinstance(p, PreSequence):
+    if isinstance(p, P.Sequence):
         return {"type": "Sequence",
-                "pretokenizers": [pre_tokenizer_to_dict(p.split), _byte_level(p.byte_level)]}
-    if isinstance(p, Split):
-        return {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN}, "behavior": "Isolated",
-                "invert": False}
+                "pretokenizers": [pre_tokenizer_to_dict(x) for x in p.pretokenizers]}
+    if isinstance(p, P.Split):
+        return {"type": "Split", "pattern": {p.pattern_kind: p.pattern_str},
+                "behavior": P.BEHAVIOR_TO_JSON[p.behavior], "invert": p.invert}
+    if isinstance(p, P.Punctuation):
+        return {"type": "Punctuation", "behavior": P.BEHAVIOR_TO_JSON[p.behavior]}
+    if isinstance(p, P.Digits):
+        return {"type": "Digits", "individual_digits": p.individual_digits}
+    if isinstance(p, P.CharDelimiterSplit):
+        return {"type": "CharDelimiterSplit", "delimiter": p.delimiter}
+    if isinstance(p, P.FixedLength):
+        return {"type": "FixedLength", "length": p.length}
+    if isinstance(p, P.UnicodeScripts):
+        return {"type": "UnicodeScripts"}
     if isinstance(p, ByteLevel):
         return _byte_level(p)
     if isinstance(p, BertPreTokenizer):

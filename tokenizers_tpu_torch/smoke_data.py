@@ -53,6 +53,14 @@ and without `skip_special_tokens`, and for `STREAM_CONFIGS` the digest of
 each of the first `STREAM_DOCS` documents' `DecodeStream` steps
 (`stream_digest`).
 
+`host_pipelines` builds the six pipelines of `chip_smoke.py` phase 16
+from the fixtures and the frozen files: four that no engine takes and the
+general host pipeline runs (`HOST_PIPELINES`, on the first `HOST_DOCS`
+8 KB documents) and two that are new to the byte-level engine
+(`ENGINE_PIPELINES`, on all 512); `host_pipeline_docs` gives each its
+documents, and `data/host_pipelines_digests.json` the wheel's ids and
+offsets digests of them (`load_host_pipelines_digests`).
+
 `first_ascii_chunk` and `unique_state` give the merge loop's first state
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
 `tools/b1_phases.py` hold and time B1; `llama3_unique_state` that of the
@@ -140,6 +148,15 @@ RECIPE_TRAIN = {"chars": 1 << 20, "vocab_size": 8000, "special_tokens": ["<|endo
 TO_STR_CONFIGS = ("gpt2", "llama3", "bert", "unigram", "unigram_bf", "char_bpe", "sp_bpe",
                   "spm_bf", "wordlevel")
 
+# phase 16: the general host pipeline's cells (no engine takes them) and
+# the byte-level engine's two new pipelines
+HOST_PIPELINES = ("gpt2_lower", "qwen2_shape", "char_bpe_punct", "wordlevel_scripts")
+ENGINE_PIPELINES = ("gpt2_ignore_merges", "llama3_prefix")
+HOST_DOCS = 16
+# Qwen2's published split: the llama-3 pattern with \p{N} for \p{N}{1,3}
+QWEN2_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"
+                 r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+
 
 def build_docs(target: int = TARGET_BYTES, doc_bytes: int = DOC_BYTES) -> List[str]:
     with open(CORPUS, encoding="utf-8") as f:
@@ -225,6 +242,59 @@ def config_json(config: str) -> str:
         return spm_bf_json()
     with open({**CONFIGS, **CHAR_CONFIGS, **UNIGRAM_CONFIGS}[config], encoding="utf-8") as f:
         return f.read()
+
+
+def host_pipelines() -> Dict[str, str]:
+    """The tokenizer.json text of each phase-16 pipeline:
+
+    * gpt2_lower: the gpt2 fixture behind a Lowercase normalizer (the
+      shape of `ByteLevelBPETokenizer(lowercase=True)`);
+    * qwen2_shape: the llama3_128k fixture's model and ByteLevel behind
+      NFC and Split(Regex(QWEN2_PATTERN), Isolated);
+    * char_bpe_punct: `data/char_bpe.json` under Sequence[WhitespaceSplit,
+      Punctuation, Digits(individual_digits=True)];
+    * wordlevel_scripts: `data/wordlevel.json`'s normalizer and model under
+      Sequence[UnicodeScripts, Whitespace];
+    * gpt2_ignore_merges: the gpt2 fixture with `ignore_merges`;
+    * llama3_prefix: llama3_128k, its ByteLevel adding a prefix space."""
+    def load(config):
+        return json.loads(config_json(config))
+
+    out = {}
+    d = load("gpt2")
+    d["normalizer"] = {"type": "Lowercase"}
+    out["gpt2_lower"] = d
+    d = load("llama3")
+    d["normalizer"] = {"type": "NFC"}
+    d["pre_tokenizer"]["pretokenizers"][0]["pattern"] = {"Regex": QWEN2_PATTERN}
+    out["qwen2_shape"] = d
+    d = load("char_bpe")
+    d["pre_tokenizer"] = {"type": "Sequence", "pretokenizers": [
+        {"type": "WhitespaceSplit"}, {"type": "Punctuation", "behavior": "Isolated"},
+        {"type": "Digits", "individual_digits": True}]}
+    out["char_bpe_punct"] = d
+    d = load("wordlevel")
+    d["pre_tokenizer"] = {"type": "Sequence", "pretokenizers": [
+        {"type": "UnicodeScripts"}, {"type": "Whitespace"}]}
+    out["wordlevel_scripts"] = d
+    d = load("gpt2")
+    d["model"]["ignore_merges"] = True
+    out["gpt2_ignore_merges"] = d
+    d = load("llama3")
+    d["pre_tokenizer"]["pretokenizers"][1]["add_prefix_space"] = True
+    out["llama3_prefix"] = d
+    return {k: json.dumps(v, ensure_ascii=False) for k, v in out.items()}
+
+
+def host_pipeline_docs(name: str) -> List[str]:
+    """The documents phase 16 encodes with pipeline `name`."""
+    docs = build_docs()
+    return docs if name in ENGINE_PIPELINES else docs[:HOST_DOCS]
+
+
+def load_host_pipelines_digests() -> Dict[str, Dict[str, List[str]]]:
+    with open(os.path.join(DATA, "host_pipelines_digests.json"), encoding="utf-8") as f:
+        return json.load(f)
 
 
 def train_lines(nchars=None) -> List[str]:

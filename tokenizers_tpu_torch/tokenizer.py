@@ -3,41 +3,26 @@ model, post-processor, decoder, added vocabulary, truncation and
 padding), its `tokenizer.json` loader and writer, and the batch encode on
 the card.
 
-The loader admits exactly these pipelines:
+The loader reads every `tokenizer.json` the JAX package reads, as its
+`serialization.py` reads it (`normalizers.from_json`,
+`pre_tokenizers.from_json`, `_load_model`, `_load_post_processor`); a
+`Precompiled` normalizer raises `NotImplementedError`.  Floats are parsed
+as the wheel's serde_json parses them (`utils.serde_float.serde_f64`):
+Unigram's Viterbi ties turn on the last ulp of its scores.  Every
+pipeline takes any post-processor of `processors/`, any decoder of
+`decoders/`, truncation, padding and added tokens with any options
+(`added_vocabulary.py`).
 
-* gpt2 (`tests/fixtures/gpt2`): no normalizer, a plain BPE model, the
-  ByteLevel pre-tokenizer with its regex split, any decoder;
-* llama3 (`tests/fixtures/llama3*`): no normalizer, BPE with
-  `ignore_merges`, the Sequence of the llama-3 Split and ByteLevel
-  without its regex or a prefix space;
-* bert (`tests/fixtures/bert`): BertNormalizer, BertPreTokenizer,
-  WordPiece;
-* WordLevel with Whitespace, WhitespaceSplit or BertPreTokenizer, and
-  char-level BPE (unk token, `fuse_unk`, `byte_fallback`,
-  `continuing_subword_prefix`, `end_of_word_suffix`) with those, with
-  Metaspace (replacement `▁`, split) or with no pre-tokenizer; either
-  with no normalizer or one of `normalizers.from_json` (Lowercase, NFD,
-  NFKD, NFC, NFKC, StripAccents, Strip, Replace of a string, Prepend,
-  BertNormalizer, a Sequence of them).  This covers the
-  `CharBPETokenizer`, `SentencePieceBPETokenizer` and WordLevel recipes
-  and the Llama-2 SPM shape;
-* Unigram (`tests/fixtures/unigram`, `unigram_bf`: an unk id, with or
-  without `byte_fallback`) with no normalizer or one of
-  `normalizers.from_json`, Nmt and the `" {2,}"` regex Replace among
-  them (admitted in this pipeline only), Metaspace (replacement `▁`,
-  prepend scheme "always", split).
-
-Every pipeline takes any post-processor of `processors/`
-(TemplateProcessing with its pair template, BertProcessing,
-RobertaProcessing, ByteLevel, a Sequence of them) or none, any decoder
-of `decoders/` or none, truncation and padding, and added tokens with
-any options (`added_vocabulary.py`).  Floats are parsed as the wheel's
-serde_json parses them (`utils.serde_float.serde_f64`): Unigram's
-Viterbi ties turn on the last ulp of its scores.  Anything else raises
-`NotImplementedError` naming the later slice of the port that brings it;
-a pipeline put together through the settable components
-(`Tokenizer(model)`, then `normalizer`, `pre_tokenizer`, ...) is held to
-the same rules at its first encode or train (`_check`).
+The device engine is the one the JAX package's `build_device_engine`
+picks for the pipeline, or none (`ops/engine.py`).  The host runs what
+the engine does not take, on one of two paths (`_check`, once after each
+change of a component): the fast host path (`_host_items`), the port's
+per-family pipelines of gpt2, llama3, bert, WordLevel, char-level BPE and
+Unigram that the engines send their flagged rows to (`fast_route` says
+which pipelines); and the general host pipeline (`_general_one`), the JAX
+package's `_encode_single_sequence` over a `PreTokenizedString`, for every
+other one (a normalizer before a byte-level model, Punctuation, Digits,
+UnicodeScripts, any Split regex, BPE dropout, ...).
 
 `encode_batch_fast` (ids) and `encode_batch` (ids with char offsets,
 token strings and word ids; `encode_batch_byte_offsets` for byte
@@ -76,39 +61,24 @@ from .models.bpe import BPE
 from .models.unigram import Unigram
 from .models.wordlevel import WordLevel
 from .models.wordpiece import WordPiece
+from .models import tokens as model_tokens
 from .normalized import NormalizedString, char_to_byte_offsets
-from .normalizers import Nmt, Replace
+from .normalizers import (NFC, NFD, NFKC, NFKD, Lowercase, Nmt, Prepend, Replace, Strip,
+                          StripAccents)
 from .normalizers import Sequence as NormalizerSequence
 from .normalizers import from_json as normalizer_from_json
 from .normalizers.bert import BertNormalizer
+from .pre_tokenizers import Sequence
+from .pre_tokenizers import from_json as pre_tokenizer_from_json
 from .pre_tokenizers.bert import BertPreTokenizer
 from .pre_tokenizers.byte_level import ByteLevel
 from .pre_tokenizers.metaspace import Metaspace
-from .pre_tokenizers.split import LLAMA3_PATTERN, Sequence, Split
 from .pre_tokenizers.whitespace import Whitespace, WhitespaceSplit
 from .processors import BertProcessing, RobertaProcessing, TemplateProcessing, default_process
 from .processors import Sequence as ProcessorSequence
 from .utils.padding import BATCH_LONGEST, PaddingParams, pad_encodings
 from .utils.serde_float import serde_f64
 from .utils.truncation import TruncationParams, truncate_encodings
-
-_BYTE_LEVEL_KEYS = {"type", "add_prefix_space", "trim_offsets", "use_regex"}
-_BERT_NORMALIZER_KEYS = {"type", "clean_text", "handle_chinese_chars", "strip_accents",
-                         "lowercase"}
-_WORDPIECE_KEYS = {"type", "unk_token", "continuing_subword_prefix",
-                   "max_input_chars_per_word", "vocab"}
-_CHAR_BPE_KEYS = {"type", "dropout", "unk_token", "continuing_subword_prefix",
-                  "end_of_word_suffix", "fuse_unk", "byte_fallback", "ignore_merges", "vocab",
-                  "merges"}
-_CLASS_SPLITS = {"Whitespace": Whitespace, "WhitespaceSplit": WhitespaceSplit,
-                 "BertPreTokenizer": BertPreTokenizer}
-_METASPACE_KEYS = {"type", "replacement", "prepend_scheme", "split"}
-_UNIGRAM_KEYS = {"type", "unk_id", "vocab", "byte_fallback"}
-
-
-def _unsupported(what: str, slice_name: str):
-    raise NotImplementedError(f"{what} is not ported yet: it waits for {slice_name}")
-
 
 # ------------------------------------------------------------------ inputs
 
@@ -171,133 +141,39 @@ def _parse_encode_input(input, is_pretokenized: bool):
 
 # ------------------------------------------------------------------ loader
 
-def _load_model(d: dict, llama3: bool) -> BPE:
-    if d.get("type", "BPE") != "BPE":
-        _unsupported(f"model {d.get('type')!r}", "its engine's slice of the port")
-    if d.get("dropout") not in (None, 0.0):
-        _unsupported("BPE dropout", "a later slice")
-    if bool(d.get("ignore_merges")) != llama3:
-        _unsupported("BPE ignore_merges outside the llama-3 pipeline" if not llama3 else
-                     "the llama-3 pipeline without BPE ignore_merges", "a later slice")
-    if d.get("continuing_subword_prefix") or d.get("end_of_word_suffix"):
-        _unsupported("BPE subword prefix/suffix", "the CharBPE slice")
-    if d.get("byte_fallback"):
-        _unsupported("BPE byte_fallback", "the CharBPE/SPM slice")
-    return BPE(d.get("vocab", {}), _merges(d), unk_token=d.get("unk_token"),
-               fuse_unk=bool(d.get("fuse_unk", False)),
-               ignore_merges=bool(d.get("ignore_merges", False)),
-               continuing_subword_prefix=d.get("continuing_subword_prefix"),
-               end_of_word_suffix=d.get("end_of_word_suffix"), dropout=d.get("dropout"))
-
-
-def _load_byte_level(d: Optional[dict], role: str) -> Optional[ByteLevel]:
-    if d is None:
-        return None
-    if d.get("type") != "ByteLevel" or set(d) - _BYTE_LEVEL_KEYS:
-        _unsupported(f"{role} {d.get('type')!r}", "its engine's slice of the port")
-    bl = ByteLevel(d.get("add_prefix_space", True), d.get("trim_offsets", True),
-                   d.get("use_regex", True))
-    if role == "pre_tokenizer" and not bl.use_regex:
-        _unsupported("ByteLevel pre-tokenizer without its regex split, outside the "
-                     "llama-3 Sequence", "a later slice")
-    return bl
-
-
-def _load_llama3_sequence(d: dict) -> Sequence:
-    """Exactly Sequence[Split(LLAMA3_PATTERN, Isolated), ByteLevel(use_regex=False,
-    add_prefix_space=False)]."""
-    pts = d.get("pretokenizers") or []
-    if set(d) != {"type", "pretokenizers"} or len(pts) != 2:
-        _unsupported("a Sequence pre-tokenizer other than the llama-3 one", "a later slice")
-    sp, bl = pts
-    if (sp != {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
-               "behavior": "Isolated", "invert": False}):
-        _unsupported("a Split other than the llama-3 pattern, Isolated", "a later slice")
-    byte_level = _load_byte_level(bl, "Sequence member")
-    if byte_level.use_regex or byte_level.add_prefix_space:
-        _unsupported("a ByteLevel after the llama-3 Split with its regex or a prefix space",
-                     "a later slice")
-    return Sequence(Split(), byte_level)
-
-
-def _load_bert(d: dict):
-    """(normalizer, pre-tokenizer, model) of the BERT pipeline: exactly
-    BertNormalizer, BertPreTokenizer and WordPiece."""
-    nz = d.get("normalizer")
-    if nz is None or nz.get("type") != "BertNormalizer" or set(nz) - _BERT_NORMALIZER_KEYS:
-        _unsupported("the BertPreTokenizer without its BertNormalizer", "a later slice")
-    if d["pre_tokenizer"] != {"type": "BertPreTokenizer"}:
-        _unsupported("a BertPreTokenizer with options", "a later slice")
-    m = d["model"]
-    if m.get("type") != "WordPiece" or set(m) - _WORDPIECE_KEYS:
-        _unsupported(f"model {m.get('type')!r} in the BERT pipeline", "its engine's slice")
-    normalizer = BertNormalizer(nz.get("clean_text", True), nz.get("handle_chinese_chars", True),
-                                nz.get("strip_accents"), nz.get("lowercase", True))
-    model = WordPiece(m.get("vocab", {}), unk_token=m.get("unk_token", "[UNK]"),
-                      continuing_subword_prefix=m.get("continuing_subword_prefix", "##"),
-                      max_input_chars_per_word=int(m.get("max_input_chars_per_word", 100)))
-    return normalizer, BertPreTokenizer(), model
-
-
 def _merges(d: dict):
     return [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
             for m in d.get("merges", [])]
 
 
-def _load_aligned(d: dict):
-    """(normalizer, pre-tokenizer, model) of a WordLevel, char-level BPE or
-    Unigram pipeline, whose host offsets map through the normalizer's
-    alignments."""
-    nz = d.get("normalizer")
-    normalizer = None if nz is None else normalizer_from_json(nz)
-    pt_d, m = d.get("pre_tokenizer"), d["model"]
-    if pt_d is None:
-        pt = None
-    elif pt_d.get("type") in _CLASS_SPLITS and set(pt_d) == {"type"}:
-        pt = _CLASS_SPLITS[pt_d["type"]]()
-    elif pt_d.get("type") == "Metaspace" and set(pt_d) <= _METASPACE_KEYS:
-        if pt_d.get("replacement", "▁") != "▁" or not pt_d.get("split", True):
-            _unsupported("Metaspace with a replacement other than '▁' or without its split",
-                         "a later slice")
-        pt = Metaspace(pt_d.get("prepend_scheme", "always"))
-    else:
-        _unsupported(f"pre-tokenizer {pt_d.get('type')!r} with these options", "a later slice")
-    if m.get("type") == "Unigram":
-        if set(m) - _UNIGRAM_KEYS or m.get("unk_id") is None:
-            _unsupported("Unigram without an unk id or with these options", "a later slice")
-        if not (isinstance(pt, Metaspace) and pt.prepend_scheme == "always"):
-            _unsupported("Unigram without the Metaspace pre-tokenizer (prepend scheme "
-                         "'always')", "a later slice")
-        model = Unigram([(t, s) for t, s in m.get("vocab", [])], unk_id=int(m["unk_id"]),
-                        byte_fallback=bool(m.get("byte_fallback", False)))
-    elif m.get("type") == "WordLevel":
-        if set(m) - {"type", "vocab", "unk_token"} or not isinstance(
-                pt, (Whitespace, WhitespaceSplit, BertPreTokenizer)):
-            _unsupported("WordLevel with these options or this pre-tokenizer", "a later slice")
-        model = WordLevel(m.get("vocab", {}), m.get("unk_token", "<unk>"))
-    else:
-        if set(m) - _CHAR_BPE_KEYS:
-            _unsupported(f"BPE options {sorted(set(m) - _CHAR_BPE_KEYS)}", "a later slice")
-        if m.get("dropout") not in (None, 0.0):
-            _unsupported("BPE dropout", "a later slice")
-        if m.get("ignore_merges"):
-            _unsupported("BPE ignore_merges outside the llama-3 pipeline", "a later slice")
-        model = BPE(m.get("vocab", {}), _merges(m), unk_token=m.get("unk_token"),
-                    fuse_unk=bool(m.get("fuse_unk", False)),
-                    continuing_subword_prefix=m.get("continuing_subword_prefix"),
-                    end_of_word_suffix=m.get("end_of_word_suffix"),
-                    byte_fallback=bool(m.get("byte_fallback", False)), byte_spans=True,
-                    dropout=m.get("dropout"))
-    if not isinstance(model, Unigram) and _unigram_only(normalizer):
-        _unsupported("Nmt or a regex Replace outside the Unigram pipeline", "a later slice")
-    return normalizer, pt, model
+def _load_model(d: dict):
+    """The model of a tokenizer.json node, as the JAX package's
+    `model_from_dict` reads it (a node without "type" guessed by its
+    keys)."""
+    t = d.get("type")
+    if t is None:
+        t = ("BPE" if "merges" in d else "WordPiece" if (
+            "max_input_chars_per_word" in d or "continuing_subword_prefix" in d)
+            else "Unigram" if "unk_id" in d else "WordLevel")
+    if t == "BPE":
+        return BPE(d.get("vocab", {}), _merges(d), unk_token=d.get("unk_token"),
+                   fuse_unk=bool(d.get("fuse_unk", False)),
+                   ignore_merges=bool(d.get("ignore_merges", False)),
+                   continuing_subword_prefix=d.get("continuing_subword_prefix"),
+                   end_of_word_suffix=d.get("end_of_word_suffix"),
+                   byte_fallback=bool(d.get("byte_fallback", False)), dropout=d.get("dropout"))
+    if t == "WordPiece":
+        return WordPiece(d.get("vocab", {}), unk_token=d.get("unk_token", "[UNK]"),
+                         continuing_subword_prefix=d.get("continuing_subword_prefix", "##"),
+                         max_input_chars_per_word=int(d.get("max_input_chars_per_word", 100)))
+    if t == "WordLevel":
+        return WordLevel(d.get("vocab", {}), d.get("unk_token", "<unk>"))
+    if t == "Unigram":
+        return Unigram([(v[0], v[1]) for v in d.get("vocab", [])], unk_id=d.get("unk_id"),
+                       byte_fallback=bool(d.get("byte_fallback", False)))
+    from .errors import SerdeError
 
-
-def _unigram_only(normalizer) -> bool:
-    """Whether `normalizer` holds Nmt or a regex Replace: ported with the
-    Unigram pipeline and held against the wheel only there."""
-    parts = normalizer.normalizers if isinstance(normalizer, NormalizerSequence) else [normalizer]
-    return any(isinstance(n, Nmt) or (isinstance(n, Replace) and n.regex) for n in parts)
+    raise SerdeError(f"Unknown model type: {t}")
 
 
 def _load_post_processor(d: Optional[dict]):
@@ -313,32 +189,65 @@ def _load_post_processor(d: Optional[dict]):
                                  d.get("add_prefix_space", True))
     if t == "Sequence":
         return ProcessorSequence([_load_post_processor(x) for x in d["processors"]])
-    return _load_byte_level(d, "post_processor")
+    if t == "ByteLevel":
+        return ByteLevel(d.get("add_prefix_space", True), d.get("trim_offsets", True),
+                         d.get("use_regex", True))
+    from .errors import SerdeError
+
+    raise SerdeError(f"Unknown post-processor type: {t}")
 
 
 def _load_components(d: dict):
     """(normalizer, pre-tokenizer, model, post-processor) of a tokenizer.json
-    dict; raises NotImplementedError on a pipeline the port does not run."""
-    pt_d = d.get("pre_tokenizer")
-    pt_type = None if pt_d is None else pt_d.get("type")
-    m_type = d["model"].get("type", "BPE")
-    bert = pt_type == "BertPreTokenizer" and m_type == "WordPiece"
-    aligned = m_type in ("WordLevel", "Unigram") or (m_type == "BPE" and pt_type in (
-        None, "Whitespace", "WhitespaceSplit", "BertPreTokenizer", "Metaspace"))
-    pp = _load_post_processor(d.get("post_processor"))
-    if d.get("normalizer") is not None and not (bert or aligned):
-        _unsupported("a normalizer in a byte-level pipeline", "a later slice")
-    if aligned:
-        return (*_load_aligned(d), pp)
-    if bert:
-        return (*_load_bert(d), pp)
-    if pt_type == "Sequence":
-        pt = _load_llama3_sequence(pt_d)
-    else:
-        pt = _load_byte_level(pt_d, "pre_tokenizer")
-    if pt is None:
-        _unsupported("a pipeline without the ByteLevel pre-tokenizer", "a later slice")
-    return None, pt, _load_model(d["model"], isinstance(pt, Sequence)), pp
+    dict: every pipeline the JAX package loads (a `Precompiled`
+    normalizer raises NotImplementedError)."""
+    return (normalizer_from_json(d.get("normalizer")),
+            pre_tokenizer_from_json(d.get("pre_tokenizer")), _load_model(d["model"]),
+            _load_post_processor(d.get("post_processor")))
+
+
+_FAST_NORMALIZERS = (NormalizerSequence, Lowercase, NFD, NFKD, NFC, NFKC, StripAccents, Strip,
+                     Replace, Prepend, BertNormalizer, Nmt)
+
+
+def _fast_normalizer(nz, unigram: bool) -> bool:
+    """Whether the fast host path's aligned pipelines take `nz`: one of
+    their normalizers or a Sequence of them, Nmt and a regex Replace only
+    before a Unigram model."""
+    parts = nz.normalizers if isinstance(nz, NormalizerSequence) else [nz]
+    return all(type(n) in _FAST_NORMALIZERS and not isinstance(n, NormalizerSequence) and (
+        unigram or not (isinstance(n, Nmt) or (isinstance(n, Replace) and n.regex)))
+        for n in parts)
+
+
+def fast_route(nz, pt, m) -> bool:
+    """Whether the fast host path (`Tokenizer._host_items`) serves the
+    pipeline: byte-level BPE (no normalizer; the ByteLevel pre-tokenizer
+    with its regex, or the llama-3 Sequence with no prefix space), bert
+    (BertNormalizer, BertPreTokenizer, WordPiece), or WordLevel,
+    char-level BPE or Unigram with the normalizers `_fast_normalizer`
+    takes and no pre-tokenizer, Whitespace, WhitespaceSplit,
+    BertPreTokenizer or Metaspace (`▁`, split); WordLevel with the first
+    three, Unigram with Metaspace "always" and an unk id.  Every other
+    pipeline runs the general one (`Tokenizer._general_one`)."""
+    if isinstance(m, BPE) and (m.dropout or m.ignore_merges and not isinstance(
+            pt, (ByteLevel, Sequence))):
+        return False
+    if isinstance(m, WordPiece):
+        return isinstance(nz, BertNormalizer) and type(pt) is BertPreTokenizer
+    if isinstance(m, BPE) and (type(pt) is ByteLevel and pt.use_regex or isinstance(
+            pt, Sequence) and pt.is_llama3()):
+        return nz is None and not (m.continuing_subword_prefix or m.end_of_word_suffix
+                                   or m.byte_fallback)
+    if nz is not None and not _fast_normalizer(nz, isinstance(m, Unigram)):
+        return False
+    metaspace = type(pt) is Metaspace and pt.replacement == "▁" and pt.split
+    if isinstance(m, WordLevel):
+        return type(pt) in (Whitespace, WhitespaceSplit, BertPreTokenizer)
+    if isinstance(m, Unigram):
+        return m.unk_id is not None and metaspace and pt.prepend_scheme == "always"
+    return isinstance(m, BPE) and (pt is None or metaspace or type(pt) in (
+        Whitespace, WhitespaceSplit, BertPreTokenizer))
 
 
 def _hub_cache() -> str:
@@ -347,12 +256,11 @@ def _hub_cache() -> str:
 
 
 def _ns_slice(ns: NormalizedString, start: int, end: int) -> NormalizedString:
-    """The normalized bytes [start, end) of `ns`, with their alignments."""
-    out = NormalizedString.__new__(NormalizedString)
-    out.original = ns.original
-    out.normalized = ns.normalized.encode("utf-8")[start:end].decode("utf-8")
-    out.alignments = ns.alignments[start:end]
-    return out
+    """The normalized bytes [start, end) of `ns`, with their alignments (not
+    re-based: they stay in `ns`'s original)."""
+    return NormalizedString._raw(ns.original,
+                                 ns.normalized.encode("utf-8")[start:end].decode("utf-8"),
+                                 ns.alignments[start:end], 0)
 
 
 class Tokenizer:
@@ -374,6 +282,7 @@ class Tokenizer:
         self._engine = None
         self._engine_built = False
         self._checked = False
+        self._fast = True
         self._add_entries(added_tokens)
 
     # ------------------------------------------------------------ components
@@ -436,21 +345,17 @@ class Tokenizer:
         return dict(self.added_vocabulary.added_tokens_map)
 
     def _check(self) -> None:
-        """Hold a pipeline put together through the components to the
-        loader's rules (once after each change)."""
+        """Route the pipeline (once after each change): the fast host path
+        where `fast_route` takes it, else the general one; a BPE model's
+        spans are in the word's bytes where they map through alignments
+        and in the general pipeline, in its chars else."""
         if self._checked:
             return
-        from .serialization import (model_to_dict, normalizer_to_dict, pre_tokenizer_to_dict,
-                                    processor_to_dict)
-
-        _load_components({"normalizer": normalizer_to_dict(self._normalizer),
-                          "pre_tokenizer": pre_tokenizer_to_dict(self._pre_tokenizer),
-                          "post_processor": processor_to_dict(self._post_processor),
-                          "model": model_to_dict(self._model)})
+        self._fast = fast_route(self._normalizer, self._pre_tokenizer, self._model)
         m = self._model
-        if isinstance(m, BPE) and m.byte_spans != self.aligned:
-            # spans in the word's bytes where they map through alignments
-            m.byte_spans = self.aligned
+        byte_spans = self.aligned or not self._fast
+        if isinstance(m, BPE) and m.byte_spans != byte_spans:
+            m.byte_spans = byte_spans
             m.cache = type(m.cache)(m.cache.capacity)
         self._checked = True
 
@@ -470,7 +375,7 @@ class Tokenizer:
                   normalizer=normalizer)
         tok.truncation = truncation_from_dict(d.get("truncation"))
         tok.padding = padding_from_dict(d.get("padding"))
-        tok._checked = True
+        tok._check()
         return tok
 
     @classmethod
@@ -795,19 +700,26 @@ class Tokenizer:
         `Tokenizer::train` gives them: the added tokens split out (each a
         word of its own, as matched), and on each piece between them the
         normalizer and the pre-tokenizer (Metaspace prepends as its scheme
-        says)."""
-        words: List[str] = []
+        says); in the general pipeline the text of each split of
+        `PreTokenizedString.get_splits` (the JAX package's feed)."""
+        self._check()
         av, nz, pt = self.added_vocabulary, self._normalizer, self._pre_tokenizer
+        if not self._fast:
+            p = av.extract_and_normalize(nz, sequence)
+            if pt is not None:
+                pt.pre_tokenize(p)
+            return [s for s, _o, _t in p.get_splits("original", "byte")]
+        words: List[str] = []
 
         def pre_tokenize(text: str, first: bool):
             if not text:
                 return
             if isinstance(pt, Metaspace):
-                words.extend(pt.pre_tokenize(text, first))
+                words.extend(pt.words(text, first))
             elif pt is None:
                 words.append(text)
             else:
-                words.extend(pt.pre_tokenize(text))
+                words.extend(pt.words(text))
 
         for tid, cs, ce in av.split(sequence, False):
             if tid is not None:
@@ -888,7 +800,10 @@ class Tokenizer:
         chars or whole-char bytes as the device's spans are
         (`engine_base.map_offsets`).  Ids only (offsets None): tokens "",
         offsets (0, 0), no word ids, type ids 0, as the JAX package's
-        `into_encoding(..., "none")` gives them."""
+        `into_encoding(..., "none")` gives them.  A pipeline the fast path
+        does not serve runs the general one (`_general_one`)."""
+        if not self._fast:
+            return self._general_one(text, offsets, type_id, word_idx)
         if offsets is None:
             ids: List[int] = []
             for item in self._host_items(text, False):
@@ -923,6 +838,23 @@ class Tokenizer:
                         words=words if word_idx is None else [word_idx] * n,
                         offsets=map_offsets(text, starts, ends, offsets,
                                             "char" if chars else "byte"))
+
+    def _general_one(self, text: str, offsets: Optional[str], type_id: int = 0,
+                     word_idx: Optional[int] = None) -> Encoding:
+        """The general host pipeline of one string (the JAX package's
+        `_encode_single_sequence`, `tokenizer.py:337-359`): the added
+        tokens extracted and the normalizer run (`extract_and_normalize`),
+        the pre-tokenizer's split, the model on each split
+        (`models.tokens`), then the encoding with offsets in the text's
+        chars or bytes, or ids alone."""
+        p = self.added_vocabulary.extract_and_normalize(self._normalizer, text)
+        if self._pre_tokenizer is not None:
+            self._pre_tokenizer.pre_tokenize(p)
+        m = self._model
+        p.tokenize(lambda ns: model_tokens(m, ns.get()))
+        if offsets is None:
+            return Encoding(ids=[t.id for split in p.splits for t in split.tokens])
+        return p.into_encoding(word_idx, type_id, offsets)
 
     def _host_items(self, text: str, spans: bool):
         """Per split of `text`, in order: ("added", (id, token, start, end))
@@ -972,7 +904,7 @@ class Tokenizer:
             if self._normalizer is not None:
                 piece = self._normalizer.normalize_chars(piece)[0]
             tok = self._model.tokenize
-            yield "ids", [i for word in self._pre_tokenizer.pre_tokenize(piece)
+            yield "ids", [i for word in self._pre_tokenizer.words(piece)
                           for i in tok(word)]
             return
         yield "words", [[(t[0], t[1] + base, t[2] + base) + tuple(t[3:]) for t in word]
