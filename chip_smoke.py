@@ -229,7 +229,38 @@
    version); (c) `to_str` -> `from_str` of all six, `to_str` given back,
    and one cold `encode_batch_fast` against the digests.  Adds each
    kernel's `host_pipelines_launches` (the (b) cold runs).
-17. Prints a line of numbers per path, the per-kernel JSON line (with each
+17. The last host modules (`host_modules_path`): (a) `t5_shape`
+   (`smoke_data.host_pipelines()`: the unigram fixture behind
+   Sequence[Precompiled(`data/charsmap_nfkc.bin`), Replace]; no engine
+   takes it) on the first 16 8 KB documents, `encode_batch_fast` and
+   `encode_batch` against `data/host_pipelines_digests.json`, no kernel of
+   `csrc/` launched, run by default, then with TOKENIZERS_PARALLELISM
+   false and true (the host pool, after CUDA is initialised; before the
+   true run the pool's workers are up and hold the tokenizer, and one of
+   them must take a chunk): the two results equal, each run's MB/s and
+   the pool's start-up time printed; `decode_batch` of gpt2's first 64
+   and 512 ids, serial and on the pool, timed; `decode_batch` of phase
+   13's gpt2 and llama3_128k ids with TOKENIZERS_PARALLELISM true against
+   `data/decode_digests.json`; (b) the C ABI: `build_c_api`,
+   `tests/c_api_torch_driver.c` and `tests/c_api_driver.c` built against
+   it; the first, through `tokenizers_create` (the card) and
+   `tokenizers_encode_batch`, encodes the 512 gpt2 8 KB documents in its
+   embedded interpreter against `data/gpt2_digests.json` and reports that
+   interpreter's launch counts (B3, B2 and B1 must launch); the second,
+   unchanged, fails under `CUDA_VISIBLE_DEVICES=` (no CPU fallback);
+   (c) a trained Unigram through `to_str` and `from_str`: the model of
+   `data/unigram_train.json` held exactly gives the wheel's ids of the 512
+   documents on the card, in memory and after the round trip
+   (`data/unigram_round_trip_digests.json`, the wheel's own round trip,
+   which moves some documents); then phase 12's model (a second round
+   trip gives the same `to_str`): each score read back as serde_json
+   parses what `to_str` wrote, pieces and scores the wheel's within the
+   training tolerance, and a cold `encode_batch_fast` of the 512
+   documents on the card, no kernel launched, equal to its host
+   pipeline's ids (run on the host pool); the documents whose ids moved
+   off the trained model's are counted.  Adds each kernel's
+   `c_abi_launches` (the (b) driver's counts).
+18. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -304,6 +335,8 @@ CARD_IDS = {}
 # the tokenizers phase 11 trained, by run, and the config whose frozen file
 # each must equal (phase 15 (b) round-trips them)
 TRAINED = {}
+# phase 12's trained Unigram and the ids digests of its 8 KB run (phase 17 (c))
+TRAINED_UNIGRAM = {}
 EIGHT_KB_COLD = {
     "gpt2": {"layout_fused": 2, "layout_fused_wide": 0, "keys": 16,
              "merge_round_fused": 79, "merge_round_fused_wide": 0},
@@ -1445,7 +1478,7 @@ def unigram_train_path(torch, stats, counts, numbers):
     from tokenizers_tpu_torch.models.unigram_lattice import Lattice
     from tokenizers_tpu_torch.ops.unigram_em_step import DeviceEm
     from tokenizers_tpu_torch.smoke_data import (
-        UNIGRAM_TRAIN, build_docs, load_unigram_train, recipe_json, train_lines,
+        UNIGRAM_TRAIN, build_docs, ids_digest, load_unigram_train, recipe_json, train_lines,
     )
     from tokenizers_tpu_torch.trainers import UnigramTrainer
     from tokenizers_tpu_torch.trainers.unigram_em import _make_unigram, _TrainerOps
@@ -1527,6 +1560,7 @@ def unigram_train_path(torch, stats, counts, numbers):
     launches = {k: c[k] for k, c in counts.items()}
     if any(launches.values()):
         raise SystemExit(f"unigram train: a kernel of csrc/ launched: {launches}")
+    TRAINED_UNIGRAM["unigram_train"] = (tok, [ids_digest(e.ids) for e in encs])
     e_steps = st["e_step_s"]
     numbers["unigram_train"] = {
         "secs": secs, "feed_s": st["feed_s"], "words": st["words"], "pack_s": st["pack_s"],
@@ -2206,6 +2240,220 @@ def host_pipelines_path(torch, stats, counts, numbers, smi):
         s_["host_pipelines_launches"] = b_launches[k]
 
 
+C_ABI_KERNELS = ("layout_fused", "keys", "merge_round_fused")  # B3, B2, B1
+POOL_DECODE_CONFIGS = ("gpt2", "llama3")  # llama3: llama3_128k
+
+
+def host_modules_path(torch, stats, counts, numbers, smi):
+    """Phase 17, the last host modules (docstring item 17).  Adds each
+    kernel's `c_abi_launches` to `stats`."""
+    import math
+    import tempfile
+
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.models.unigram import Unigram
+    from tokenizers_tpu_torch.native import build_c_api, build_c_driver, c_api_env
+    from tokenizers_tpu_torch.smoke_data import (
+        T5_SHAPE, build_docs, config_json, host_pipeline_docs, host_pipelines,
+        ids_digest, load_decode_digests, load_digests, load_host_pipelines_digests,
+        load_unigram_round_trip_digests, load_unigram_train, offsets_digest, recipe_json,
+        text_digest,
+    )
+    from tokenizers_tpu_torch.utils import parallelism
+    from tokenizers_tpu_torch.utils.serde_float import serde_f64
+
+    t_phase = time.perf_counter()
+    out = {"a": {}, "b": {}, "c": {}}
+
+    def zero():
+        for c in counts.values():
+            for k in c:
+                c[k] = 0
+
+    def read():
+        return {k: c[k] for k, c in counts.items()}
+
+    # (a) t5_shape on the host: the default, then TOKENIZERS_PARALLELISM false and true
+    tok = Tokenizer.from_str(host_pipelines()[T5_SHAPE])
+    if tok._get_device_engine() is not None:
+        raise SystemExit("t5_shape: a device engine took it")
+    docs, want = host_pipeline_docs(T5_SHAPE), load_host_pipelines_digests()[T5_SHAPE]
+    mb = sum(len(d.encode("utf-8")) for d in docs) / 1e6
+    results = {}
+    saved = os.environ.get(parallelism.ENV_VARIABLE)
+    try:
+        for run in ("default", "false", "true"):
+            if run != "default":
+                os.environ[parallelism.ENV_VARIABLE] = run
+            if run == "true":  # the workers up and holding t5_shape: the pool's own speed
+                parallelism.start_pool(wait=True)
+                tok.encode_batch_fast(docs[:8])
+                pool = parallelism.start_pool(wait=True)
+                pool.used = False
+            zero()
+            t = time.perf_counter()
+            fast = tok.encode_batch_fast(docs)
+            fast_s = time.perf_counter() - t
+            t = time.perf_counter()
+            offs = tok.encode_batch(docs)
+            offs_s = time.perf_counter() - t
+            got = ([ids_digest(e.ids) for e in fast], [offsets_digest(e) for e in offs])
+            if got != (want["fast"], want["offsets"]):
+                bad = [i for i, (g, w) in enumerate(zip(got[0] + got[1],
+                                                        want["fast"] + want["offsets"])) if g != w]
+                raise SystemExit(f"t5_shape ({run}): {len(bad)} digests unlike the wheel's")
+            if any(read().values()):
+                raise SystemExit(f"t5_shape ({run}): a kernel of csrc/ launched: {read()}")
+            results[run] = got
+            out["a"][run] = {"fast_s": fast_s, "fast_mb_s": mb / fast_s, "offsets_s": offs_s,
+                             "offsets_mb_s": mb / offs_s, "pool": parallelism.get_parallelism()}
+        if results["false"] != results["true"]:
+            raise SystemExit("t5_shape: the pool's results differ from the serial ones")
+        if not pool.used:
+            raise SystemExit("t5_shape: no worker of the host pool took a chunk")
+        out["a"]["pool_up_s"] = pool.up_s
+        # decode_batch at its threshold (64 sequences) and at 512: serial
+        # against the pool, whose workers hold the tokenizer (one untimed call)
+        dtok = Tokenizer.from_str(config_json("gpt2"))
+        for n in (64, 512):
+            ids = CARD_IDS["gpt2"][:n]
+            for run in ("false", "true"):
+                os.environ[parallelism.ENV_VARIABLE] = run
+                dtok.decode_batch(ids)
+                parallelism.start_pool(wait=True)
+                t = time.perf_counter()
+                dtok.decode_batch(ids)
+                out["a"][f"decode_{n}_{run}_s"] = time.perf_counter() - t
+        # decode_batch of phase 13's ids on the pool: the largest vocab and gpt2
+        os.environ[parallelism.ENV_VARIABLE] = "true"
+        dwant = load_decode_digests()
+        t = time.perf_counter()
+        for name in POOL_DECODE_CONFIGS:
+            dtok = Tokenizer.from_str(config_json(name))
+            texts = dtok.decode_batch(CARD_IDS[name], True)
+            bad = [i for i, x in enumerate(texts) if text_digest(x) != dwant[name]["skip"][i]]
+            if bad:
+                raise SystemExit(f"decode {name} on the pool: {len(bad)} texts unlike the wheel's")
+        out["a"]["decode_pool_s"] = time.perf_counter() - t
+    finally:
+        if saved is None:
+            os.environ.pop(parallelism.ENV_VARIABLE, None)
+        else:
+            os.environ[parallelism.ENV_VARIABLE] = saved
+    if not parallelism.has_used_parallelism():
+        raise SystemExit("t5_shape: the host pool never ran")
+    out["a"]["docs"], out["a"]["mb"] = len(docs), mb
+    print("host modules " + json.dumps({"run": "a_t5_shape", **out["a"]}), flush=True)
+
+    # (b) the C ABI: the library, both drivers, 512 gpt2 documents on the card
+    gpt2_docs = build_docs()
+    env = c_api_env()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        so = build_c_api(force=True)
+        ours = build_c_driver(os.path.join(REPO, "tests", "c_api_torch_driver.c"),
+                              os.path.join(tmp, "ours"))
+        plain = build_c_driver(os.path.join(REPO, "tests", "c_api_driver.c"),
+                               os.path.join(tmp, "plain"))
+        out["b"]["build_s"] = time.perf_counter() - t
+        path = os.path.join(tmp, "docs.bin")
+        with open(path, "wb") as f:
+            f.write(b"\0".join(d.encode("utf-8") for d in gpt2_docs))
+        t = time.perf_counter()
+        r = subprocess.run([ours, GPT2, "card", "batch", path, "--launches"], env=env,
+                           capture_output=True, text=True, timeout=600)
+        out["b"]["driver_s"] = time.perf_counter() - t
+        if r.returncode != 0:
+            raise SystemExit(f"C ABI driver: rc {r.returncode}: {r.stderr[-3000:]}")
+        fields = dict(line.split(": ", 1) for line in r.stdout.splitlines() if ": " in line)
+        want_ids = load_digests("gpt2")
+        got = [ids_digest([int(x) for x in fields[f"ids[{i}]"].split()])
+               for i in range(len(gpt2_docs))]
+        bad = [i for i, (g, w) in enumerate(zip(got, want_ids)) if g != w]
+        if bad or len(got) != len(want_ids):
+            raise SystemExit(f"C ABI: {len(bad)} of {len(got)} documents unlike gpt2's digests")
+        launches = json.loads(fields["launches"])
+        missing = [k for k in C_ABI_KERNELS if launches[k] == 0]
+        if missing:
+            raise SystemExit(f"C ABI: {missing} never launched in the embedded interpreter")
+        out["b"]["launches"] = launches
+        # the JAX package's driver, unchanged, with no visible card: its
+        # tokenizers_create must fail (there is no CPU fallback)
+        r = subprocess.run([plain, GPT2, "Hello"], env={**env, "CUDA_VISIBLE_DEVICES": ""},
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode == 0 or "no CUDA device" not in r.stderr:
+            raise SystemExit(f"C ABI without a card: rc {r.returncode}, {r.stderr[-1000:]}")
+        out["b"]["no_card"] = r.stderr.strip().splitlines()[-1]
+    out["b"]["library"] = os.path.basename(so)
+    print("host modules " + json.dumps({"run": "b_c_abi", **out["b"]}), flush=True)
+
+    # (c) a trained Unigram through to_str, on the card again.  Scores read
+    # back as the wheel reads them (serde_json's parse, lossy in the last
+    # ulp), so ids may move.  The witness: the committed model of
+    # `unigram_train.json`, held exactly, gives the wheel's ids in memory
+    # and after the round trip (`data/unigram_round_trip_digests.json`, the
+    # wheel's own round trip).  Phase 12's model: each score reads back as
+    # serde_json parses what `to_str` wrote, and the card's ids equal the
+    # round-tripped model's host pipeline; the documents that moved are
+    # counted.
+    wheel = load_unigram_round_trip_digests()
+    committed = load_unigram_train()
+    exact = Tokenizer.from_str(recipe_json("unigram"))
+    exact.model = Unigram([tuple(p) for p in committed["vocab"]], committed["unk_id"])
+    exact.add_special_tokens(["<unk>"])
+    zero()
+    for name, t_ in (("trained", exact), ("round_trip", Tokenizer.from_str(exact.to_str()))):
+        got = [ids_digest(e.ids) for e in t_.encode_batch_fast(gpt2_docs)]
+        bad = [i for i, (g, w) in enumerate(zip(got, wheel[name])) if g != w]
+        if bad or len(got) != len(wheel[name]):
+            raise SystemExit(f"unigram to_str witness ({name}): {len(bad)} documents unlike "
+                             f"the wheel's: {bad[:10]}")
+    if any(read().values()):
+        raise SystemExit(f"unigram to_str witness: a kernel of csrc/ launched: {read()}")
+    out["c"]["wheel_docs_moved"] = sum(a != b for a, b in zip(wheel["trained"],
+                                                              wheel["round_trip"]))
+    trained, digests = TRAINED_UNIGRAM["unigram_train"]
+    s = trained.to_str()
+    rt = Tokenizer.from_str(s)
+    if Tokenizer.from_str(rt.to_str()).to_str() != rt.to_str():
+        raise SystemExit("unigram to_str round trip: a second round trip changes to_str")
+    if [p for p, _ in rt.model.pieces] != [p for p, _ in trained.model.pieces] or any(
+            b != serde_f64(repr(a)) for (_, a), (_, b) in zip(trained.model.pieces,
+                                                            rt.model.pieces)):
+        raise SystemExit("unigram to_str round trip: pieces or scores unlike serde_json's "
+                         "parse of what to_str wrote")
+    out["c"]["scores_moved"] = sum(a != b for (_, a), (_, b) in zip(trained.model.pieces,
+                                                                    rt.model.pieces))
+    back = dict(rt.model.pieces)
+    ref = dict((p, v) for p, v in committed["vocab"])
+    if set(back) != set(ref) or any(
+            not math.isclose(ref[p], back[p], rel_tol=1e-6, abs_tol=1e-4 * 16) for p in ref):
+        raise SystemExit("unigram to_str round trip: pieces or scores unlike the wheel's")
+    zero()
+    t = time.perf_counter()
+    encs = rt.encode_batch_fast(gpt2_docs)
+    torch.cuda.synchronize()
+    out["c"]["encode_s"] = time.perf_counter() - t
+    if any(read().values()):
+        raise SystemExit(f"unigram to_str round trip: a kernel of csrc/ launched: {read()}")
+    t = time.perf_counter()
+    host = parallelism.maybe_par_map(rt.encode_host, gpt2_docs)
+    out["c"]["host_pool_s"] = time.perf_counter() - t
+    bad = [i for i, (e, h) in enumerate(zip(encs, host)) if e.ids != h.ids]
+    if bad:
+        raise SystemExit(f"unigram to_str round trip: {len(bad)} documents unlike its host "
+                         f"pipeline's: {bad[:10]}")
+    out["c"]["docs_off_trained_ids"] = sum(ids_digest(e.ids) != d for e, d in zip(encs, digests))
+    out["c"]["docs"], out["c"]["to_str_bytes"] = len(encs), len(s)
+    print("host modules " + json.dumps({"run": "c_unigram_to_str", **out["c"]}), flush=True)
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    numbers["host_modules"] = out
+    print(f"phase 17 (host modules): {out['phase_s']:.1f} s on {smi}", flush=True)
+    for k, s_ in stats.items():
+        s_["c_abi_launches"] = out["b"]["launches"].get(k, 0)
+
+
 def stats_launches(runs, k):
     return sum(r["cold"]["launches"][k] for r in runs.values())
 
@@ -2478,6 +2726,9 @@ def main() -> int:
     # ---- 16. the general host pipeline and the engine's new pipelines ---------------
     host_pipelines_path(torch, stats, counts, numbers, smi)
 
+    # ---- 17. the last host modules: Precompiled, the host pool, the C ABI -------------
+    host_modules_path(torch, stats, counts, numbers, smi)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -2521,6 +2772,7 @@ def main() -> int:
          "multirank_launches": s["multirank_launches"],
          "recipes_launches": s["recipes_launches"], "to_str_launches": s["to_str_launches"],
          "host_pipelines_launches": s["host_pipelines_launches"],
+         "c_abi_launches": s["c_abi_launches"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "shape": s["shape"], **{x: s[x] for x in extra if x in s}}

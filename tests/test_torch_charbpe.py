@@ -390,8 +390,9 @@ def _edited(blob, path, value):
 def test_loader_refuses_what_it_does_not_honour(blobs, path, value):
     """Once refused, now loaded as the JAX package loads it (the general
     host pipeline where no engine takes it): encoded as the wheel does,
-    under dropout as JAX does with the same seed; a Precompiled
-    normalizer still raises (`torch_reference.loads_as_the_reference`)."""
+    under dropout as JAX does with the same seed; the empty Precompiled
+    charsmap is refused, as JAX and the wheel refuse it
+    (`torch_reference.loads_as_the_reference`)."""
     from torch_reference import loads_as_the_reference
 
     loads_as_the_reference(_edited(blobs["sp"], path, value))

@@ -9,8 +9,11 @@ both trainers' mesh arguments and `entry`; the five recipes trained, with
 added tokens, truncation, padding, pairs, pre-tokenized input, a
 post-processor, `to_str`, `from_str` and pickling; the patterns, the
 general host pipeline on every pipeline of `smoke_data.host_pipelines`,
-UnicodeScripts, the ByteLevel normalizer and a regex Replace decoder),
-and no source file of the package imports them."""
+UnicodeScripts, the ByteLevel normalizer and a regex Replace decoder;
+`Precompiled` and the grapheme segmentation, the host pool, the
+visualizer), and no source file of the package imports them.  The C ABI
+(`native/c_api.cpp`) imports no module of Python but the port's and
+`json`."""
 
 import os
 import re
@@ -158,6 +161,14 @@ for name, blob in host_pipelines().items():
     encs = tok.encode_batch(["Hello World! 2024 x²y 日本語", "a"])
     assert encs[0].ids == tok.encode_batch_fast(["Hello World! 2024 x²y 日本語"])[0].ids, name
     assert Tokenizer.from_str(tok.to_str(), device="cpu").to_str() == tok.to_str(), name
+from tokenizers_tpu_torch.graphemes import graphemes
+from tokenizers_tpu_torch.normalizers.precompiled import CHARSMAP_NFKC_PATH, Precompiled
+from tokenizers_tpu_torch.tools import EncodingVisualizer
+from tokenizers_tpu_torch.utils.parallelism import maybe_par_map
+assert graphemes("क्षa\U0001f44d\u200d\U0001f44d") == ["क्ष", "a", "\U0001f44d\u200d\U0001f44d"]
+assert Precompiled(open(CHARSMAP_NFKC_PATH, "rb").read()).normalize_str("ＡＢ①") == "AB1"
+assert "token" in EncodingVisualizer(tok)("Hello")
+assert maybe_par_map(abs, range(-8, 8)) == [abs(x) for x in range(-8, 8)]
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 
@@ -181,3 +192,15 @@ def test_no_source_imports_them(top):
     for f in files:
         with open(f, encoding="utf-8") as fh:
             assert not pat.search(fh.read()), f
+
+
+def test_c_api_embeds_only_the_port():
+    with open(os.path.join(REPO, "tokenizers_tpu_torch", "native", "c_api.cpp"),
+              encoding="utf-8") as f:
+        src = f.read()
+    imported = set(re.findall(r'PyImport_ImportModule\(\s*"([^"]+)"', src))
+    assert imported == {"tokenizers_tpu_torch", "tokenizers_tpu_torch.serialization", "json"}
+    assert not re.search(r"tokenizers_tpu(?!_torch)|jax|JAX_PLATFORMS|\bregex\b", src.replace(
+        "the JAX package", ""))
+    assert not re.search(r"^\s*import\b|\bimport (?!sys\\n)", " ".join(
+        re.findall(r'PyRun_SimpleString\(((?:\s*"[^"]*")+)', src)))

@@ -158,8 +158,8 @@ def _edited(path, value):
 def test_loader_refuses_what_it_does_not_honour(path, value):
     """Once refused, now loaded as the JAX package loads it (the general
     host pipeline where no engine takes it): encoded as the wheel does,
-    under dropout as JAX does with the same seed; a Precompiled
-    normalizer still raises (`torch_reference.loads_as_the_reference`)."""
+    under dropout as JAX does with the same seed
+    (`torch_reference.loads_as_the_reference`)."""
     from torch_reference import loads_as_the_reference
 
     loads_as_the_reference(_edited(path, value))

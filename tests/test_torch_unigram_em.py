@@ -370,3 +370,30 @@ def test_gpu_device_em_matches_cpu(fixture_vocab):
     (ge, gz, gn, gf), (ce, cz, cn, cf) = out["cuda"], out["cpu"]
     assert gn == cn and _rel(ge, ce) <= 1e-12 and _rel(gz, cz) <= 1e-12
     np.testing.assert_array_equal(gf, cf)
+
+
+@pytest.mark.parametrize("name", ["trained", "round_trip"])
+def test_to_str_round_trip_moves_what_the_wheels_moves(name):
+    """The committed trained model (`data/unigram_train.json`) held exactly
+    gives the wheel's ids, and after `to_str` and `from_str` those of the
+    wheel's own round trip (`data/unigram_round_trip_digests.json`, the
+    witness of `chip_smoke.py` phase 17 (c)): on every document whose ids
+    the lossy parse of the scores moves, and on the first eight."""
+    from tokenizers_tpu_torch import Tokenizer
+    from tokenizers_tpu_torch.smoke_data import (
+        build_docs, ids_digest, load_unigram_round_trip_digests, load_unigram_train, recipe_json,
+    )
+
+    want = load_unigram_round_trip_digests()
+    moved = [i for i, (a, b) in enumerate(zip(want["trained"], want["round_trip"])) if a != b]
+    assert moved
+    pick = sorted(set(moved) | set(range(8)))
+    docs = build_docs()
+    committed = load_unigram_train()
+    tok = Tokenizer.from_str(recipe_json("unigram"), device="cpu")
+    tok.model = Unigram([tuple(p) for p in committed["vocab"]], committed["unk_id"])
+    tok.add_special_tokens(["<unk>"])
+    if name == "round_trip":
+        tok = Tokenizer.from_str(tok.to_str(), device="cpu")
+    got = [ids_digest(e.ids) for e in tok.encode_batch_fast([docs[i] for i in pick])]
+    assert got == [want[name][i] for i in pick]

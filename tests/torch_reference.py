@@ -4,8 +4,9 @@ wheel does (ids, tokens, char offsets, word ids, type ids, attention
 mask), or raises where the wheel raises; under BPE dropout it encodes as
 the JAX package does with the same seed (the port's model drawing from
 its own `random.Random`); a model the wheel cannot build (it panics)
-the port refuses too; a `Precompiled` normalizer raises
-NotImplementedError."""
+the port refuses too; a `Precompiled` normalizer encodes as the wheel
+does, and a charsmap the wheel refuses, JAX and the port refuse with
+ValueError."""
 
 import json
 import random
@@ -22,15 +23,17 @@ TEXTS = ["Hello world! y'all'll've 12345", "naïve café ＡＢＣ x²y ½z", "a
 
 def loads_as_the_reference(blob: str, texts=TEXTS) -> None:
     d = json.loads(blob)
-    if "Precompiled" in json.dumps(d.get("normalizer")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Tokenizer.from_str(blob, device="cpu")
-        return
     try:
         ref = hf.Tokenizer.from_str(blob)
     except BaseException as e:  # a Rust panic is no Exception
         if isinstance(e, (KeyboardInterrupt, SystemExit)):
             raise
+        if "Precompiled" in json.dumps(d.get("normalizer")):
+            with pytest.raises(ValueError):
+                tt.Tokenizer.from_str(blob)
+            with pytest.raises(ValueError):
+                Tokenizer.from_str(blob, device="cpu")
+            return
         with pytest.raises(Exception):
             Tokenizer.from_str(blob, device="cpu")
         return

@@ -1,9 +1,11 @@
 """Regenerate the committed data files of this directory.
 
     python -m tokenizers_tpu_torch.data.regen [--retrain] [--recipes] [--uprops]
-                                              [--host-pipelines]
+                                              [--host-pipelines] [--graphemes]
+                                              [--charsmap] [--unigram-round-trip]
 
-(`--recipes`, `--uprops`, `--host-pipelines`: that file alone.)
+(`--recipes`, `--uprops`, `--host-pipelines`, `--graphemes`, `--charsmap`,
+`--unigram-round-trip`: that file alone.)
 
 * `char_class.npz`: the two-stage codepoint -> class table, derived from
   the `regex` module's \\p{L} and \\p{N} (the classes Oniguruma uses).
@@ -47,6 +49,10 @@
   `smoke_data.UNIGRAM_TRAIN` (vocab 8,000, `<unk>`) on the `unigram`
   fixture's recipe (`smoke_data.recipe_json`), fed the lines of the
   corpus's first 1 MB: its settings and [piece, score] list.
+* `unigram_round_trip_digests.json` (`chip_smoke.py` phase 17 (c)): the
+  ids digests of the 8 KB documents that the wheel gives with the model
+  of `unigram_train.json` held exactly in memory, and after its own
+  `to_str` and `from_str` (`wheel_unigram_round_trip`).
 * `decode_digests.json`: per tokenizer of `smoke_data.DECODE_CONFIGS`,
   the text digests of the wheel's `decode_batch` of its own ids of the 8
   KB documents, with and without `skip_special_tokens`, and for
@@ -81,7 +87,10 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import struct
 import sys
+import unicodedata
+from collections import deque
 
 import numpy as np
 
@@ -99,7 +108,8 @@ from ..smoke_data import (
     BERT_PAIR_SETTINGS, CHAR_CONFIGS, CONFIGS, CORPUS, DATA, DECODE_CONFIGS, RECIPE_EXTRA,
     RECIPE_SETTINGS, RECIPE_TOKEN, RECIPE_TRAIN, STREAM_CONFIGS, STREAM_DOCS, TO_STR_CONFIGS,
     TRAIN_RUNS, UNIGRAM_CONFIGS, UNIGRAM_TRAIN, apply_settings, bert_pairs, build_docs,
-    config_json, digests_path, ids_digest, long_parts, merges_digest, offsets_digest,
+    config_json, digests_path, ids_digest, load_unigram_train, long_parts, merges_digest,
+    offsets_digest,
     recipe_digest, recipe_json, stream_digest, text_digest, train_lines, vocab_digest,
 )
 
@@ -168,6 +178,149 @@ def write_uprops():
     tables = uprops_tables()
     np.savez_compressed(UPROPS_PATH, **{k.replace(":", "_"): v for k, v in tables.items()})
     print("wrote", UPROPS_PATH, os.path.getsize(UPROPS_PATH), "bytes")
+
+
+def grapheme_props():
+    """uint8 [MAX_CP]: `graphemes.table`'s byte of every code point, from
+    the `regex` module's Grapheme_Cluster_Break, Extended_Pictographic and
+    Indic_Conjunct_Break classes over every code point."""
+    from ..graphemes import EXT_PICT, GCB, INCB
+    from ..uprops import MAX_CP
+
+    re_mod = importlib.import_module("regex")
+    every = "".join(map(chr, range(MAX_CP)))
+    props = np.zeros(MAX_CP, np.uint8)
+
+    def runs(cls):
+        return [m.span() for m in re_mod.finditer("(?:%s)+" % cls, every)]
+
+    for i, name in enumerate(GCB[1:], 1):
+        for a, b in runs("\\p{Grapheme_Cluster_Break=%s}" % name):
+            props[a:b] |= i
+    for a, b in runs("\\p{Extended_Pictographic}"):
+        props[a:b] |= EXT_PICT
+    for i, name in enumerate(INCB[1:], 1):
+        for a, b in runs("\\p{Indic_Conjunct_Break=%s}" % name):
+            props[a:b] |= i << 5
+    return props
+
+
+def write_graphemes():
+    from ..graphemes import GRAPHEMES_PATH
+
+    np.savez_compressed(GRAPHEMES_PATH, props=grapheme_props())
+    print("wrote", GRAPHEMES_PATH, os.path.getsize(GRAPHEMES_PATH), "bytes")
+
+
+def double_array(keys):
+    """darts-clone's double array (the reader of `spm_precompiled` and
+    `normalizers.precompiled.DoubleArray`) of `keys`, {bytes: value <
+    2^31}, as uint32 units.  Each node's children sit at `base ^ label`,
+    its value at `base ^ 0` with the leaf bit (bit 31); a unit holds its
+    label (bits 0-7), has-leaf (bit 8) and `offset = own index ^ base`
+    (bits 10-30).  No two nodes share a base, so a byte read from one node
+    never matches a label set under another; a unit no node uses gets the
+    label of a base no node of its block uses, which no byte matches."""
+    trie = {}
+    for key, value in keys.items():
+        node = trie
+        for c in key:
+            node = node.setdefault(c, {})
+        node[None] = value
+    units = {0: 0}
+    free = [set(range(1, 256))]  # the free slots of each 256-unit block; the root is 0
+    used = [set()]  # the low bytes of the bases in use in each block
+    todo = deque([(0, trie)])
+    while todo:
+        index, node = todo.popleft()
+        labels = [0 if c is None else c for c in node]
+        base = None
+        for b in range(len(free)):
+            for slot in sorted(free[b]):
+                e = slot ^ labels[0]
+                if e not in used[b] and all(e ^ x in free[b] for x in labels):
+                    base = (b << 8) | e
+                    break
+            if base is not None:
+                break
+        if base is None:
+            free.append(set(range(256)))
+            used.append(set())
+            base = (len(free) - 1) << 8 | labels[0]
+        b = base >> 8
+        used[b].add(base & 0xFF)
+        if index ^ base >= 1 << 21:
+            raise ValueError("double array too large for 21-bit offsets")
+        units[index] |= (index ^ base) << 10
+        for c, child in node.items():
+            label = 0 if c is None else c
+            free[b].discard((base ^ label) & 0xFF)
+            if c is None:
+                units[base] = child | (1 << 31)
+                units[index] |= 1 << 8
+            else:
+                units[base ^ label] = label
+                todo.append((base ^ label, child))
+    out = np.zeros(len(free) << 8, np.uint32)
+    for b in range(len(free)):
+        spare = next((e for e in range(256) if e not in used[b]), 0)
+        for i in range(b << 8, (b + 1) << 8):
+            out[i] = units[i] if i in units else (i ^ spare) & 0xFF
+    return out
+
+
+def precompiled_charsmap(rules):
+    """The `precompiled_charsmap` bytes of {key: normalized} (SentencePiece's
+    format: the trie's size in bytes, little endian, the double array,
+    then each normalized string with a NUL after it)."""
+    blob, at, keys = bytearray(), {}, {}
+    for key, norm in rules.items():
+        if norm not in at:
+            at[norm] = len(blob)
+            blob += norm.encode("utf-8") + b"\0"
+        keys[key.encode("utf-8")] = at[norm]
+    units = double_array(keys)
+    return struct.pack("<I", units.nbytes) + units.astype("<u4").tobytes() + bytes(blob)
+
+
+CHARSMAP_EXTRA = {  # multi-char keys of `charsmap_nfkc.bin` beside the NFKC map
+    "\u00a9\ufe0f": "\u00a9",      # copyright sign + VS16: 5 bytes, one grapheme
+    "1\u20e3": "1",                  # keycap one: 4 bytes
+    "\u1100\u1161": "\uac00",      # a Hangul L V grapheme of 6 bytes: never looked up whole
+    "\U0001f44d\U0001f3fb": "\U0001f44d",  # thumbs up + skin tone: 8 bytes
+    "\U0001f1fa\U0001f1f8": "US",   # a flag: 8 bytes
+    "k\u0301\u0323": "\u1e33\u0301",  # 5 bytes, a key under which "k\u0301" is no key
+}
+
+
+def charsmap_nfkc_rules():
+    """{key: normalized}: every code point whose NFKC form differs from
+    itself (the shape of SentencePiece's `nmt_nfkc` rule set), every
+    letter + combining mark pair that NFC composes, and CHARSMAP_EXTRA."""
+    rules = {}
+    for cp in range(0x110000):
+        if 0xD800 <= cp < 0xE000:
+            continue
+        c = chr(cp)
+        n = unicodedata.normalize("NFKC", c)
+        if n != c:
+            rules[c] = n
+    for base in "aeiounycgzsAEIOUNYCGZS":
+        for mark in "\u0300\u0301\u0302\u0303\u0308\u030a\u030c\u0327":
+            n = unicodedata.normalize("NFC", base + mark)
+            if len(n) == 1:
+                rules[base + mark] = n
+    rules.update(CHARSMAP_EXTRA)
+    return rules
+
+
+def write_charsmap():
+    from ..normalizers.precompiled import CHARSMAP_NFKC_PATH
+
+    data = precompiled_charsmap(charsmap_nfkc_rules())
+    with open(CHARSMAP_NFKC_PATH, "wb") as f:
+        f.write(data)
+    print("wrote", CHARSMAP_NFKC_PATH, len(data), "bytes")
 
 
 def wheel_host_pipelines_digests():
@@ -256,7 +409,9 @@ def wheel_train_digests():
 
 def wheel_unigram_train():
     """{settings, "vocab": [[piece, score], ...]} of the wheel's
-    UnigramTrainer at UNIGRAM_TRAIN on the unigram recipe."""
+    UnigramTrainer at UNIGRAM_TRAIN on the unigram recipe.  The wheel's
+    training is not bit-for-bit repeatable (its scores move in the last
+    ulps from run to run), so the committed file is the source."""
     wheel = importlib.import_module("tokenizers")
     tok = wheel.Tokenizer.from_str(recipe_json("unigram"))
     tok.train_from_iterator(train_lines(UNIGRAM_TRAIN["chars"]), wheel.trainers.UnigramTrainer(
@@ -264,6 +419,32 @@ def wheel_unigram_train():
         show_progress=False))
     model = json.loads(tok.to_str())["model"]
     return {**UNIGRAM_TRAIN, "unk_id": model["unk_id"], "vocab": model["vocab"]}
+
+
+def wheel_unigram_round_trip():
+    """{"trained": [...], "round_trip": [...]}: the ids digests of the 8 KB
+    documents that the wheel gives with the model of `unigram_train.json`
+    held exactly in memory (`models.Unigram` of its pieces and scores, on
+    the unigram recipe with `<unk>` special, as training leaves it), and
+    with that model after the wheel's own `to_str` and `from_str` (whose
+    parse of the scores is lossy)."""
+    wheel = importlib.import_module("tokenizers")
+    want = load_unigram_train()
+    tok = wheel.Tokenizer.from_str(recipe_json("unigram"))
+    tok.model = wheel.models.Unigram([tuple(p) for p in want["vocab"]], want["unk_id"], False)
+    tok.add_special_tokens(["<unk>"])
+    back = wheel.Tokenizer.from_str(tok.to_str())
+    docs = build_docs()
+    return {name: [ids_digest(e.ids) for e in t.encode_batch_fast(docs, add_special_tokens=True)]
+            for name, t in (("trained", tok), ("round_trip", back))}
+
+
+def write_unigram_round_trip():
+    path = os.path.join(DATA, "unigram_round_trip_digests.json")
+    with open(path, "w") as f:
+        json.dump(wheel_unigram_round_trip(), f, indent=0)
+        f.write("\n")
+    print("wrote", path)
 
 
 def wheel_decode_digests():
@@ -333,13 +514,16 @@ def write_recipes_digests():
 
 def main():
     alone = {"--recipes": write_recipes_digests, "--uprops": write_uprops,
-             "--host-pipelines": write_host_pipelines_digests}
+             "--host-pipelines": write_host_pipelines_digests, "--graphemes": write_graphemes,
+             "--charsmap": write_charsmap, "--unigram-round-trip": write_unigram_round_trip}
     if any(a in alone for a in sys.argv[1:]):  # those files alone
         for a in sys.argv[1:]:
             if a in alone:
                 alone[a]()
         return
     write_uprops()
+    write_graphemes()
+    write_charsmap()
     stage1, stage2 = class_tables()
     np.savez_compressed(TABLE_PATH, stage1=stage1, stage2=stage2)
     print("wrote", TABLE_PATH, os.path.getsize(TABLE_PATH), "bytes")
@@ -377,6 +561,7 @@ def main():
         print("wrote", digests_path(name))
     write_recipes_digests()
     write_host_pipelines_digests()
+    write_unigram_round_trip()
 
 
 if __name__ == "__main__":

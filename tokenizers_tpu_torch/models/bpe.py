@@ -32,26 +32,10 @@ import random
 from typing import Dict, List, Optional, Tuple
 
 from ..errors import ModelError
+from ..utils.cache import Cache
+from ..utils.log import get_logger
 
-DEFAULT_CACHE_CAPACITY = 10_000
 MAX_CACHEABLE_LENGTH = 256
-
-
-class Cache:
-    """Bounded word cache: insert only while below capacity."""
-
-    __slots__ = ("capacity", "map")
-
-    def __init__(self, capacity: int = DEFAULT_CACHE_CAPACITY):
-        self.capacity = capacity
-        self.map: Dict[str, Tuple[List[int], List[int]]] = {}
-
-    def get(self, key: str) -> Optional[Tuple[List[int], List[int]]]:
-        return self.map.get(key)
-
-    def set(self, key: str, value: Tuple[List[int], List[int]]) -> None:
-        if len(self.map) < self.capacity:
-            self.map[key] = value
 
 
 class _Word:
@@ -270,6 +254,11 @@ class BPE:
         (`#version: 0.2`, then one merge a line by rank); the paths."""
         vocab_path = os.path.join(folder, f"{prefix}-vocab.json" if prefix else "vocab.json")
         merges_path = os.path.join(folder, f"{prefix}-merges.txt" if prefix else "merges.txt")
+        holes = [i for i in range(len(self.vocab_r)) if i not in self.vocab_r]
+        if holes:  # reference models/mod.rs:54
+            get_logger("models").warning(
+                "The OrderedVocab you are attempting to save contains holes for indices %s, "
+                "your vocabulary could be corrupted !", holes[:16])
         with open(vocab_path, "w", encoding="utf-8") as f:
             json.dump({self.vocab_r[i]: i for i in sorted(self.vocab_r)}, f, ensure_ascii=False)
         with open(merges_path, "w", encoding="utf-8") as f:

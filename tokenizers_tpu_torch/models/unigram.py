@@ -29,7 +29,8 @@ import math
 import os
 from typing import Dict, List, Optional, Tuple
 
-from .bpe import MAX_CACHEABLE_LENGTH, Cache
+from ..utils.cache import Cache
+from .bpe import MAX_CACHEABLE_LENGTH
 
 K_UNK_PENALTY = 10.0
 

@@ -1,4 +1,6 @@
-"""The Unigram trainer's seed enumerator: `suffix_substrings(chars)` gives
+"""Host C++ of the port: the Unigram trainer's seed enumerator and the C ABI.
+
+`suffix_substrings(chars)` gives
 every internal node of the suffix tree of a codepoint sequence as
 (offset, char length, occurrence count); copy of the JAX package's
 `native.suffix_substrings` (reference `models/unigram/trainer.rs:227-230`,
@@ -10,6 +12,15 @@ moves it) and called through ctypes.  It raises when it cannot build:
 there is no silent fallback.  `_suffix_array_numpy` and
 `_enumerate_numpy` (a doubling suffix array, Kasai's LCP and the same
 interval sweep) are its plain version, which the tests hold it against.
+
+`build_c_api()` builds the C ABI (`c_api.cpp`, the counterpart of the JAX
+package's: it embeds CPython and forwards to this package) with `g++`
+against the running interpreter's headers and libpython, at first use
+and whenever the source is newer, into `_build/` beside the package
+(`TOKENIZERS_TPU_TORCH_BUILD` moves it), and gives the library's path for
+C programs to link; it raises when it cannot build.  `build_c_driver`
+compiles a C program against it, and `c_api_env` gives the environment
+in which such a program's embedded interpreter imports this package.
 """
 
 from __future__ import annotations
@@ -150,3 +161,68 @@ def suffix_substrings_plain(chars: np.ndarray) -> List[Tuple[int, int, int]]:
         return []
     s, _k = _compact(chars)
     return [(o, l, c) for (o, l, c) in _enumerate_numpy(s.astype(np.int64)) if o + l <= n]
+
+
+C_API_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "c_api.cpp")
+
+
+def build_c_api(force: bool = False) -> str:
+    """The path of `libtokenizers_tpu_torch_c.so`, built when missing or
+    older than `c_api.cpp` (or with `force`)."""
+    import sysconfig
+
+    from ..ops.kernel_build import build_dir
+
+    out_dir = build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    sopath = os.path.join(out_dir, "libtokenizers_tpu_torch_c.so")
+    if not force and os.path.exists(sopath) and \
+            os.path.getmtime(sopath) >= os.path.getmtime(C_API_SRC):
+        return sopath
+    libdir = sysconfig.get_config_var("LIBDIR")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", f"-I{sysconfig.get_path('include')}",
+           C_API_SRC, "-o", tmp, f"-L{libdir}", f"-Wl,-rpath,{libdir}",
+           f"-lpython{sysconfig.get_config_var('LDVERSION')}"]
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    if out.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ could not build {C_API_SRC}:\n{out.stderr}")
+    os.replace(tmp, sopath)  # atomic: a concurrent build never loads half a file
+    return sopath
+
+
+def build_c_driver(source: str, out: str) -> str:
+    """Compile the C program `source` with `gcc` against the C ABI
+    (`build_c_api`) and libpython, both found at run time by rpath; its
+    path `out`."""
+    import sysconfig
+
+    so = build_c_api()
+    libdir = sysconfig.get_config_var("LIBDIR")
+    cmd = ["gcc", "-O1", f"-I{sysconfig.get_path('include')}", source, "-o", out, so,
+           f"-Wl,-rpath,{os.path.dirname(so)}", f"-L{libdir}", f"-Wl,-rpath,{libdir}",
+           f"-lpython{sysconfig.get_config_var('LDVERSION')}"]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"gcc could not build {source}:\n{res.stderr}")
+    return out
+
+
+def c_api_env(env=None) -> dict:
+    """`env` (default: this process's) for a program that embeds the port
+    through the C ABI: PYTHONPATH leads with the directory holding this
+    package and this interpreter's site-packages, PATH with this
+    interpreter's directory, so that the embedded interpreter imports the
+    same packages as this one."""
+    import site
+    import sys
+
+    env = dict(os.environ if env is None else env)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    paths = [root, *site.getsitepackages(), env.get("PYTHONPATH", "")]
+    env["PYTHONPATH"] = os.pathsep.join(p for p in paths if p)
+    env["PATH"] = os.pathsep.join(p for p in (os.path.dirname(sys.executable),
+                                              env.get("PATH", "")) if p)
+    return env

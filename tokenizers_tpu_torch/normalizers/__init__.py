@@ -7,13 +7,14 @@ the two equal), else through a NormalizedString.  `BertNormalizer`
 (`bert.py`) has the same two methods.  `Replace` matches a literal or a
 regex of the reference's syntax (`pattern.py`); `CustomNormalizer` wraps
 a user object (host only; `to_str` refuses it); `ByteLevel` maps every
-byte to its byte-level char.  `from_json` reads every normalizer node
-the JAX package reads (`tokenizers_tpu/serialization.py:109-150`) but
-`Precompiled`, which raises `NotImplementedError`.
+byte to its byte-level char; `Precompiled` (`precompiled.py`) applies a
+SentencePiece charsmap.  `from_json` reads every normalizer node the JAX
+package reads (`tokenizers_tpu/serialization.py:109-150`).
 """
 
 from __future__ import annotations
 
+import base64
 import re
 import unicodedata
 from typing import List
@@ -234,7 +235,7 @@ _SIMPLE = {"Lowercase": Lowercase, "NFD": NFD, "NFKD": NFKD, "NFC": NFC, "NFKC":
 def from_json(d: dict):
     """The normalizer of a tokenizer.json node, as the JAX package's
     `normalizer_from_dict` reads it (keys it does not read are ignored);
-    `Precompiled` raises NotImplementedError, an unknown type SerdeError."""
+    an unknown type raises SerdeError, a charsmap under 4 bytes ValueError."""
     from ..errors import SerdeError
     from .bert import BertNormalizer
 
@@ -262,6 +263,7 @@ def from_json(d: dict):
     if t == "ByteLevel":
         return ByteLevel()
     if t == "Precompiled":
-        raise NotImplementedError("the Precompiled normalizer (a SentencePiece charsmap) is "
-                                  "not ported yet: it waits for a later slice")
+        from .precompiled import Precompiled
+
+        return Precompiled(base64.b64decode(d["precompiled_charsmap"]))
     raise SerdeError(f"Unknown normalizer type: {t}")

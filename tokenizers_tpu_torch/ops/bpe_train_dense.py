@@ -297,6 +297,7 @@ def dense_loop(words, wid, wcnt, C, cfg, word_to_id, id_to_word, max_len: int,
     floor = max(1, cfg.min_frequency)
     best, a, b = _select(C, v_pad)
     ctx = merge_sites(words, lens, wid, a, b, k_steps)
+    pbar = cfg.merges_bar(len(word_to_id))
     while len(word_to_id) < cfg.vocab_size and len(merges) < merge_cap:
         read = [best.to(torch.int64), a, b, ctx.n_sites]
         if group is not None:  # the sites of every rank
@@ -314,6 +315,7 @@ def dense_loop(words, wid, wcnt, C, cfg, word_to_id, id_to_word, max_len: int,
         if new_id == len(id_to_word):
             id_to_word.append(tok)
         merges.append(((sa, sb), new_id))
+        pbar.inc(1)
         merge_deltas(C, ctx, wcnt, sa, sb, new_id, max_len, n_sites, site_cap, group)
         packed += n_sites <= site_cap
         words = torch.where(ctx.site, new_id, words)
@@ -322,6 +324,7 @@ def dense_loop(words, wid, wcnt, C, cfg, word_to_id, id_to_word, max_len: int,
         lens = torch.where(ctx.kill, 0, lens)
         best, a, b = _select(C, v_pad)
         ctx = merge_sites(words, lens, wid, a, b, k_steps)
+    pbar.finish()
     stats.update(host_reads=reads, packed_rounds=packed)
     return merges
 

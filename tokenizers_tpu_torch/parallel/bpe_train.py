@@ -48,6 +48,7 @@ from .. import pick_device
 from ..ops.bpe_train_dense import reach, train_dense
 from ..ops.bpe_train_step import PairRegistry, round_step, select
 from ..trainers.bpe_trainer import AddedToken, BpeTrainer, merged_token
+from ..utils.log import get_logger
 
 
 def train_device(cfg: BpeTrainer, word_counts: Dict[str, int], model,
@@ -68,9 +69,15 @@ def train_device(cfg: BpeTrainer, word_counts: Dict[str, int], model,
                  ranks=1 if shard is None else shard[2])
 
     merges = train_dense(cfg, word_to_id, id_to_word, words, counts, device, stats, shard)
+    log = get_logger("trainer")
     if merges is None:
+        log.debug("BPE training at vocab %d on %d words: the per-round trainer (past the "
+                  "dense one's envelope)", cfg.vocab_size, len(words))
         merges = train_per_round(cfg, word_to_id, id_to_word, words, counts, device, stats,
                                  shard)
+    else:
+        log.debug("BPE training at vocab %d on %d words: the dense trainer",
+                  cfg.vocab_size, len(words))
     if shard is not None:
         check_replicated(merges, shard[0], device)
     cfg.finalize_model(model, word_to_id, id_to_word, merges)
@@ -221,6 +228,7 @@ def train_per_round(cfg: BpeTrainer, word_to_id: Dict[str, int], id_to_word: Lis
     merges: List[Tuple[Tuple[int, int], int]] = []
     reads = rows_total = 0
     upsert_s = 0.0
+    pbar = cfg.merges_bar(len(word_to_id))
     while len(word_to_id) < cfg.vocab_size:
         best, sa, sb = torch.stack(select(dreg.reg_a, dreg.reg_b, dreg.count)).tolist()
         reads += 1
@@ -233,6 +241,7 @@ def train_per_round(cfg: BpeTrainer, word_to_id: Dict[str, int], id_to_word: Lis
             id_to_word.append(new_token)
             word_to_id[new_token] = new_id
         merges.append(((sa, sb), new_id))
+        pbar.inc(1)
 
         # the round changes only the rows holding both symbols
         rows = ((d_words == sa).any(1) & (d_words == sb).any(1)).nonzero().squeeze(1)
@@ -254,6 +263,7 @@ def train_per_round(cfg: BpeTrainer, word_to_id: Dict[str, int], id_to_word: Lis
         dreg.apply(upd)
         upsert_s += time.perf_counter() - t_up
 
+    pbar.finish()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     stats.update(path="per_round", pack_s=t_loop - t, loop_s=time.perf_counter() - t_loop,
@@ -282,8 +292,8 @@ class DistributedBpeTrainer:
     def stats(self):
         return self.base.stats
 
-    def feed(self, iterator, process):
-        self.base.feed(iterator, process)
+    def feed(self, iterator, process, count_chunks=None):
+        self.base.feed(iterator, process, count_chunks)
 
     def train(self, model) -> List[AddedToken]:
         return self.do_train(self.base.words, model)

@@ -7,12 +7,14 @@ normalizer, pre_tokenizer, post_processor, decoder, model}` with each
 component a "type"-tagged object whose keys come in the reference's
 order, so that `Tokenizer.to_str` (the JSON of it, `separators=(",",
 ":")`, `ensure_ascii=False`) is byte-equal to the reference's
-`to_str`.  Reading stays with the loader (`Tokenizer.from_str`).  A
+`to_str`.  Reading stays with the loader (`Tokenizer.from_str`), but
+`trainer_from_json`, which reads the C ABI's trainer configs.  A
 component the port does not know (a custom decoder) raises SerdeError.
 """
 
 from __future__ import annotations
 
+import base64
 from typing import Any, Dict, Optional
 
 from . import decoders as D
@@ -25,6 +27,7 @@ from .models.unigram import Unigram
 from .models.wordlevel import WordLevel
 from .models.wordpiece import WordPiece
 from .normalizers.bert import BertNormalizer
+from .normalizers.precompiled import Precompiled
 from .pre_tokenizers.bert import BertPreTokenizer
 from .pre_tokenizers.byte_level import ByteLevel
 from .pre_tokenizers.metaspace import Metaspace
@@ -72,6 +75,9 @@ def normalizer_to_dict(n) -> Optional[Dict[str, Any]]:
         return {"type": "Replace", "pattern": _pattern(n.pattern, n.regex), "content": n.content}
     if isinstance(n, N.ByteLevel):
         return {"type": "ByteLevel"}
+    if isinstance(n, Precompiled):
+        return {"type": "Precompiled",
+                "precompiled_charsmap": base64.b64encode(n.precompiled_charsmap).decode("ascii")}
     raise SerdeError(f"Cannot serialize normalizer {n!r}")
 
 
@@ -238,3 +244,28 @@ def tokenizer_to_dict(tok) -> Dict[str, Any]:
         "decoder": decoder_to_dict(tok.decoder),
         "model": model_to_dict(tok.model),
     }
+
+
+def trainer_from_json(payload: str, device=None):
+    """A trainer from a JSON config {"type": "BpeTrainer", ...kwargs}, the
+    C ABI's trainer argument; counterpart of the JAX package's
+    `trainer_from_json` (reference C binding: component configs as JSON
+    payloads, `bindings/c/src/lib.rs`).  The trainers that run on a device
+    take `device` unless the config names one."""
+    import json
+
+    from . import trainers as T
+    from .added_vocabulary import AddedToken
+
+    d = json.loads(payload)
+    kind = d.pop("type")
+    cls = {"BpeTrainer": T.BpeTrainer, "WordPieceTrainer": T.WordPieceTrainer,
+           "WordLevelTrainer": T.WordLevelTrainer, "UnigramTrainer": T.UnigramTrainer}.get(kind)
+    if cls is None:
+        raise SerdeError(f"unknown trainer type {kind!r}")
+    if "special_tokens" in d:
+        d["special_tokens"] = [AddedToken(t, special=True) if isinstance(t, str)
+                               else AddedToken(**t) for t in d["special_tokens"]]
+    if device is not None and cls is not T.WordLevelTrainer:
+        d.setdefault("device", device)
+    return cls(**d)

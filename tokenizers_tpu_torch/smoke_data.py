@@ -57,7 +57,9 @@ each of the first `STREAM_DOCS` documents' `DecodeStream` steps
 from the fixtures and the frozen files: four that no engine takes and the
 general host pipeline runs (`HOST_PIPELINES`, on the first `HOST_DOCS`
 8 KB documents) and two that are new to the byte-level engine
-(`ENGINE_PIPELINES`, on all 512); `host_pipeline_docs` gives each its
+(`ENGINE_PIPELINES`, on all 512); and phase 17's `t5_shape` (a
+`Precompiled` normalizer, on the host, the first `HOST_DOCS` documents).
+`host_pipeline_docs` gives each its
 documents, and `data/host_pipelines_digests.json` the wheel's ids and
 offsets digests of them (`load_host_pipelines_digests`).
 
@@ -78,6 +80,7 @@ edge-case byte rows for the layout kernel.
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import json
 import os
@@ -151,6 +154,7 @@ TO_STR_CONFIGS = ("gpt2", "llama3", "bert", "unigram", "unigram_bf", "char_bpe",
 # phase 16: the general host pipeline's cells (no engine takes them) and
 # the byte-level engine's two new pipelines
 HOST_PIPELINES = ("gpt2_lower", "qwen2_shape", "char_bpe_punct", "wordlevel_scripts")
+T5_SHAPE = "t5_shape"  # phase 17 (a): the Precompiled normalizer, on the host
 ENGINE_PIPELINES = ("gpt2_ignore_merges", "llama3_prefix")
 HOST_DOCS = 16
 # Qwen2's published split: the llama-3 pattern with \p{N} for \p{N}{1,3}
@@ -256,7 +260,10 @@ def host_pipelines() -> Dict[str, str]:
     * wordlevel_scripts: `data/wordlevel.json`'s normalizer and model under
       Sequence[UnicodeScripts, Whitespace];
     * gpt2_ignore_merges: the gpt2 fixture with `ignore_merges`;
-    * llama3_prefix: llama3_128k, its ByteLevel adding a prefix space."""
+    * llama3_prefix: llama3_128k, its ByteLevel adding a prefix space;
+    * t5_shape (phase 17): the unigram fixture's model and Metaspace behind
+      Sequence[Precompiled(`data/charsmap_nfkc.bin`), Replace(" {2,}",
+      " ")], the pipeline shape of T5's published tokenizer.json."""
     def load(config):
         return json.loads(config_json(config))
 
@@ -283,6 +290,13 @@ def host_pipelines() -> Dict[str, str]:
     d = load("llama3")
     d["pre_tokenizer"]["pretokenizers"][1]["add_prefix_space"] = True
     out["llama3_prefix"] = d
+    d = load("unigram")
+    with open(os.path.join(DATA, "charsmap_nfkc.bin"), "rb") as f:
+        charsmap = base64.b64encode(f.read()).decode("ascii")
+    d["normalizer"] = {"type": "Sequence", "normalizers": [
+        {"type": "Precompiled", "precompiled_charsmap": charsmap},
+        {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]}
+    out[T5_SHAPE] = d
     return {k: json.dumps(v, ensure_ascii=False) for k, v in out.items()}
 
 
@@ -354,6 +368,14 @@ def load_unigram_train() -> Dict[str, object]:
     unigram_train.json`: its settings and the trained [piece, score]
     list)."""
     with open(os.path.join(DATA, "unigram_train.json"), encoding="utf-8") as f:
+        return json.load(f)
+
+
+def load_unigram_round_trip_digests() -> Dict[str, List[str]]:
+    """The wheel's ids digests of the 8 KB documents with the model of
+    `load_unigram_train`, in memory ("trained") and after its own `to_str`
+    round trip ("round_trip") (`data/unigram_round_trip_digests.json`)."""
+    with open(os.path.join(DATA, "unigram_round_trip_digests.json")) as f:
         return json.load(f)
 
 

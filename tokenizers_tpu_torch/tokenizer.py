@@ -5,8 +5,8 @@ the card.
 
 The loader reads every `tokenizer.json` the JAX package reads, as its
 `serialization.py` reads it (`normalizers.from_json`,
-`pre_tokenizers.from_json`, `_load_model`, `_load_post_processor`); a
-`Precompiled` normalizer raises `NotImplementedError`.  Floats are parsed
+`pre_tokenizers.from_json`, `_load_model`, `_load_post_processor`), a
+`Precompiled` normalizer (a SentencePiece charsmap) included.  Floats are parsed
 as the wheel's serde_json parses them (`utils.serde_float.serde_f64`):
 Unigram's Viterbi ties turn on the last ulp of its scores.  Every
 pipeline takes any post-processor of `processors/`, any decoder of
@@ -29,7 +29,9 @@ token strings and word ids; `encode_batch_byte_offsets` for byte
 offsets) run the device engine (`ops/engine.py`) on the tokenizer's
 device for a batch of strings, and the host pipeline for what the device
 does not take: inputs holding an added token, pairs and pre-tokenized
-input (as the JAX package routes any input that is not a `str`).  Every
+input (as the JAX package routes any input that is not a `str`); a batch
+of 8 or more inputs on the host runs on the host pool
+(`utils/parallelism.py`, TOKENIZERS_PARALLELISM; `_host_map`).  Every
 encoding then goes through `post_process` (truncate, add the special
 tokens, pad), and the batch is padded.  The device is `cuda` unless the
 caller asks for `device="cpu"`, where every kernel runs its plain
@@ -42,19 +44,24 @@ tokenizer.
 
 `train` and `train_from_iterator` train the model with a trainer of
 `trainers/` on the words of `train_words`, then add the trainer's special
-tokens and drop the device engine.  `decode`, `decode_batch` (serial)
-and `decode_stream` turn ids back into text on the host, as the
-reference does (`tokenizer/mod.rs:1017-1127`, `:1329-1345`).
+tokens and drop the device engine; the trainer's feed counts 4,000
+sequences or more on the host pool.  `decode`, `decode_batch` (on the
+host pool from 64 sequences) and `decode_stream` turn ids back into text
+on the host, as the reference does (`tokenizer/mod.rs:1017-1127`,
+`:1329-1345`).
 """
 
 from __future__ import annotations
 
 import json
 import os
+from collections import Counter
+from functools import partial
 from typing import Dict, Iterable, List, Optional, Sequence as Seq, Union
 
 from . import pick_device
 from .added_vocabulary import AddedToken, AddedVocabulary
+from .decoders import CustomDecoder
 from .decoders import from_json as decoder_from_json
 from .encoding import Encoding
 from .models.bpe import BPE
@@ -63,12 +70,13 @@ from .models.wordlevel import WordLevel
 from .models.wordpiece import WordPiece
 from .models import tokens as model_tokens
 from .normalized import NormalizedString, char_to_byte_offsets
-from .normalizers import (NFC, NFD, NFKC, NFKD, Lowercase, Nmt, Prepend, Replace, Strip,
-                          StripAccents)
+from .normalizers import (NFC, NFD, NFKC, NFKD, CustomNormalizer, Lowercase, Nmt, Prepend,
+                          Replace, Strip, StripAccents)
 from .normalizers import Sequence as NormalizerSequence
 from .normalizers import from_json as normalizer_from_json
 from .normalizers.bert import BertNormalizer
 from .pre_tokenizers import Sequence
+from .pre_tokenizers.base import CustomPreTokenizer
 from .pre_tokenizers import from_json as pre_tokenizer_from_json
 from .pre_tokenizers.bert import BertPreTokenizer
 from .pre_tokenizers.byte_level import ByteLevel
@@ -76,6 +84,7 @@ from .pre_tokenizers.metaspace import Metaspace
 from .pre_tokenizers.whitespace import Whitespace, WhitespaceSplit
 from .processors import BertProcessing, RobertaProcessing, TemplateProcessing, default_process
 from .processors import Sequence as ProcessorSequence
+from .utils.parallelism import MIN_ITEMS
 from .utils.padding import BATCH_LONGEST, PaddingParams, pad_encodings
 from .utils.serde_float import serde_f64
 from .utils.truncation import TruncationParams, truncate_encodings
@@ -199,8 +208,7 @@ def _load_post_processor(d: Optional[dict]):
 
 def _load_components(d: dict):
     """(normalizer, pre-tokenizer, model, post-processor) of a tokenizer.json
-    dict: every pipeline the JAX package loads (a `Precompiled`
-    normalizer raises NotImplementedError)."""
+    dict: every pipeline the JAX package loads."""
     return (normalizer_from_json(d.get("normalizer")),
             pre_tokenizer_from_json(d.get("pre_tokenizer")), _load_model(d["model"]),
             _load_post_processor(d.get("post_processor")))
@@ -218,6 +226,46 @@ def _fast_normalizer(nz, unigram: bool) -> bool:
     return all(type(n) in _FAST_NORMALIZERS and not isinstance(n, NormalizerSequence) and (
         unigram or not (isinstance(n, Nmt) or (isinstance(n, Replace) and n.regex)))
         for n in parts)
+
+
+def _encode_parsed(tok: "Tokenizer", add_special_tokens: bool, offsets: Optional[str],
+                   is_pretokenized: bool, item) -> Encoding:
+    return tok._encode(item[0], item[1], add_special_tokens, offsets, is_pretokenized)
+
+
+def _decode_ids(tok: "Tokenizer", skip_special_tokens: bool, ids) -> str:
+    return tok.decode(ids, skip_special_tokens)
+
+
+def _count_train_words(tok: "Tokenizer", sequences: List[str]) -> Counter:
+    local: Counter = Counter()
+    for sequence in sequences:
+        local.update(tok.train_words(sequence))
+    return local
+
+
+def _with_state(fn, encode_special_tokens: bool, args: tuple, tok: "Tokenizer", item):
+    """`fn(tok, *args, item)`, in a worker of the host pool on its copy of
+    `tok`, with the state its JSON leaves out."""
+    tok.added_vocabulary.encode_special_tokens = encode_special_tokens
+    return fn(tok, *args, item)
+
+
+def _exact_copy(s: str, device: str) -> "Tokenizer":
+    """A worker's copy of a tokenizer from its `to_str`: json's own float
+    parse inverts the `repr` that `to_str` writes, so every score is the
+    tokenizer's own (`from_str`, and so pickling, parse as the wheel does,
+    lossy in the last ulp)."""
+    return Tokenizer._from_dict(json.loads(s), device)
+
+
+def _holds_custom(component) -> bool:
+    """Whether a component is, or holds, a user's object."""
+    if isinstance(component, (CustomNormalizer, CustomPreTokenizer, CustomDecoder)):
+        return True
+    inner = (getattr(component, "normalizers", None) or getattr(component, "pretokenizers", None)
+             or getattr(component, "decoders", None) or ())
+    return any(_holds_custom(c) for c in inner)
 
 
 def fast_route(nz, pt, m) -> bool:
@@ -274,11 +322,12 @@ class Tokenizer:
         self._normalizer = normalizer
         self._pre_tokenizer = pre_tokenizer
         self._post_processor = post_processor
-        self.decoder = decoder
+        self._decoder = decoder
         self.device = pick_device(device)
         self.added_vocabulary = AddedVocabulary()
-        self.truncation: Optional[TruncationParams] = None
-        self.padding: Optional[PaddingParams] = None
+        self._truncation: Optional[TruncationParams] = None
+        self._padding: Optional[PaddingParams] = None
+        self._shared = None  # the host pool's copy (`_host_map`)
         self._engine = None
         self._engine_built = False
         self._checked = False
@@ -294,6 +343,7 @@ class Tokenizer:
         self._checked = False
         self._engine = None
         self._engine_built = False
+        self._shared = None
 
     @property
     def model(self):
@@ -330,6 +380,33 @@ class Tokenizer:
     def post_processor(self, p) -> None:
         self._post_processor = p
         self._changed()
+
+    @property
+    def decoder(self):
+        return self._decoder
+
+    @decoder.setter
+    def decoder(self, d) -> None:
+        self._decoder = d
+        self._shared = None
+
+    @property
+    def truncation(self) -> Optional[TruncationParams]:
+        return self._truncation
+
+    @truncation.setter
+    def truncation(self, t: Optional[TruncationParams]) -> None:
+        self._truncation = t
+        self._shared = None
+
+    @property
+    def padding(self) -> Optional[PaddingParams]:
+        return self._padding
+
+    @padding.setter
+    def padding(self, p: Optional[PaddingParams]) -> None:
+        self._padding = p
+        self._shared = None
 
     @property
     def aligned(self) -> bool:
@@ -509,6 +586,7 @@ class Tokenizer:
     def _add(self, tokens: List[AddedToken]) -> int:
         self._engine = None
         self._engine_built = False
+        self._shared = None
         return self.added_vocabulary.add_tokens(tokens, self._model, self._normalizer)
 
     def add_tokens(self, tokens: Seq[Union[str, AddedToken]]) -> int:
@@ -582,9 +660,9 @@ class Tokenizer:
             else:
                 encodings = engine.encode_batch_offsets(inputs, add_special_tokens, offsets)
         else:
-            encodings = [self._encode(*_parse_encode_input(x, is_pretokenized),
-                                      add_special_tokens, offsets, is_pretokenized)
-                         for x in inputs]
+            parsed = [_parse_encode_input(x, is_pretokenized) for x in inputs]
+            encodings = self._host_map(_encode_parsed, parsed, MIN_ITEMS, add_special_tokens,
+                                       offsets, is_pretokenized)
         if self.padding is not None:
             pad_encodings(encodings, self.padding)
         return encodings
@@ -685,11 +763,11 @@ class Tokenizer:
         engine so that the next encode builds its tables from the trained
         model.  Without a trainer the model's default one runs on this
         tokenizer's device.  `length` is accepted for the reference's
-        surface; there is no progress bar."""
+        surface (the BPE trainers' bar counts merges)."""
         self._check()
         if trainer is None:
             trainer = self._model.get_trainer(device=self.device)
-        trainer.feed(iterator, self.train_words)
+        trainer.feed(iterator, self.train_words, self._count_chunks)
         special_tokens = trainer.train(self._model)
         self.add_special_tokens(special_tokens)
         self._changed()
@@ -752,8 +830,42 @@ class Tokenizer:
 
     def decode_batch(self, sequences: Iterable[Iterable[int]],
                      skip_special_tokens: bool = True) -> List[str]:
-        """`decode` of each sequence, serially."""
-        return [self.decode(ids, skip_special_tokens) for ids in sequences]
+        """`decode` of each sequence; from 64 sequences on, on the host
+        pool (reference `tokenizer/mod.rs:1345`)."""
+        return self._host_map(_decode_ids, [list(ids) for ids in sequences], 64,
+                              skip_special_tokens)
+
+    def _pool_safe(self) -> bool:
+        """Whether the host pool's workers give this tokenizer's results: a
+        tokenizer reaches them through its JSON, which a custom component
+        has not, and under BPE dropout each worker would draw from a copy
+        of one generator (such a batch stays serial, so that it equals the
+        serial run)."""
+        return not (isinstance(self._model, BPE) and self._model.dropout) and not any(
+            _holds_custom(c) for c in (self._normalizer, self._pre_tokenizer, self.decoder))
+
+    def _host_map(self, fn, items: list, min_items: int, *args) -> list:
+        """`fn(self, *args, x)` for each item: on the host pool
+        (`utils.parallelism.maybe_par_map`, which keeps it serial below
+        `min_items` items or with TOKENIZERS_PARALLELISM off) where
+        `_pool_safe`, else serially.  The workers hold an exact copy of
+        this tokenizer (`_exact_copy`), made once for each state: it is
+        dropped at each change made through the Tokenizer (a component,
+        added tokens, truncation, padding, training), as the device
+        engine is."""
+        if not self._pool_safe():
+            return [fn(self, *args, x) for x in items]
+        from .utils.parallelism import Shared, maybe_par_map
+
+        if self._shared is None:
+            self._shared = Shared(self, lambda: (_exact_copy, (self.to_str(), str(self.device))))
+        est = self.added_vocabulary.encode_special_tokens  # left out of the JSON
+        return maybe_par_map(partial(_with_state, fn, est, args), items, min_items, self._shared)
+
+    def _count_chunks(self, chunks: List[List[str]]) -> List[Counter]:
+        """The words of each chunk (`train_words`) counted on the host pool:
+        the BPE trainers' feed map (`BpeTrainer.feed`)."""
+        return self._host_map(_count_train_words, chunks, 2)
 
     def decode_stream(self, skip_special_tokens: bool = True) -> "DecodeStream":
         return DecodeStream(self, skip_special_tokens)

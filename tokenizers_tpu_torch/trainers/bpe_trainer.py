@@ -26,6 +26,9 @@ from collections import Counter
 from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
 
 from ..added_vocabulary import AddedToken
+from ..utils.progress import progress_bar
+
+FEED_CHUNK = 2000  # sequences a feed chunk (the JAX package's)
 
 
 def merged_token(part_a: str, part_b: str, prefix: Optional[str]) -> str:
@@ -34,6 +37,13 @@ def merged_token(part_a: str, part_b: str, prefix: Optional[str]) -> str:
     if prefix and part_b.startswith(prefix):
         part_b = part_b[len(prefix):]
     return part_a + part_b
+
+
+def count_words(process: Callable[[str], List[str]], sequences: List[str]) -> Counter:
+    local: Counter = Counter()
+    for sequence in sequences:
+        local.update(process(sequence))
+    return local
 
 
 def special_tokens_of(tokens) -> List[AddedToken]:
@@ -57,7 +67,7 @@ class BpeTrainer:
     ):
         self.vocab_size = vocab_size
         self.min_frequency = min_frequency
-        self.show_progress = show_progress  # accepted for the reference's surface; no bar
+        self.show_progress = show_progress  # the "Compute merges" bar on a terminal
         self.special_tokens = special_tokens_of(special_tokens)
         self.limit_alphabet = limit_alphabet
         self.initial_alphabet = set(initial_alphabet or [])
@@ -71,17 +81,27 @@ class BpeTrainer:
 
     # ------------------------------------------------------------------ feed
 
-    def feed(self, iterator: Iterable[str], process: Callable[[str], List[str]]) -> None:
-        """Count the words `process` gives for each sequence, serially in
-        this process.  Words keep their first-occurrence order, as the
-        reference's map-reduce feed leaves them (`trainer.rs:609-638`)."""
+    def feed(self, iterator: Iterable[str], process: Callable[[str], List[str]],
+             count_chunks: Optional[Callable[[List[List[str]]], List[Counter]]] = None) -> None:
+        """Count the words `process` gives for each sequence.  Words keep
+        their first-occurrence order, as the reference's map-reduce feed
+        leaves them (`trainer.rs:609-638`).  From 4,000 sequences on, and
+        given `count_chunks` (the Tokenizer passes its host pool's map,
+        `Tokenizer._count_chunks`, as the JAX package's feed maps on its
+        pool), the sequences go to `count_chunks` in chunks of 2,000, which
+        gives each chunk's counts; these are added in chunk order, so the
+        words and their order are the serial count's."""
         t = time.perf_counter()
-        local: Counter = Counter()
-        for sequence in iterator:
-            local.update(process(sequence))
+        seqs = list(iterator)
+        if len(seqs) >= 2 * FEED_CHUNK and count_chunks is not None:
+            counted = count_chunks([seqs[i:i + FEED_CHUNK]
+                                    for i in range(0, len(seqs), FEED_CHUNK)])
+        else:
+            counted = [count_words(process, seqs)]
         words = self.words
-        for w, c in local.items():
-            words[w] = words.get(w, 0) + c
+        for local in counted:
+            for w, c in local.items():
+                words[w] = words.get(w, 0) + c
         self.stats["feed_s"] = self.stats.get("feed_s", 0.0) + time.perf_counter() - t
         self.stats["words"] = len(words)
 
@@ -132,6 +152,7 @@ class BpeTrainer:
         heapq.heapify(heap)
 
         merges: List[Tuple[Tuple[int, int], int]] = []
+        pbar = self.merges_bar(len(word_to_id))
         while len(word_to_id) < self.vocab_size and heap:
             neg_count, pair, _, pos = heapq.heappop(heap)
             count = -neg_count
@@ -150,6 +171,7 @@ class BpeTrainer:
                 id_to_word.append(new_token)
                 word_to_id[new_token] = new_token_id
             merges.append((pair, new_token_id))
+            pbar.inc(1)
 
             # apply the merge at every position, collect pair-count deltas
             for i in sorted(pos):
@@ -169,14 +191,22 @@ class BpeTrainer:
                     seq += 1
             where_to_update = {}
 
+        pbar.finish()
         self.finalize_model(model, word_to_id, id_to_word, merges)
         return list(self.special_tokens)
+
+    def merges_bar(self, n_tokens: int):
+        """The "Compute merges" bar of a merge loop starting at `n_tokens`
+        tokens (`utils.progress`; drawn with `show_progress` on a
+        terminal)."""
+        return progress_bar(self.show_progress, max(0, self.vocab_size - n_tokens),
+                            "Compute merges")
 
     def finalize_model(self, model, word_to_id, id_to_word, merges) -> None:
         """Give `model` (a port `models.bpe.BPE`) the trained vocab and
         merges; its unk token, `fuse_unk` and `byte_fallback` stay, and it
         takes the trainer's prefix and suffix (`trainer.rs:595-606`)."""
-        from ..models.bpe import Cache
+        from ..utils.cache import Cache
 
         model.vocab = dict(word_to_id)
         model.vocab_r = {v: k for k, v in model.vocab.items()}

@@ -47,9 +47,11 @@ class UnigramTrainer:
         # what the last feed and train did: seconds of each part, host routes, ...
         self.stats: Dict[str, object] = {}
 
-    def feed(self, iterator: Iterable[str], process: Callable[[str], List[str]]) -> None:
+    def feed(self, iterator: Iterable[str], process: Callable[[str], List[str]],
+             count_chunks=None) -> None:
         """Count the words `process` gives for each sequence, serially in
-        this process, in first-occurrence order."""
+        this process (as the JAX package's feed: `count_chunks`, the
+        Tokenizer's pool map, is not used), in first-occurrence order."""
         t = time.perf_counter()
         local: Counter = Counter()
         for sequence in iterator:

@@ -26,7 +26,10 @@ class WordLevelTrainer:
         self.words: Dict[str, int] = {}
         self.stats: Dict[str, object] = {}
 
-    def feed(self, iterator: Iterable[str], process: Callable[[str], List[str]]) -> None:
+    def feed(self, iterator: Iterable[str], process: Callable[[str], List[str]],
+             count_chunks=None) -> None:
+        """Count the words serially, as the JAX package's feed
+        (`count_chunks`, the Tokenizer's pool map, is not used)."""
         t = time.perf_counter()
         words = self.words
         for sequence in iterator:

@@ -52,8 +52,9 @@ class WordPieceTrainer:
     def stats(self):
         return self.bpe_trainer.stats
 
-    def feed(self, iterator: Iterable[str], process: Callable[[str], List[str]]) -> None:
-        self.bpe_trainer.feed(iterator, process)
+    def feed(self, iterator: Iterable[str], process: Callable[[str], List[str]],
+             count_chunks=None) -> None:
+        self.bpe_trainer.feed(iterator, process, count_chunks)
 
     def train(self, model) -> List[AddedToken]:
         """Train a BPE on the device and give `model` (a port
