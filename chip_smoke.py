@@ -260,7 +260,29 @@
    pipeline's ids (run on the host pool); the documents whose ids moved
    off the trained model's are counted.  Adds each kernel's
    `c_abi_launches` (the (b) driver's counts).
-18. Prints a line of numbers per path, the per-kernel JSON line (with each
+18. The JAX package's public API (`jax_api_path`), written only in its
+   names on `import tokenizers_tpu_torch as tt`, with no device named (the
+   card by default): (a) `tt.Tokenizer(tt.models.BPE(unk_token=None))` with
+   `tt.pre_tokenizers.ByteLevel` and `tt.decoders.ByteLevel`, trained by
+   `tt.trainers.BpeTrainer` (vocab 8,000, `tt.AddedToken("<|endoftext|>",
+   special=True)`) through `train_from_iterator` on the corpus's first
+   256 KB (`smoke_data.jax_api_tokenizer`): no kernel of `csrc/`
+   launched, its `to_str` equal to the same phase run on the CPU
+   (`data/jax_api_digests.json`); (b) gpt2 by `tt.Tokenizer.from_file`;
+   `encode_batch_fast` of the 512 documents with both, counts set to 0
+   just before and read just after, gpt2's against the wheel's digests and
+   the trained one's against the CPU's, B3, B2 and B1 launched by each,
+   and each run again on a tokenizer in the same state under
+   `checked_again` (every launch bit for bit against its plain version);
+   (c) `decode_batch` and `tt.DecodeStream` (the first `STREAM_DOCS`)
+   give the documents back; (d) `model.tokenize` of
+   `smoke_data.JAX_API_WORDS` gives the `Token`s of the same model loaded
+   after `tt.set_default_device("cpu")` (which is then given back), and
+   the trained model's those of the CPU run; (e) `enable_truncation(8,
+   strategy="bogus")` raises `tt.TruncationError`.  Prints the phase's
+   seconds and launches with the card's name and power limit, and adds
+   each kernel's `jax_api_launches`.
+19. Prints a line of numbers per path, the per-kernel JSON line (with each
    merge kernel's registers and spills from ptxas: a merge kernel missing
    from the report, or spill bytes in B4's two kernels or B1's row kernel,
    fail the run), the card's
@@ -1401,7 +1423,7 @@ def train_path(torch, stats, counts, numbers):
     host.feed(lines, ws.pre_tokenize)
     host_model = BPE({}, [], continuing_subword_prefix="##")
     t = time.perf_counter()
-    host.do_train_host(host.words, host_model)
+    host.do_train(host.words, host_model)
     runs["wordpiece_2000"]["host_loop_s"] = time.perf_counter() - t
     if model.vocab != host_model.vocab:
         raise SystemExit("train wordpiece_2000: the vocab differs from the host BpeTrainer's")
@@ -2454,6 +2476,132 @@ def host_modules_path(torch, stats, counts, numbers, smi):
         s_["c_abi_launches"] = out["b"]["launches"].get(k, 0)
 
 
+JAX_API_KERNELS = ("layout_fused", "keys", "merge_round_fused")  # B3, B2, B1
+
+
+def jax_api_path(torch, stats, counts, numbers, smi):
+    """Phase 18, the JAX package's public API on the card (docstring item
+    18).  What a user calls is written only in the JAX package's public
+    names, on the port imported as `tt`, with no device named, so every
+    entry point takes the card by default; the harness around it (the
+    digests, the launch counts, `checked_again`) is the smoke's own.  Adds
+    each kernel's `jax_api_launches` to `stats`."""
+    import tokenizers_tpu_torch as tt
+    from tokenizers_tpu_torch.smoke_data import (
+        JAX_API_TRAIN, STREAM_DOCS, build_docs, ids_digest, jax_api_tokenizer, jax_api_tokens,
+        load_digests, load_jax_api_digests, text_digest, train_lines,
+    )
+
+    t_phase = time.perf_counter()
+    want = load_jax_api_digests()
+    docs = build_docs()
+    out = {}
+
+    def zero():
+        for c in counts.values():
+            for k in c:
+                c[k] = 0
+
+    def read():
+        return {k: c[k] for k, c in counts.items()}
+
+    # (a) a byte-level BPE built and trained through JAX's names, on the card
+    zero()
+    t = time.perf_counter()
+    trained = jax_api_tokenizer(tt, train_lines(JAX_API_TRAIN["chars"]))
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t
+    if trained.device.type != "cuda":
+        raise SystemExit(f"jax api: the tokenizer took {trained.device}, not the card")
+    if any(read().values()):
+        raise SystemExit(f"jax api: a kernel of csrc/ launched while training: {read()}")
+    if text_digest(trained.to_str()) != want["trained_to_str"]:
+        raise SystemExit("jax api: the model trained on the card differs from the CPU's")
+    gpt2 = tt.Tokenizer.from_file(GPT2)
+
+    # (b) encode_batch_fast of the 512 documents with both, counted and checked
+    runs, ids = {}, {}
+    for name, tok, digests, again in (
+            ("gpt2", gpt2, load_digests("gpt2"), lambda: tt.Tokenizer.from_file(GPT2)),
+            ("trained", trained, want["trained_fast"],
+             lambda: tt.Tokenizer.from_str(trained.to_str()))):
+        other = again()
+        for t_ in (tok, other):
+            t_._get_device_engine()  # the engine's tables, built before the counted run
+        zero()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        encs = tok.encode_batch_fast(docs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = read()
+        bad = [i for i, e in enumerate(encs) if ids_digest(e.ids) != digests[i]]
+        if bad:
+            raise SystemExit(f"jax api {name}: {len(bad)} documents differ from their "
+                             f"digests: {bad[:10]}")
+        missing = [k for k in JAX_API_KERNELS if launches[k] == 0]
+        if missing:
+            raise SystemExit(f"jax api {name}: {missing} never launched")
+        shapes, errs = checked_again(torch, lambda: other.encode_batch_fast(docs),
+                                     f"jax api {name}", launches, lambda e: ids_digest(e.ids),
+                                     digests)
+        for k, e in errs.items():
+            stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], e)
+        ids[name] = [e.ids for e in encs]
+        runs[name] = {"secs": secs, "mb_s": sum(len(d.encode()) for d in docs) / secs / 1e6,
+                      "launches": launches}
+
+    # (c) decode_batch and DecodeStream give the documents back
+    for name, tok in (("gpt2", gpt2), ("trained", trained)):
+        t = time.perf_counter()
+        texts = tok.decode_batch(ids[name])
+        runs[name]["decode_batch_s"] = time.perf_counter() - t
+        bad = [i for i, (x, d) in enumerate(zip(texts, docs)) if x != d]
+        if bad:
+            raise SystemExit(f"jax api {name}: decode_batch differs from {len(bad)} "
+                             f"documents: {bad[:10]}")
+        t = time.perf_counter()
+        for i in range(STREAM_DOCS):
+            stream = tt.DecodeStream(tok, True)
+            if "".join(x for x in map(stream.step, ids[name][i]) if x is not None) != docs[i]:
+                raise SystemExit(f"jax api {name}: DecodeStream differs from document {i}")
+        runs[name]["decode_stream_s"] = time.perf_counter() - t
+
+    # (d) Model.tokenize gives JAX's Tokens, as the same model on the CPU
+    previous = tt.set_default_device("cpu")
+    try:
+        on_cpu = {name: tt.Tokenizer.from_str(tok.to_str())
+                  for name, tok in (("gpt2", gpt2), ("trained", trained))}
+    finally:
+        tt.set_default_device(previous)
+    if on_cpu["gpt2"].device.type != "cpu" or tt.Tokenizer.from_file(GPT2).device.type != "cuda":
+        raise SystemExit("jax api: set_default_device did not move and give back the default")
+    for name, tok in (("gpt2", gpt2), ("trained", trained)):
+        got = jax_api_tokens(tok.model)
+        if not isinstance(tok.model, tt.models.BPE) or got != jax_api_tokens(on_cpu[name].model):
+            raise SystemExit(f"jax api {name}: model.tokenize differs from the model on the CPU")
+    if jax_api_tokens(trained.model) != want["tokens"]:
+        raise SystemExit("jax api: the trained model's tokenize differs from the CPU run's")
+
+    # (e) a typed error of the JAX package on bad parameters
+    try:
+        gpt2.enable_truncation(8, strategy="bogus")
+    except tt.TruncationError as e:
+        out["truncation_error"] = str(e)
+    else:
+        raise SystemExit("jax api: enable_truncation(strategy='bogus') raised no TruncationError")
+
+    out["runs"] = runs
+    out["phase_s"] = time.perf_counter() - t_phase
+    numbers["jax_api"] = out
+    print("numbers " + json.dumps({"jax_api": out}), flush=True)
+    print(f"phase 18 (JAX API): {out['phase_s']:.1f} s on {smi}; launches "
+          + json.dumps({n: {k: r["launches"][k] for k in JAX_API_KERNELS}
+                        for n, r in runs.items()}), flush=True)
+    for k, s_ in stats.items():
+        s_["jax_api_launches"] = {n: r["launches"][k] for n, r in runs.items()}
+
+
 def stats_launches(runs, k):
     return sum(r["cold"]["launches"][k] for r in runs.values())
 
@@ -2729,6 +2877,9 @@ def main() -> int:
     # ---- 17. the last host modules: Precompiled, the host pool, the C ABI -------------
     host_modules_path(torch, stats, counts, numbers, smi)
 
+    # ---- 18. the JAX package's public API, in JAX's names alone ----------------------
+    jax_api_path(torch, stats, counts, numbers, smi)
+
     # registers, spills and static shared memory of the merge kernels, from
     # ptxas's report of the build this run loaded
     usage = kernel_build.ptxas_usage(kernel_build.build_log("merge_round.cu"))
@@ -2772,7 +2923,7 @@ def main() -> int:
          "multirank_launches": s["multirank_launches"],
          "recipes_launches": s["recipes_launches"], "to_str_launches": s["to_str_launches"],
          "host_pipelines_launches": s["host_pipelines_launches"],
-         "c_abi_launches": s["c_abi_launches"],
+         "c_abi_launches": s["c_abi_launches"], "jax_api_launches": s["jax_api_launches"],
          "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "shape": s["shape"], **{x: s[x] for x in extra if x in s}}

@@ -43,8 +43,8 @@ def _decoder_pairs():
     return [
         (td.ByteLevel(), wd.ByteLevel()),
         (td.Metaspace(), wd.Metaspace()),
-        (td.Metaspace("never"), wd.Metaspace(prepend_scheme="never")),
-        (td.Metaspace("first", "_"), wd.Metaspace(replacement="_", prepend_scheme="first")),
+        (td.Metaspace(prepend_scheme="never"), wd.Metaspace(prepend_scheme="never")),
+        (td.Metaspace("_", "first"), wd.Metaspace(replacement="_", prepend_scheme="first")),
         (td.WordPiece(), wd.WordPiece()),
         (td.WordPiece("##", False), wd.WordPiece(cleanup=False)),
         (td.BPEDecoder(), wd.BPEDecoder()),

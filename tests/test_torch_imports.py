@@ -26,6 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "regex", "tokenizers", "tokenizers_tpu")
 
 _PROBE = """
+import json
 import sys
 from tokenizers_tpu_torch import Tokenizer
 tok = Tokenizer.from_file("tests/fixtures/gpt2/tokenizer.json", device="cpu")
@@ -169,6 +170,25 @@ assert graphemes("क्षa\U0001f44d\u200d\U0001f44d") == ["क्ष", "a", "
 assert Precompiled(open(CHARSMAP_NFKC_PATH, "rb").read()).normalize_str("ＡＢ①") == "AB1"
 assert "token" in EncodingVisualizer(tok)("Hello")
 assert maybe_par_map(abs, range(-8, 8)) == [abs(x) for x in range(-8, 8)]
+import tokenizers_tpu_torch as tt
+from tokenizers_tpu_torch.serialization import model_from_dict, tokenizer_from_dict
+from tokenizers_tpu_torch.utils.unicode_norm import nfkc_transform
+previous = tt.set_default_device("cpu")
+tok = tt.Tokenizer(tt.models.BPE(unk_token=None))
+tok.pre_tokenizer, tok.decoder = tt.pre_tokenizers.ByteLevel(), tt.decoders.ByteLevel()
+tok.train_from_iterator(lines, tt.trainers.BpeTrainer(
+    vocab_size=280, special_tokens=[tt.AddedToken("<|endoftext|>", special=True)]))
+ids = tok.encode_batch_fast(["the lowest<|endoftext|>"])[0].ids
+assert tok.decode(ids) == " the lowest" and tok.device.type == "cpu", ids
+words = [t.value for t in tok.model.tokenize("Ġlowest")]
+assert "".join(words) == "Ġlowest" and isinstance(tok.model, tt.models.Model), words
+assert tokenizer_from_dict(json.loads(tok.to_str())).to_str() == tok.to_str()
+wl = model_from_dict({"type": "WordLevel", "vocab": {"a": 0}, "unk_token": "a"})
+assert wl.tokenize("b")[0].id == 0
+assert tt.normalizers.BertNormalizer().normalize_str("Héllo") == "hello"
+assert tt.pre_tokenizers.PreTokenizedString("a b").get_splits()
+assert nfkc_transform("ﬁ")[0] == [("f", 0), ("i", 1)]
+assert tt.set_default_device(previous).type == "cpu"
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 

@@ -68,7 +68,7 @@ def _check_card_ranks(ranks):
             assert got["fast"] == host
     for setting, kw in enumerate(jobs.TRAIN_SETTINGS):
         model = BPE({}, [])
-        BpeTrainer(vocab_size=40, **kw).do_train_host(dict(WORDS), model)
+        BpeTrainer(vocab_size=40, **kw).do_train(dict(WORDS), model)
         for r in ranks:
             for path in ("dense", "per_round"):
                 merges, vocab, _path = r["bpe"][setting][path]

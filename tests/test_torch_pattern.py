@@ -30,7 +30,7 @@ from tokenizers_tpu_torch import decoders as td  # noqa: E402
 from tokenizers_tpu_torch import pattern as tp  # noqa: E402
 from tokenizers_tpu_torch import uprops  # noqa: E402
 from tokenizers_tpu_torch.pre_tokenizers import Split  # noqa: E402
-from tokenizers_tpu_torch.pre_tokenizers.byte_level import GPT2_PATTERN  # noqa: E402
+from tokenizers_tpu_torch.pre_tokenizers.byte_level import GPT2_SPLIT_PATTERN  # noqa: E402
 from tokenizers_tpu_torch.pre_tokenizers.split import LLAMA3_PATTERN  # noqa: E402
 from tokenizers_tpu_torch.smoke_data import QWEN2_PATTERN  # noqa: E402
 from corpus import SHORT_STRINGS  # noqa: E402
@@ -66,7 +66,7 @@ def _is_vowel(c):
 
 
 PATTERNS = {
-    "gpt2": lambda m: m.SysRegex(GPT2_PATTERN),
+    "gpt2": lambda m: m.SysRegex(GPT2_SPLIT_PATTERN),
     "llama3": lambda m: m.SysRegex(LLAMA3_PATTERN),
     "qwen2": lambda m: m.SysRegex(QWEN2_PATTERN),
     "whitespace": lambda m: m.SysRegex(r"\w+|[^\w\s]+"),

@@ -334,7 +334,7 @@ def test_host_loop_matches_jax(words100k, case):
     kw = dict(vocab_size=300, **CASES[case])
     want = _jax_host(words100k, **kw)
     model = BPE({}, [])
-    BpeTrainer(device="cpu", **kw).do_train_host(words100k, model)
+    BpeTrainer(device="cpu", **kw).do_train(words100k, model)
     assert (model.merges_list, model.vocab) == (want.merges_list, want.vocab)
 
 
@@ -342,7 +342,7 @@ def _paths(words, device="cpu", **kw):
     """Merges of the host loop, the dense path and the per-round path (the
     last two on `device`)."""
     host = BPE({}, [])
-    BpeTrainer(device="cpu", **kw).do_train_host(words, host)
+    BpeTrainer(device="cpu", **kw).do_train(words, host)
     out = [host.merges_list]
     for path in ("dense", "per_round"):
         cfg = BpeTrainer(device=device, **kw)
@@ -442,7 +442,7 @@ def test_routing_by_size(words100k):
     model = BPE({}, [])
     trainer.train(model)
     host = BPE({}, [])
-    BpeTrainer(vocab_size=50, device="cpu").do_train_host(long_word, host)
+    BpeTrainer(vocab_size=50, device="cpu").do_train(long_word, host)
     assert trainer.stats["path"] == "per_round" and model.merges_list[0] == ("x", "x")
     assert ("x" * 1024, "x" * 1024) in model.merges_list
     assert model.merges_list == host.merges_list and model.vocab == host.vocab

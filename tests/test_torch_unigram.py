@@ -179,7 +179,8 @@ def test_host_unigram_matches_jax(path):
     for w in words:
         want = [(t.id, t.offsets[0], t.offsets[1], t.value) for t in jmodel.tokenize(w)]
         assert model.tokenize_spans(w) == want, w
-        assert model.tokenize(w) == [t[0] for t in want]
+        assert model.tokenize_ids(w) == [t[0] for t in want]
+        assert [(t.id, t.offsets[0], t.offsets[1], t.value) for t in model.tokenize(w)] == want
 
 
 # ---- device functions --------------------------------------------------------

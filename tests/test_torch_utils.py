@@ -341,12 +341,12 @@ def test_trainers_draw_compute_merges(monkeypatch, path):
         w2i, i2w, ws, counts = trainer.prepare(words)
         train_per_round(trainer, w2i, i2w, ws, counts, "cpu", {})
     else:
-        trainer.do_train_host(words, BPE())
+        trainer.do_train(words, BPE())
     out = tty.getvalue()
     assert "Compute merges" in out and out.endswith("\n"), out
     quiet = BpeTrainer(vocab_size=20, show_progress=False, device="cpu")
     monkeypatch.setattr(sys, "stderr", _FakeTTY())
-    quiet.do_train_host(words, BPE())
+    quiet.do_train(words, BPE())
     assert sys.stderr.getvalue() == ""
 
 

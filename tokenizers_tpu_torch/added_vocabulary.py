@@ -159,6 +159,9 @@ class AddedVocabulary:
 
     # ------------------------------------------------------------------ build
 
+    def add_special_tokens(self, tokens: List[AddedToken], model, normalizer) -> int:
+        return self.add_tokens(tokens, model, normalizer)
+
     def add_tokens(self, tokens: List[AddedToken], model, normalizer) -> int:
         """(reference `added_vocabulary.rs:258-316`)"""
         for token in tokens:

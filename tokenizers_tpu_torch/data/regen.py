@@ -3,9 +3,10 @@
     python -m tokenizers_tpu_torch.data.regen [--retrain] [--recipes] [--uprops]
                                               [--host-pipelines] [--graphemes]
                                               [--charsmap] [--unigram-round-trip]
+                                              [--jax-api]
 
 (`--recipes`, `--uprops`, `--host-pipelines`, `--graphemes`, `--charsmap`,
-`--unigram-round-trip`: that file alone.)
+`--unigram-round-trip`, `--jax-api`: that file alone.)
 
 * `char_class.npz`: the two-stage codepoint -> class table, derived from
   the `regex` module's \\p{L} and \\p{N} (the classes Oniguruma uses).
@@ -77,6 +78,11 @@
   `unigram_offsets_digests.json`, `unigram_bf_offsets_digests.json`
   (offsets digests of the 8 KB documents), on the fixtures of
   `smoke_data.UNIGRAM_CONFIGS`.
+* `jax_api_digests.json` (`chip_smoke.py` phase 18): that phase's
+  trained tokenizer (`smoke_data.jax_api_tokenizer`) run by the port
+  itself on the CPU (`set_default_device("cpu")`): its `to_str` digest,
+  the ids digests of its `encode_batch_fast` of the 8 KB documents, and
+  `smoke_data.jax_api_tokens` of its model.
 
 Both references are optional dependencies: they are imported by name here
 only, so the package itself never needs them.
@@ -106,11 +112,11 @@ from ..ops.unicode_tables import (
 from ..ops.wordlevel_encode import class_table_path
 from ..smoke_data import (
     BERT_PAIR_SETTINGS, CHAR_CONFIGS, CONFIGS, CORPUS, DATA, DECODE_CONFIGS, RECIPE_EXTRA,
-    RECIPE_SETTINGS, RECIPE_TOKEN, RECIPE_TRAIN, STREAM_CONFIGS, STREAM_DOCS, TO_STR_CONFIGS,
-    TRAIN_RUNS, UNIGRAM_CONFIGS, UNIGRAM_TRAIN, apply_settings, bert_pairs, build_docs,
-    config_json, digests_path, ids_digest, load_unigram_train, long_parts, merges_digest,
-    offsets_digest,
-    recipe_digest, recipe_json, stream_digest, text_digest, train_lines, vocab_digest,
+    JAX_API_TRAIN, RECIPE_SETTINGS, RECIPE_TOKEN, RECIPE_TRAIN, STREAM_CONFIGS, STREAM_DOCS,
+    TO_STR_CONFIGS, TRAIN_RUNS, UNIGRAM_CONFIGS, UNIGRAM_TRAIN, apply_settings, bert_pairs,
+    build_docs, config_json, digests_path, ids_digest, jax_api_tokenizer, jax_api_tokens,
+    load_unigram_train, long_parts, merges_digest, offsets_digest, recipe_digest, recipe_json,
+    stream_digest, text_digest, train_lines, vocab_digest,
 )
 
 # Oniguruma \s
@@ -512,10 +518,34 @@ def write_recipes_digests():
     print("wrote", path)
 
 
+def port_jax_api_digests():
+    """Phase 18's trained tokenizer on the CPU: the port's own result, which
+    the card must give again."""
+    import tokenizers_tpu_torch as tt
+
+    previous = tt.set_default_device("cpu")
+    try:
+        tok = jax_api_tokenizer(tt, train_lines(JAX_API_TRAIN["chars"]))
+        return {"trained_to_str": text_digest(tok.to_str()),
+                "trained_fast": [ids_digest(e.ids) for e in tok.encode_batch_fast(build_docs())],
+                "tokens": jax_api_tokens(tok.model)}
+    finally:
+        tt.set_default_device(previous)
+
+
+def write_jax_api_digests():
+    path = os.path.join(DATA, "jax_api_digests.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(port_jax_api_digests(), f, indent=0, ensure_ascii=False)
+        f.write("\n")
+    print("wrote", path)
+
+
 def main():
     alone = {"--recipes": write_recipes_digests, "--uprops": write_uprops,
              "--host-pipelines": write_host_pipelines_digests, "--graphemes": write_graphemes,
-             "--charsmap": write_charsmap, "--unigram-round-trip": write_unigram_round_trip}
+             "--charsmap": write_charsmap, "--unigram-round-trip": write_unigram_round_trip,
+             "--jax-api": write_jax_api_digests}
     if any(a in alone for a in sys.argv[1:]):  # those files alone
         for a in sys.argv[1:]:
             if a in alone:
@@ -562,6 +592,7 @@ def main():
     write_recipes_digests()
     write_host_pipelines_digests()
     write_unigram_round_trip()
+    write_jax_api_digests()
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+from ..pattern import SysRegex
 from ..pre_tokenizers.byte_level import ByteLevel
 from ..pre_tokenizers.metaspace import Metaspace
 
@@ -219,8 +220,6 @@ class Replace(Decoder):
     `\\s` are Oniguruma's classes, as in the JAX package)."""
 
     def __init__(self, pattern: str, content: str, regex: bool = False):
-        from ..pattern import SysRegex
-
         self.pattern, self.content, self.regex = pattern, content, regex
         self._re = SysRegex(pattern) if regex else None
 
@@ -246,7 +245,7 @@ def from_json(d: Optional[dict]):
         prepend_scheme = d.get("prepend_scheme", "always")
         if d.get("add_prefix_space") is False:
             prepend_scheme = "never"
-        return Metaspace(prepend_scheme, d.get("replacement", "▁"), d.get("split", True))
+        return Metaspace(d.get("replacement", "▁"), prepend_scheme, d.get("split", True))
     if t == "WordPiece":
         return WordPiece(d.get("prefix", "##"), d.get("cleanup", True))
     if t == "BPEDecoder":

@@ -153,7 +153,7 @@ def dryrun_checks(device=None) -> dict:
     # ---- rank 0: against the single-process runs
     model_host = BpeTrainer(vocab_size=vocab_size)
     host = BPE({}, [])
-    model_host.do_train_host(dict(wc), host)
+    model_host.do_train(dict(wc), host)
     if len(model_dev.merges_list) < 128 or model_dev.merges_list != host.merges_list:
         raise AssertionError("sharded BPE training diverged from the host trainer")
     if pieces_mesh != train_unigram(None):

@@ -75,21 +75,14 @@ class BaseTokenizer:
     def get_vocab_size(self, with_added_tokens: bool = True) -> int:
         return self._tokenizer.get_vocab_size(with_added_tokens)
 
-    def enable_padding(self, direction: str = "right", pad_to_multiple_of: Optional[int] = None,
-                       pad_id: int = 0, pad_type_id: int = 0, pad_token: str = "[PAD]",
-                       length: Optional[int] = None):
-        return self._tokenizer.enable_padding(direction=direction, pad_id=pad_id,
-                                              pad_type_id=pad_type_id, pad_token=pad_token,
-                                              length=length,
-                                              pad_to_multiple_of=pad_to_multiple_of)
+    def enable_padding(self, **kwargs):
+        return self._tokenizer.enable_padding(**kwargs)
 
     def no_padding(self):
         return self._tokenizer.no_padding()
 
-    def enable_truncation(self, max_length: int, stride: int = 0,
-                          strategy: str = "longest_first", direction: str = "right"):
-        return self._tokenizer.enable_truncation(max_length, stride=stride, strategy=strategy,
-                                                 direction=direction)
+    def enable_truncation(self, max_length: int, **kwargs):
+        return self._tokenizer.enable_truncation(max_length, **kwargs)
 
     def no_truncation(self):
         return self._tokenizer.no_truncation()

@@ -33,8 +33,8 @@ class SentencePieceBPETokenizer(BaseTokenizer):
             tokenizer.add_special_tokens([str(unk_token)])
         tokenizer.normalizer = NFKC()
         scheme = "always" if add_prefix_space else "never"
-        tokenizer.pre_tokenizer = Metaspace(scheme, replacement)
-        tokenizer.decoder = Metaspace(scheme, replacement)
+        tokenizer.pre_tokenizer = Metaspace(replacement, scheme)
+        tokenizer.decoder = Metaspace(replacement, scheme)
         super().__init__(tokenizer, {
             "model": "SentencePieceBPE", "unk_token": unk_token, "replacement": replacement,
             "add_prefix_space": add_prefix_space, "dropout": dropout})

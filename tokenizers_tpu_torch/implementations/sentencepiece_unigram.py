@@ -26,8 +26,8 @@ class SentencePieceUnigramTokenizer(BaseTokenizer):
         tokenizer = Tokenizer(Unigram(vocab) if vocab is not None else Unigram(), device=device)
         tokenizer.normalizer = NormSequence([Nmt(), NFKC(), Replace(" {2,}", " ", regex=True)])
         scheme = "always" if add_prefix_space else "never"
-        tokenizer.pre_tokenizer = Metaspace(scheme, replacement)
-        tokenizer.decoder = Metaspace(scheme, replacement)
+        tokenizer.pre_tokenizer = Metaspace(replacement, scheme)
+        tokenizer.decoder = Metaspace(replacement, scheme)
         super().__init__(tokenizer, {"model": "SentencePieceUnigram",
                                      "replacement": replacement,
                                      "add_prefix_space": add_prefix_space})

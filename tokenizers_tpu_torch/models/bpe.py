@@ -32,8 +32,10 @@ import random
 from typing import Dict, List, Optional, Tuple
 
 from ..errors import ModelError
-from ..utils.cache import Cache
+from ..pretokenized import Token
+from ..utils.cache import DEFAULT_CACHE_CAPACITY, Cache
 from ..utils.log import get_logger
+from . import Model
 
 MAX_CACHEABLE_LENGTH = 256
 
@@ -108,14 +110,19 @@ class _Word:
         return [i for i, n in zip(self.ids, self.lens) if n], [n for n in self.lens if n]
 
 
-class BPE:
+class BPE(Model):
+    """JAX's parameters in JAX's order, then the port's own: `byte_spans`
+    (spans in UTF-8 bytes of the word, for the char-level pipelines) and
+    `rng` (the dropout's `random.Random`)."""
+
     def __init__(self, vocab: Optional[Dict[str, int]] = None,
                  merges: Optional[List[Tuple[str, str]]] = None,
-                 unk_token: Optional[str] = None, fuse_unk: bool = False,
-                 ignore_merges: bool = False, continuing_subword_prefix: Optional[str] = None,
-                 end_of_word_suffix: Optional[str] = None, byte_fallback: bool = False,
-                 byte_spans: bool = False, dropout: Optional[float] = None,
-                 rng: Optional[random.Random] = None):
+                 cache_capacity: int = DEFAULT_CACHE_CAPACITY,
+                 dropout: Optional[float] = None, unk_token: Optional[str] = None,
+                 continuing_subword_prefix: Optional[str] = None,
+                 end_of_word_suffix: Optional[str] = None, fuse_unk: bool = False,
+                 byte_fallback: bool = False, ignore_merges: bool = False,
+                 byte_spans: bool = False, rng: Optional[random.Random] = None):
         merges = merges or []
         if dropout is not None and not 0.0 <= dropout <= 1.0:
             raise ValueError("dropout must be between 0 and 1")
@@ -130,7 +137,7 @@ class BPE:
         self.end_of_word_suffix = end_of_word_suffix
         self.byte_fallback = byte_fallback
         self.byte_spans = byte_spans
-        self.cache = Cache()
+        self.cache = Cache(cache_capacity)
         self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
         self.merges_list: List[Tuple[str, str]] = [tuple(m) for m in merges]
         n_prefix = len((continuing_subword_prefix or "").encode("utf-8"))
@@ -139,15 +146,15 @@ class BPE:
             new = a + b.encode("utf-8")[n_prefix:].decode("utf-8")
             for t in (a, b, new):
                 if t not in self.vocab:
-                    raise ValueError(f"Merge token out of vocabulary: {t!r}")
+                    raise ModelError(f"Merge token out of vocabulary: {t!r}")
             self.merges[(self.vocab[a], self.vocab[b])] = (i, self.vocab[new])
 
-    def _merge_word(self, w: str) -> Tuple[List[int], List[int]]:
+    def _merge_word(self, w: str, byte_spans: bool) -> Tuple[List[int], List[int]]:
         word = _Word()
         unk: Optional[Tuple[int, int]] = None  # (unk_id, length)
         prefix, suffix = self.continuing_subword_prefix, self.end_of_word_suffix
         for i, c in enumerate(w):
-            n = len(c.encode("utf-8")) if self.byte_spans else 1
+            n = len(c.encode("utf-8")) if byte_spans else 1
             s = prefix + c if prefix and i else c
             if suffix and i == len(w) - 1:
                 s += suffix
@@ -170,7 +177,7 @@ class BPE:
                 continue
             unk_id = self.vocab.get(self.unk_token)
             if unk_id is None:
-                raise ValueError(f"Unk token `{self.unk_token}` is out of vocabulary")
+                raise ModelError(f"Unk token `{self.unk_token}` is out of vocabulary")
             if unk is not None and self.fuse_unk:
                 unk = (unk[0], unk[1] + n)
             else:
@@ -182,25 +189,33 @@ class BPE:
         word.merge_all(self.merges, self.dropout, self.rng)
         return word.tokens()
 
-    def _tokens(self, word: str) -> Tuple[List[int], List[int]]:
-        """(ids, lengths in chars) of one pre-tokenized word."""
+    def _tokens(self, word: str, byte_spans: Optional[bool] = None) -> Tuple[List[int], List[int]]:
+        """(ids, lengths) of one pre-tokenized word, in chars or, with
+        `byte_spans` (default: the model's), in UTF-8 bytes; the word
+        cache holds the model's unit."""
+        if byte_spans is None:
+            byte_spans = self.byte_spans
         if self.dropout:
-            return self._merge_word(word)
+            return self._merge_word(word, byte_spans)
         if self.ignore_merges:
             tid = self.vocab.get(word)
             if tid is not None:
-                return [tid], [len(word.encode("utf-8")) if self.byte_spans else len(word)]
-        hit = self.cache.get(word)
+                return [tid], [len(word.encode("utf-8")) if byte_spans else len(word)]
+        cached = byte_spans == self.byte_spans
+        hit = self.cache.get(word) if cached else None
         if hit is not None:
             return hit
-        toks = self._merge_word(word)
-        if len(word) < MAX_CACHEABLE_LENGTH:
+        toks = self._merge_word(word, byte_spans)
+        if cached and len(word) < MAX_CACHEABLE_LENGTH:
             self.cache.set(word, toks)
         return toks
 
-    def tokenize(self, word: str) -> List[int]:
+    def tokenize_ids(self, word: str) -> List[int]:
         """The ids of one pre-tokenized word."""
         return self._tokens(word)[0] if word else []
+
+    def clear_cache(self) -> None:
+        self.cache.clear()
 
     def get_trainer(self, device=None):
         from ..trainers.bpe_trainer import BpeTrainer
@@ -267,12 +282,21 @@ class BPE:
                 f.write(f"{a} {b}\n")
         return [vocab_path, merges_path]
 
-    def tokenize_spans(self, word: str) -> List[Tuple[int, int, int]]:
+    def tokenize(self, sequence: str) -> List[Token]:
+        """JAX's `Token`s, offsets in the word's UTF-8 bytes whatever the
+        model's span unit (a byte-fallback token spans one byte of a
+        char)."""
+        vr = self.vocab_r
+        return [Token(t, vr[t], (s, e)) for t, s, e in self.tokenize_spans(sequence, True)]
+
+    def tokenize_spans(self, word: str, byte_spans: Optional[bool] = None
+                       ) -> List[Tuple[int, int, int]]:
         """(id, start, end) of each token of one pre-tokenized word, the
-        span in chars of the word (in its UTF-8 bytes with `byte_spans`)."""
+        span in chars of the word (in its UTF-8 bytes with `byte_spans`,
+        by default the model's)."""
         if not word:
             return []
-        ids, lens = self._tokens(word)
+        ids, lens = self._tokens(word, byte_spans)
         out, pos = [], 0
         for tid, n in zip(ids, lens):
             out.append((tid, pos, pos + n))

@@ -30,19 +30,26 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 from ..utils.cache import Cache
+from ..pretokenized import Token
+from . import Model
 from .bpe import MAX_CACHEABLE_LENGTH
 
 K_UNK_PENALTY = 10.0
 
 
-class Unigram:
-    def __init__(self, pieces: Optional[List[Tuple[str, float]]] = None,
+class Unigram(Model):
+    def __init__(self, vocab: Optional[List[Tuple[str, float]]] = None,
                  unk_id: Optional[int] = None, byte_fallback: bool = False):
-        if pieces is None:  # the reference's default model
-            pieces, unk_id = [("<unk>", 0.0)], 0
-        if unk_id is not None and unk_id >= len(pieces):
-            raise ValueError("The `unk_id` is larger than vocabulary size")
-        self.pieces: List[Tuple[str, float]] = [(t, float(s)) for t, s in pieces]
+        """`vocab`: the (piece, score) list, kept as `pieces`; the model's
+        `vocab` is the piece-to-id dict, as the other models'."""
+        if vocab is None:  # the reference's default model
+            vocab, unk_id = [("<unk>", 0.0)], 0
+        if unk_id is not None:
+            if not vocab:
+                raise ValueError("The vocabulary is empty but at least <unk> is needed")
+            if unk_id >= len(vocab):
+                raise ValueError("The `unk_id` is larger than vocabulary size")
+        self.pieces: List[Tuple[str, float]] = [(t, float(s)) for t, s in vocab]
         self.unk_id = unk_id
         self.byte_fallback = bool(byte_fallback)
         self.fuse_unk = True
@@ -155,8 +162,11 @@ class Unigram:
             offset += ln
         return out
 
-    def tokenize(self, word: str) -> List[int]:
-        return [t[0] for t in self.tokenize_spans(word)]
+    def tokenize(self, sentence: str) -> List[Token]:  # JAX's parameter name
+        return super().tokenize(sentence)
+
+    def clear_cache(self) -> None:
+        self.cache.clear()
 
     def populate_nodes(self, lattice) -> None:
         """Insert every vocab piece that starts at a char start, shortest

@@ -9,8 +9,10 @@ import json
 import os
 from typing import Dict, List, Optional, Tuple
 
+from . import Model
 
-class WordLevel:
+
+class WordLevel(Model):
     def __init__(self, vocab: Optional[Dict[str, int]] = None, unk_token: str = "<unk>"):
         self.vocab: Dict[str, int] = dict(vocab or {})
         self.vocab_r: Dict[int, str] = {v: k for k, v in self.vocab.items()}
@@ -26,9 +28,6 @@ class WordLevel:
             if tid is None:
                 raise ValueError(f"Missing unk token from the vocabulary: {self.unk_token!r}")
         return [(tid, 0, len(word.encode("utf-8")))]
-
-    def tokenize(self, word: str) -> List[int]:
-        return [t for t, _s, _e in self.tokenize_spans(word)]
 
     def get_trainer(self, device=None):
         """A WordLevelTrainer (host only: `device` is not used)."""

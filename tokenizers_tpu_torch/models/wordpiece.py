@@ -10,8 +10,10 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional, Tuple
 
+from . import Model
 
-class WordPiece:
+
+class WordPiece(Model):
     def __init__(self, vocab: Optional[Dict[str, int]] = None, unk_token: str = "[UNK]",
                  continuing_subword_prefix: str = "##",
                  max_input_chars_per_word: int = 100):
@@ -51,9 +53,6 @@ class WordPiece:
             start = end
         return out
 
-    def tokenize(self, word: str) -> List[int]:
-        """The ids of one pre-tokenized word."""
-        return [t for t, _s, _e in self.tokenize_spans(word)]
 
     def get_trainer(self, device=None):
         from ..trainers.wordpiece_trainer import WordPieceTrainer
@@ -85,6 +84,13 @@ class WordPiece:
     @classmethod
     def from_file(cls, vocab_path: str, **kwargs) -> "WordPiece":
         return cls(cls.read_file(vocab_path), **kwargs)
+
+    @classmethod
+    def from_bpe(cls, bpe) -> "WordPiece":
+        """A WordPiece over `bpe`'s vocab, its unk token and prefix (or
+        `[UNK]` and `##`)."""
+        return cls(bpe.get_vocab(), unk_token=bpe.unk_token or "[UNK]",
+                   continuing_subword_prefix=bpe.continuing_subword_prefix or "##")
 
     def save(self, folder: str, prefix: Optional[str] = None) -> List[str]:
         """Write `[prefix-]vocab.txt`, the tokens by id; the path."""

@@ -28,8 +28,7 @@ from __future__ import annotations
 import re
 from typing import Callable, Iterable, List, Optional, Tuple
 
-from . import unicode_norm as _un
-from .normalizers.bert import is_whitespace
+from .utils import unicode_norm as _un
 
 # split delimiter behaviours (reference `normalizer.rs:82`)
 REMOVED = "removed"
@@ -166,10 +165,18 @@ class NormalizedString:
     # ------------------------------------------------------------- transforms
 
     def transform_range(self, start: int, end: Optional[int], dest: Iterable[Tuple[str, int]],
-                        initial_offset: int = 0) -> None:
+                        initial_offset: int = 0, referential: str = "normalized") -> None:
         """Replace the normalized bytes [start, end) by the chars of `dest`
         (reference `normalizer.rs:318-429`).  `initial_offset` chars of
-        the range are removed before the first."""
+        the range are removed before the first.  With `referential`
+        "original" the range is in original bytes, converted first (an
+        unconvertible range changes nothing)."""
+        if referential == "original":
+            conv = self.convert_offsets(
+                start, end if end is not None else self.len_original(), "original")
+            if conv is None:
+                return
+            start, end = conv
         if end is None:
             end = len(self.alignments)
         nb = self.normalized.encode("utf-8")
@@ -261,9 +268,9 @@ class NormalizedString:
                         for i, uc in enumerate(c.upper())])
         return self
 
-    def for_each(self, f: Callable[[str], None]) -> "NormalizedString":
+    def for_each(self, fn: Callable[[str], None]) -> "NormalizedString":
         for c in self.normalized:
-            f(c)
+            fn(c)
         return self
 
     def clear(self) -> "NormalizedString":
@@ -280,12 +287,12 @@ class NormalizedString:
             self.transform_range(0, None, [(c, 1) for c in s])
         return self
 
-    def map(self, f: Callable[[str], str]) -> "NormalizedString":
-        """Each char replaced by the one char `f` gives; it takes the
+    def map(self, fn: Callable[[str], str]) -> "NormalizedString":
+        """Each char replaced by the one char `fn` gives; it takes the
         alignment of the char it replaces (reference `normalizer.rs:522`)."""
         al, out, out_al, p = self.alignments, [], [], 0
         for c in self.normalized:
-            m = f(c)
+            m = fn(c)
             out.append(m)
             out_al.extend([al[p]] * utf8_len(m))
             p += utf8_len(c)
@@ -344,6 +351,8 @@ class NormalizedString:
 
     def strip(self, left: bool = True, right: bool = True) -> "NormalizedString":
         """Remove the whitespace at either end."""
+        from .normalizers.bert import is_whitespace
+
         chars = self.normalized
         n = len(chars)
         lcount = 0

@@ -3,8 +3,9 @@ Each normalizes a `NormalizedString` in place (`normalize`), so offsets
 map back through its alignments.  `normalize_str` gives the same text
 without the alignments, by string operations where the normalizer has a
 faster form (the ids paths prepare every input with it; the tests hold
-the two equal), else through a NormalizedString.  `BertNormalizer`
-(`bert.py`) has the same two methods.  `Replace` matches a literal or a
+the two equal), else through a NormalizedString.  The package exports
+the JAX package's names: `BertNormalizer` and `is_chinese_char`
+(`bert.py`), `Precompiled`, `NormalizedString` and `SysRegex`.  `Replace` matches a literal or a
 regex of the reference's syntax (`pattern.py`); `CustomNormalizer` wraps
 a user object (host only; `to_str` refuses it); `ByteLevel` maps every
 byte to its byte-level char; `Precompiled` (`precompiled.py`) applies a
@@ -21,13 +22,11 @@ from typing import List
 
 
 class Normalizer:
-    def normalize(self, ns) -> None:
+    def normalize(self, normalized) -> None:
         raise NotImplementedError
 
-    def normalize_str(self, s: str) -> str:
-        from ..normalized import NormalizedString
-
-        ns = NormalizedString(s)
+    def normalize_str(self, sequence: str) -> str:
+        ns = NormalizedString(sequence)
         self.normalize(ns)
         return ns.get()
 
@@ -44,45 +43,45 @@ class CustomNormalizer(Normalizer):
             raise TypeError("custom normalizer must have a normalize(NormalizedString) method")
         self.obj = obj
 
-    def normalize(self, ns) -> None:
-        self.obj.normalize(ns)
+    def normalize(self, normalized) -> None:
+        self.obj.normalize(normalized)
 
 
 class Sequence(Normalizer):
     def __init__(self, normalizers: List[Normalizer]):
         self.normalizers = list(normalizers)
 
-    def normalize(self, ns) -> None:
+    def normalize(self, normalized) -> None:
         for n in self.normalizers:
-            n.normalize(ns)
+            n.normalize(normalized)
 
-    def normalize_str(self, s: str) -> str:
+    def normalize_str(self, sequence: str) -> str:
         for n in self.normalizers:
-            s = n.normalize_str(s)
-        return s
+            sequence = n.normalize_str(sequence)
+        return sequence
 
 
 class Lowercase(Normalizer):
-    def normalize(self, ns) -> None:
-        if ns.get().isascii():  # one byte for one byte: the alignments stay
-            ns.normalized = ns.get().lower()
+    def normalize(self, normalized) -> None:
+        if normalized.get().isascii():  # one byte for one byte: the alignments stay
+            normalized.normalized = normalized.get().lower()
         else:
-            ns.lowercase()
+            normalized.lowercase()
 
-    def normalize_str(self, s: str) -> str:
+    def normalize_str(self, sequence: str) -> str:
         # char by char, as the reference (no final-sigma context)
-        return s.lower() if s.isascii() else "".join(c.lower() for c in s)
+        return sequence.lower() if sequence.isascii() else "".join(c.lower() for c in sequence)
 
 
 class _Unicode(Normalizer):
     form = ""
 
-    def normalize(self, ns) -> None:
-        if not unicodedata.is_normalized(self.form, ns.get()):  # else the identity
-            getattr(ns, self.form.lower())()
+    def normalize(self, normalized) -> None:
+        if not unicodedata.is_normalized(self.form, normalized.get()):  # else the identity
+            getattr(normalized, self.form.lower())()
 
-    def normalize_str(self, s: str) -> str:
-        return s if s.isascii() else unicodedata.normalize(self.form, s)
+    def normalize_str(self, sequence: str) -> str:
+        return sequence if sequence.isascii() else unicodedata.normalize(self.form, sequence)
 
 
 class NFD(_Unicode):
@@ -105,15 +104,15 @@ class Strip(Normalizer):
     def __init__(self, left: bool = True, right: bool = True):
         self.left, self.right = bool(left), bool(right)
 
-    def normalize(self, ns) -> None:
-        ns.strip(self.left, self.right)
+    def normalize(self, normalized) -> None:
+        normalized.strip(self.left, self.right)
 
-    def normalize_str(self, s: str) -> str:
+    def normalize_str(self, sequence: str) -> str:
         from .bert import WHITESPACE
 
         if self.left:
-            s = s.lstrip(WHITESPACE)
-        return s.rstrip(WHITESPACE) if self.right else s
+            sequence = sequence.lstrip(WHITESPACE)
+        return sequence.rstrip(WHITESPACE) if self.right else sequence
 
 
 _MARKS = None
@@ -123,30 +122,30 @@ class StripAccents(Normalizer):
     """Drops the combining marks (category M*), with no NFD of its own
     (reference `normalizers/strip.rs:48`)."""
 
-    def normalize(self, ns) -> None:
-        if not ns.get().isascii():  # ASCII has no marks
-            ns.filter(lambda c: not unicodedata.category(c).startswith("M"))
+    def normalize(self, normalized) -> None:
+        if not normalized.get().isascii():  # ASCII has no marks
+            normalized.filter(lambda c: not unicodedata.category(c).startswith("M"))
 
-    def normalize_str(self, s: str) -> str:
+    def normalize_str(self, sequence: str) -> str:
         global _MARKS
-        if s.isascii():
-            return s
+        if sequence.isascii():
+            return sequence
         if _MARKS is None:
             _MARKS = dict.fromkeys(cp for cp in range(0x110000)
                                    if unicodedata.category(chr(cp)).startswith("M"))
-        return s.translate(_MARKS)
+        return sequence.translate(_MARKS)
 
 
 class Prepend(Normalizer):
     def __init__(self, prepend: str):
         self.prepend = prepend
 
-    def normalize(self, ns) -> None:
-        if not ns.is_empty():
-            ns.prepend(self.prepend)
+    def normalize(self, normalized) -> None:
+        if not normalized.is_empty():
+            normalized.prepend(self.prepend)
 
-    def normalize_str(self, s: str) -> str:
-        return self.prepend + s if s else s
+    def normalize_str(self, sequence: str) -> str:
+        return self.prepend + sequence if sequence else sequence
 
 
 class Replace(Normalizer):
@@ -157,8 +156,6 @@ class Replace(Normalizer):
     `pattern.Regex`, or ("Regex", text) as the JAX package takes it."""
 
     def __init__(self, pattern, content: str, regex: bool = False):
-        from ..pattern import SysRegex
-
         if isinstance(pattern, tuple) and len(pattern) == 2 and pattern[0] == "Regex":
             pattern, regex = pattern[1], True
         elif isinstance(pattern, SysRegex):
@@ -166,13 +163,13 @@ class Replace(Normalizer):
         self.pattern, self.content, self.regex = pattern, content, regex
         self._re = SysRegex(pattern) if regex else None
 
-    def normalize(self, ns) -> None:
-        ns.replace(self._re if self.regex else self.pattern, self.content)
+    def normalize(self, normalized) -> None:
+        normalized.replace(self._re if self.regex else self.pattern, self.content)
 
-    def normalize_str(self, s: str) -> str:
+    def normalize_str(self, sequence: str) -> str:
         if self.regex:
-            return self._re.compiled.sub(lambda _m: self.content, s)
-        return s.replace(self.pattern, self.content) if self.pattern else s
+            return self._re.compiled.sub(lambda _m: self.content, sequence)
+        return sequence.replace(self.pattern, self.content) if self.pattern else sequence
 
 
 class Nmt(Normalizer):
@@ -194,15 +191,15 @@ class Nmt(Normalizer):
     _TABLE = {**dict.fromkeys(FILTERED), **dict.fromkeys(TO_SPACE, " ")}
     _ANY = re.compile("[%s]" % "".join(map(re.escape, map(chr, sorted(FILTERED | TO_SPACE)))))
 
-    def normalize(self, ns) -> None:
-        if not self._ANY.search(ns.get()):  # else the identity
+    def normalize(self, normalized) -> None:
+        if not self._ANY.search(normalized.get()):  # else the identity
             return
-        if any(ord(c) in self.FILTERED for c in ns.get()):
-            ns.filter(lambda c: ord(c) not in self.FILTERED)
-        ns.map(lambda c: " " if ord(c) in self.TO_SPACE else c)
+        if any(ord(c) in self.FILTERED for c in normalized.get()):
+            normalized.filter(lambda c: ord(c) not in self.FILTERED)
+        normalized.map(lambda c: " " if ord(c) in self.TO_SPACE else c)
 
-    def normalize_str(self, s: str) -> str:
-        return s.translate(self._TABLE) if self._ANY.search(s) else s
+    def normalize_str(self, sequence: str) -> str:
+        return sequence.translate(self._TABLE) if self._ANY.search(sequence) else sequence
 
 
 class ByteLevel(Normalizer):
@@ -210,16 +207,16 @@ class ByteLevel(Normalizer):
     `normalizers/byte_level.rs:9`): a char's first byte takes its place,
     the others are insertions."""
 
-    def normalize(self, ns) -> None:
+    def normalize(self, normalized) -> None:
         from ..pre_tokenizers.byte_level import to_byte_chars
 
-        if not ns.is_empty():
-            to_byte_chars(ns)
+        if not normalized.is_empty():
+            to_byte_chars(normalized)
 
-    def normalize_str(self, s: str) -> str:
+    def normalize_str(self, sequence: str) -> str:
         from ..pre_tokenizers.byte_level import BYTES_CHAR
 
-        return "".join(BYTES_CHAR[b] for b in s.encode("utf-8"))
+        return "".join(BYTES_CHAR[b] for b in sequence.encode("utf-8"))
 
     @staticmethod
     def alphabet():
@@ -267,3 +264,28 @@ def from_json(d: dict):
 
         return Precompiled(base64.b64decode(d["precompiled_charsmap"]))
     raise SerdeError(f"Unknown normalizer type: {t}")
+
+
+from ..normalized import NormalizedString  # noqa: E402
+from ..pattern import SysRegex  # noqa: E402
+from .bert import BertNormalizer, is_chinese_char  # noqa: E402
+from .precompiled import Precompiled  # noqa: E402
+
+__all__ = [
+    "Normalizer",
+    "Sequence",
+    "Lowercase",
+    "NFD",
+    "NFKD",
+    "NFC",
+    "NFKC",
+    "Nmt",
+    "Strip",
+    "StripAccents",
+    "Prepend",
+    "Replace",
+    "BertNormalizer",
+    "ByteLevel",
+    "Precompiled",
+    "is_chinese_char",
+]

@@ -25,6 +25,8 @@ import functools
 import unicodedata
 from typing import List, Optional, Tuple
 
+from . import Normalizer
+
 # the Unicode White_Space property (Rust `char::is_whitespace`); not
 # Python's str.isspace(), which also holds 0x1C-0x1F
 WHITESPACE_CPS = frozenset(
@@ -75,7 +77,7 @@ class _CharTable(dict):
         return out
 
 
-class BertNormalizer:
+class BertNormalizer(Normalizer):
     def __init__(self, clean_text: bool = True, handle_chinese_chars: bool = True,
                  strip_accents: Optional[bool] = None, lowercase: bool = True):
         self.clean_text = bool(clean_text)
@@ -120,18 +122,18 @@ class BertNormalizer:
                 src += [i] * len(s)
         return "".join(out), src
 
-    def normalize_str(self, text: str) -> str:
-        return text.translate(self._table)
+    def normalize_str(self, sequence: str) -> str:
+        return sequence.translate(self._table)
 
-    def normalize(self, ns) -> None:
-        """Normalize the NormalizedString `ns` in place: drop the chars that
+    def normalize(self, normalized) -> None:
+        """Normalize the NormalizedString `normalized` in place: drop the chars that
         map to nothing, then replace each other char by its string."""
-        text = ns.get()
+        text = normalized.get()
         if text.isascii():
             mapped = text.translate(self._table)
             if len(mapped) == len(text):  # one char for one: the alignments stay
-                ns.normalized = mapped
+                normalized.normalized = mapped
                 return
-        ns.filter(lambda c: bool(self.char_map(c)))
-        ns.transform([(o, 1 if k else 0) for c in ns.get()
+        normalized.filter(lambda c: bool(self.char_map(c)))
+        normalized.transform([(o, 1 if k else 0) for c in normalized.get()
                       for k, o in enumerate(self.char_map(c))])

@@ -202,7 +202,7 @@ class UnigramEngine(DeviceEngineBase):
             word = piece.decode("utf-8")
         except UnicodeDecodeError:
             return None
-        return np.asarray(self.tokenizer.model.tokenize(word), np.int32)
+        return np.asarray(self.tokenizer.model.tokenize_ids(word), np.int32)
 
     def _norm_stream(self, prepared: bytes) -> bytes:
         """The device programs' normalized text, on the host: the

@@ -275,6 +275,16 @@ def translate(p: str) -> Tuple[str, int]:
     return "".join(out), flags
 
 
+def translate_rust_regex(pattern: str) -> str:
+    """`translate` as one string for `re`: the pattern with its flags as a
+    leading inline group (the JAX package's function of this name gives a
+    pattern for the `regex` module)."""
+    translated, flags = translate(pattern)
+    letters = "".join(f for f, bit in (("i", re.IGNORECASE), ("m", re.MULTILINE),
+                                       ("s", re.DOTALL), ("x", re.VERBOSE)) if flags & bit)
+    return f"(?{letters}){translated}"
+
+
 class SysRegex:
     """A reference-syntax regex compiled with `re` through `translate`
     (the reference's SysRegex, `utils/onig.rs`)."""

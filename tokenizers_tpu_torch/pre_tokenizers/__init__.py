@@ -15,18 +15,24 @@ from __future__ import annotations
 import unicodedata
 from typing import List, Tuple
 
-from ..normalized import BEHAVIORS, CONTIGUOUS, ISOLATED, REMOVED, NormalizedString
+from ..normalized import (
+    BEHAVIORS,
+    CONTIGUOUS,
+    ISOLATED,
+    MERGED_WITH_NEXT,
+    MERGED_WITH_PREVIOUS,
+    REMOVED,
+    NormalizedString,
+)
 from ..pattern import Invert, SysRegex
+from ..pretokenized import PreTokenizedString
 from .base import CustomPreTokenizer, PreTokenizer, slices
 from .bert import BertPreTokenizer, is_punc
 from .byte_level import BYTES_CHAR, ByteLevel
-from .metaspace import Metaspace
+from .metaspace import PREPEND_ALWAYS, PREPEND_FIRST, PREPEND_NEVER, Metaspace
 from .split import LLAMA3_PATTERN, llama3_spans
 from .unicode_scripts import UnicodeScripts
 from .whitespace import Whitespace, WhitespaceSplit
-
-PREPEND_ALWAYS, PREPEND_FIRST, PREPEND_NEVER = "always", "first", "never"
-
 
 class Sequence(PreTokenizer):
     def __init__(self, pretokenizers: List[PreTokenizer]):
@@ -189,7 +195,7 @@ def from_json(d):
             scheme = PREPEND_NEVER
         elif d.get("add_prefix_space") is True and "prepend_scheme" not in d:
             scheme = PREPEND_ALWAYS
-        return Metaspace(scheme, d["replacement"], d.get("split", True))
+        return Metaspace(d["replacement"], scheme, d.get("split", True))
     if t == "Split":
         return Split(_pattern_from_json(d["pattern"]), BEHAVIOR_FROM_JSON[d["behavior"]],
                      d.get("invert", False))

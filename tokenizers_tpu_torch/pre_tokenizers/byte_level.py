@@ -6,7 +6,7 @@ post-processor, the trimming of whitespace from token offsets
 (`decode_chain`), the byte-level chars back to bytes and UTF-8 text.
 
 The fast host path's split does not run the GPT-2 regex.  It takes the
-match starts of `GPT2_PATTERN` from `ops.bpe_encode.gpt2_boundaries`, the
+match starts of `GPT2_SPLIT_PATTERN` from `ops.bpe_encode.gpt2_boundaries`, the
 rule the device program uses, run on the CPU over one row as long as the
 text.  The general pipeline's `pre_tokenize` of a PreTokenizedString
 (reference `pre_tokenizers/byte_level.rs:126-150`) prepends the space to
@@ -23,7 +23,7 @@ import torch
 
 from .base import PreTokenizer
 
-GPT2_PATTERN = r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
+GPT2_SPLIT_PATTERN = r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
 
 
 def bytes_char() -> Dict[int, str]:
@@ -66,7 +66,7 @@ def _gpt2_re():
     if _GPT2_RE is None:
         from ..pattern import SysRegex
 
-        _GPT2_RE = SysRegex(GPT2_PATTERN)
+        _GPT2_RE = SysRegex(GPT2_SPLIT_PATTERN)
     return _GPT2_RE
 
 

@@ -19,16 +19,19 @@ from typing import List, Tuple
 from .base import PreTokenizer
 
 REPLACEMENT = "▁"
+PREPEND_FIRST = "first"
+PREPEND_NEVER = "never"
+PREPEND_ALWAYS = "always"
 
 
 class Metaspace(PreTokenizer):
-    def __init__(self, prepend_scheme: str = "always", replacement: str = REPLACEMENT,
+    def __init__(self, replacement: str = REPLACEMENT, prepend_scheme: str = PREPEND_ALWAYS,
                  split: bool = True):
         """The decoder does not use `split`."""
-        if prepend_scheme not in ("always", "first", "never"):
-            raise ValueError(f"Invalid prepend_scheme: {prepend_scheme}")
         if len(replacement) != 1:
             raise ValueError("replacement must be a single char")
+        if prepend_scheme not in (PREPEND_FIRST, PREPEND_NEVER, PREPEND_ALWAYS):
+            raise ValueError(f"Invalid prepend_scheme: {prepend_scheme}")
         self.prepend_scheme = prepend_scheme
         self.replacement = replacement
         self.split = split

@@ -21,7 +21,32 @@ from .base import PreTokenizer
 ANY = 255
 _HAN = uprops.SCRIPTS.index("Han")
 _FOLD = {uprops.SCRIPTS.index("Hiragana"): _HAN, uprops.SCRIPTS.index("Katakana"): _HAN}
+_RAW = None
 _TABLE = None
+
+
+def _raw_table():
+    """uint8 [MAX_CP]: each code point's script, unfolded."""
+    global _RAW
+    if _RAW is None:
+        _RAW = uprops.lookup_array(["sc:" + s for s in uprops.SCRIPTS], ANY)
+    return _RAW
+
+
+def _name(i: int) -> str:
+    return "Any" if i == ANY else uprops.SCRIPTS[i]
+
+
+def get_script(c: str) -> str:
+    """The script of the char `c` by name, "Any" for none of
+    `uprops.SCRIPTS`."""
+    return _name(int(_raw_table()[ord(c)]))
+
+
+def fixed_script(c: str) -> str:
+    """The script the split compares (reference
+    `unicode_scripts/pre_tokenizer.rs:25-38`)."""
+    return _name(int(script_table()[ord(c)]))
 
 
 def script_table():
@@ -29,7 +54,7 @@ def script_table():
     `uprops.SCRIPTS`, ANY for Any)."""
     global _TABLE
     if _TABLE is None:
-        t = uprops.lookup_array(["sc:" + s for s in uprops.SCRIPTS], ANY)
+        t = _raw_table().copy()
         for a, b in _FOLD.items():
             t[t == a] = b
         t[0x30FC] = _HAN

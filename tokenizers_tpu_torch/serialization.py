@@ -7,9 +7,12 @@ normalizer, pre_tokenizer, post_processor, decoder, model}` with each
 component a "type"-tagged object whose keys come in the reference's
 order, so that `Tokenizer.to_str` (the JSON of it, `separators=(",",
 ":")`, `ensure_ascii=False`) is byte-equal to the reference's
-`to_str`.  Reading stays with the loader (`Tokenizer.from_str`), but
-`trainer_from_json`, which reads the C ABI's trainer configs.  A
-component the port does not know (a custom decoder) raises SerdeError.
+`to_str`.  A component the port does not know (a custom decoder) raises
+SerdeError.  The reading half has the JAX package's names: each
+`*_from_dict` reads a component's node as the loader does
+(`Tokenizer.from_str` goes through `tokenizer_from_dict`'s
+`Tokenizer._from_dict`), and `trainer_from_json` reads the C ABI's
+trainer configs.
 """
 
 from __future__ import annotations
@@ -244,6 +247,70 @@ def tokenizer_to_dict(tok) -> Dict[str, Any]:
         "decoder": decoder_to_dict(tok.decoder),
         "model": model_to_dict(tok.model),
     }
+
+
+def _merges(d: dict):
+    return [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
+            for m in d.get("merges", [])]
+
+
+def model_from_dict(d: dict):
+    """The model of a tokenizer.json node, as the JAX package's
+    `model_from_dict` reads it (a node without "type" guessed by its
+    keys)."""
+    t = d.get("type")
+    if t is None:
+        t = ("BPE" if "merges" in d else "WordPiece" if (
+            "max_input_chars_per_word" in d or "continuing_subword_prefix" in d)
+            else "Unigram" if "unk_id" in d else "WordLevel")
+    if t == "BPE":
+        return BPE(d.get("vocab", {}), _merges(d), unk_token=d.get("unk_token"),
+                   fuse_unk=bool(d.get("fuse_unk", False)),
+                   ignore_merges=bool(d.get("ignore_merges", False)),
+                   continuing_subword_prefix=d.get("continuing_subword_prefix"),
+                   end_of_word_suffix=d.get("end_of_word_suffix"),
+                   byte_fallback=bool(d.get("byte_fallback", False)), dropout=d.get("dropout"))
+    if t == "WordPiece":
+        return WordPiece(d.get("vocab", {}), unk_token=d.get("unk_token", "[UNK]"),
+                         continuing_subword_prefix=d.get("continuing_subword_prefix", "##"),
+                         max_input_chars_per_word=int(d.get("max_input_chars_per_word", 100)))
+    if t == "WordLevel":
+        return WordLevel(d.get("vocab", {}), d.get("unk_token", "<unk>"))
+    if t == "Unigram":
+        return Unigram([(v[0], v[1]) for v in d.get("vocab", [])], unk_id=d.get("unk_id"),
+                       byte_fallback=bool(d.get("byte_fallback", False)))
+    raise SerdeError(f"Unknown model type: {t}")
+
+
+def processor_from_dict(d: Optional[dict]):
+    if d is None:
+        return None
+    t = d.get("type")
+    if t == "TemplateProcessing":
+        return PP.TemplateProcessing.from_json(d)
+    if t == "BertProcessing":
+        return PP.BertProcessing(tuple(d["sep"]), tuple(d["cls"]))
+    if t == "RobertaProcessing":
+        return PP.RobertaProcessing(tuple(d["sep"]), tuple(d["cls"]),
+                                    d.get("trim_offsets", True), d.get("add_prefix_space", True))
+    if t == "Sequence":
+        return PP.Sequence([processor_from_dict(x) for x in d["processors"]])
+    if t == "ByteLevel":
+        return ByteLevel(d.get("add_prefix_space", True), d.get("trim_offsets", True),
+                         d.get("use_regex", True))
+    raise SerdeError(f"Unknown post-processor type: {t}")
+
+
+normalizer_from_dict = N.from_json
+pre_tokenizer_from_dict = P.from_json
+decoder_from_dict = D.from_json
+
+
+def tokenizer_from_dict(d: Dict[str, Any], device=None):
+    """The Tokenizer of a tokenizer.json dict, on `device` (`pick_device`)."""
+    from .tokenizer import Tokenizer
+
+    return Tokenizer._from_dict(d, device)
 
 
 def trainer_from_json(payload: str, device=None):

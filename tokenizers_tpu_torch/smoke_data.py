@@ -63,6 +63,10 @@ general host pipeline runs (`HOST_PIPELINES`, on the first `HOST_DOCS`
 documents, and `data/host_pipelines_digests.json` the wheel's ids and
 offsets digests of them (`load_host_pipelines_digests`).
 
+`jax_api_tokenizer` builds and trains phase 18's tokenizer through the
+JAX package's public names alone, on the port imported as `tt`;
+`load_jax_api_digests` gives what that phase gave on the CPU.
+
 `first_ascii_chunk` and `unique_state` give the merge loop's first state
 at the gpt2 path's unique buffer, where `chip_smoke.py` and
 `tools/b1_phases.py` hold and time B1; `llama3_unique_state` that of the
@@ -157,6 +161,13 @@ HOST_PIPELINES = ("gpt2_lower", "qwen2_shape", "char_bpe_punct", "wordlevel_scri
 T5_SHAPE = "t5_shape"  # phase 17 (a): the Precompiled normalizer, on the host
 ENGINE_PIPELINES = ("gpt2_ignore_merges", "llama3_prefix")
 HOST_DOCS = 16
+# phase 18, the JAX package's public API (`jax_api_tokenizer`): a byte-level
+# BPE trained at `vocab_size` on the lines of the corpus's first `chars`
+# characters; `model.tokenize` of JAX_API_WORDS; `decode_stream` of the first
+# STREAM_DOCS documents (`data/jax_api_digests.json`: the phase on the CPU)
+JAX_API_TRAIN = {"chars": 1 << 18, "vocab_size": 8000, "special_token": "<|endoftext|>"}
+JAX_API_WORDS = ("Hello", "Ġworld", "Ġtokenization", "Ġ12345", "ĠcafÃ©", "ĠÐŁÑĢÐ¸Ð²ÐµÑĤ",
+                 "ĊĊ", "Ġ'll've")
 # Qwen2's published split: the llama-3 pattern with \p{N} for \p{N}{1,3}
 QWEN2_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"
                  r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
@@ -430,6 +441,38 @@ def apply_settings(tok, settings) -> None:
 
 def load_recipes_digests() -> Dict[str, object]:
     with open(os.path.join(DATA, "recipes_digests.json"), encoding="utf-8") as f:
+        return json.load(f)
+
+
+def jax_api_tokenizer(tt, lines):
+    """Phase 18's trained tokenizer, built and trained only through the JAX
+    package's public names on `tt` (the port, imported as the JAX package
+    is): BPE without an unk token, ByteLevel pre-tokenizer (no prefix
+    space) and decoder, BpeTrainer with the byte alphabet and the special
+    token.  On the default device: the card, or the CPU after
+    `tt.set_default_device("cpu")`."""
+    tok = tt.Tokenizer(tt.models.BPE(unk_token=None))
+    tok.pre_tokenizer = tt.pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = tt.decoders.ByteLevel()
+    trainer = tt.trainers.BpeTrainer(
+        vocab_size=JAX_API_TRAIN["vocab_size"], show_progress=False,
+        initial_alphabet=tt.pre_tokenizers.ByteLevel.alphabet(),
+        special_tokens=[tt.AddedToken(JAX_API_TRAIN["special_token"], special=True)])
+    tok.train_from_iterator(lines, trainer)
+    return tok
+
+
+def jax_api_tokens(model) -> List[list]:
+    """(id, value, offsets) of each Token `model.tokenize` gives for each of
+    JAX_API_WORDS."""
+    return [[[t.id, t.value, list(t.offsets)] for t in model.tokenize(w)] for w in JAX_API_WORDS]
+
+
+def load_jax_api_digests() -> Dict[str, object]:
+    """Phase 18 run on the CPU (`data/regen.py --jax-api`): the trained
+    tokenizer's `to_str` digest, its ids digests of the 8 KB documents,
+    and `jax_api_tokens` of its model."""
+    with open(os.path.join(DATA, "jax_api_digests.json"), encoding="utf-8") as f:
         return json.load(f)
 
 

@@ -5,7 +5,8 @@ the card.
 
 The loader reads every `tokenizer.json` the JAX package reads, as its
 `serialization.py` reads it (`normalizers.from_json`,
-`pre_tokenizers.from_json`, `_load_model`, `_load_post_processor`), a
+`pre_tokenizers.from_json`, `serialization.model_from_dict`,
+`processor_from_dict`), a
 `Precompiled` normalizer (a SentencePiece charsmap) included.  Floats are parsed
 as the wheel's serde_json parses them (`utils.serde_float.serde_f64`):
 Unigram's Viterbi ties turn on the last ulp of its scores.  Every
@@ -68,7 +69,6 @@ from .models.bpe import BPE
 from .models.unigram import Unigram
 from .models.wordlevel import WordLevel
 from .models.wordpiece import WordPiece
-from .models import tokens as model_tokens
 from .normalized import NormalizedString, char_to_byte_offsets
 from .normalizers import (NFC, NFD, NFKC, NFKD, CustomNormalizer, Lowercase, Nmt, Prepend,
                           Replace, Strip, StripAccents)
@@ -82,14 +82,17 @@ from .pre_tokenizers.bert import BertPreTokenizer
 from .pre_tokenizers.byte_level import ByteLevel
 from .pre_tokenizers.metaspace import Metaspace
 from .pre_tokenizers.whitespace import Whitespace, WhitespaceSplit
-from .processors import BertProcessing, RobertaProcessing, TemplateProcessing, default_process
-from .processors import Sequence as ProcessorSequence
+from .processors import default_process
+from .serialization import model_from_dict, processor_from_dict
 from .utils.parallelism import MIN_ITEMS
 from .utils.padding import BATCH_LONGEST, PaddingParams, pad_encodings
 from .utils.serde_float import serde_f64
 from .utils.truncation import TruncationParams, truncate_encodings
 
 # ------------------------------------------------------------------ inputs
+
+InputSequence = Union[str, Seq[str]]
+
 
 def _as_sequence(x):
     """numpy unicode/object arrays and numpy strings as plain Python
@@ -150,68 +153,12 @@ def _parse_encode_input(input, is_pretokenized: bool):
 
 # ------------------------------------------------------------------ loader
 
-def _merges(d: dict):
-    return [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
-            for m in d.get("merges", [])]
-
-
-def _load_model(d: dict):
-    """The model of a tokenizer.json node, as the JAX package's
-    `model_from_dict` reads it (a node without "type" guessed by its
-    keys)."""
-    t = d.get("type")
-    if t is None:
-        t = ("BPE" if "merges" in d else "WordPiece" if (
-            "max_input_chars_per_word" in d or "continuing_subword_prefix" in d)
-            else "Unigram" if "unk_id" in d else "WordLevel")
-    if t == "BPE":
-        return BPE(d.get("vocab", {}), _merges(d), unk_token=d.get("unk_token"),
-                   fuse_unk=bool(d.get("fuse_unk", False)),
-                   ignore_merges=bool(d.get("ignore_merges", False)),
-                   continuing_subword_prefix=d.get("continuing_subword_prefix"),
-                   end_of_word_suffix=d.get("end_of_word_suffix"),
-                   byte_fallback=bool(d.get("byte_fallback", False)), dropout=d.get("dropout"))
-    if t == "WordPiece":
-        return WordPiece(d.get("vocab", {}), unk_token=d.get("unk_token", "[UNK]"),
-                         continuing_subword_prefix=d.get("continuing_subword_prefix", "##"),
-                         max_input_chars_per_word=int(d.get("max_input_chars_per_word", 100)))
-    if t == "WordLevel":
-        return WordLevel(d.get("vocab", {}), d.get("unk_token", "<unk>"))
-    if t == "Unigram":
-        return Unigram([(v[0], v[1]) for v in d.get("vocab", [])], unk_id=d.get("unk_id"),
-                       byte_fallback=bool(d.get("byte_fallback", False)))
-    from .errors import SerdeError
-
-    raise SerdeError(f"Unknown model type: {t}")
-
-
-def _load_post_processor(d: Optional[dict]):
-    if d is None:
-        return None
-    t = d.get("type")
-    if t == "TemplateProcessing":
-        return TemplateProcessing.from_json(d)
-    if t == "BertProcessing":
-        return BertProcessing(tuple(d["sep"]), tuple(d["cls"]))
-    if t == "RobertaProcessing":
-        return RobertaProcessing(tuple(d["sep"]), tuple(d["cls"]), d.get("trim_offsets", True),
-                                 d.get("add_prefix_space", True))
-    if t == "Sequence":
-        return ProcessorSequence([_load_post_processor(x) for x in d["processors"]])
-    if t == "ByteLevel":
-        return ByteLevel(d.get("add_prefix_space", True), d.get("trim_offsets", True),
-                         d.get("use_regex", True))
-    from .errors import SerdeError
-
-    raise SerdeError(f"Unknown post-processor type: {t}")
-
-
 def _load_components(d: dict):
     """(normalizer, pre-tokenizer, model, post-processor) of a tokenizer.json
     dict: every pipeline the JAX package loads."""
     return (normalizer_from_json(d.get("normalizer")),
-            pre_tokenizer_from_json(d.get("pre_tokenizer")), _load_model(d["model"]),
-            _load_post_processor(d.get("post_processor")))
+            pre_tokenizer_from_json(d.get("pre_tokenizer")), model_from_dict(d["model"]),
+            processor_from_dict(d.get("post_processor")))
 
 
 _FAST_NORMALIZERS = (NormalizerSequence, Lowercase, NFD, NFKD, NFC, NFKC, StripAccents, Strip,
@@ -957,13 +904,13 @@ class Tokenizer:
         `_encode_single_sequence`, `tokenizer.py:337-359`): the added
         tokens extracted and the normalizer run (`extract_and_normalize`),
         the pre-tokenizer's split, the model on each split
-        (`models.tokens`), then the encoding with offsets in the text's
+        (`Model.tokenize`), then the encoding with offsets in the text's
         chars or bytes, or ids alone."""
         p = self.added_vocabulary.extract_and_normalize(self._normalizer, text)
         if self._pre_tokenizer is not None:
             self._pre_tokenizer.pre_tokenize(p)
         m = self._model
-        p.tokenize(lambda ns: model_tokens(m, ns.get()))
+        p.tokenize(lambda ns: m.tokenize(ns.get()))
         if offsets is None:
             return Encoding(ids=[t.id for split in p.splits for t in split.tokens])
         return p.into_encoding(word_idx, type_id, offsets)
@@ -1015,7 +962,7 @@ class Tokenizer:
                 return
             if self._normalizer is not None:
                 piece = self._normalizer.normalize_chars(piece)[0]
-            tok = self._model.tokenize
+            tok = self._model.tokenize_ids
             yield "ids", [i for word in self._pre_tokenizer.words(piece)
                           for i in tok(word)]
             return

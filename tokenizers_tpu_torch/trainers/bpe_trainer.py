@@ -9,7 +9,7 @@ merges in (count desc, pair asc) order with incremental pair counts and
 `train` runs on the device (`parallel.bpe_train.train_device`: the dense
 whole-loop program or the per-round registry program, by size) on the
 trainer's `device`, the card unless the caller asks for `device="cpu"`.
-`do_train_host` runs the Python heap loop, the oracle both device
+`do_train` runs the Python heap loop, the oracle both device
 programs are held against.
 
 With `continuing_subword_prefix` or `end_of_word_suffix` set, the derived
@@ -126,7 +126,7 @@ class BpeTrainer:
         words, counts = self._tokenize_words(word_counts, word_to_id, id_to_word)
         return word_to_id, id_to_word, words, counts
 
-    def do_train_host(self, word_counts: Dict[str, int], model) -> List[AddedToken]:
+    def do_train(self, word_counts: Dict[str, int], model) -> List[AddedToken]:
         """The heap merge loop (reference `trainer.rs:420-593`)."""
         word_to_id, id_to_word, words, counts = self.prepare(word_counts)
         max_token_length = (

@@ -29,8 +29,8 @@ class UnigramTrainer:
         max_piece_length: int = 16,
         n_sub_iterations: int = 2,
         seed_size: int = 1_000_000,
-        device=None,
         mesh=None,
+        device=None,
     ):
         self.vocab_size = vocab_size
         self.show_progress = show_progress  # accepted for the reference's surface; no bar

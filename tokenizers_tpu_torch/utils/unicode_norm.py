@@ -1,5 +1,5 @@
-"""Unicode normalization with provenance; copy of the part of
-`tokenizers_tpu.utils.unicode_norm` that `normalized.py` uses.
+"""Unicode normalization with provenance; copy of
+`tokenizers_tpu.utils.unicode_norm`.
 
 `unicodedata.normalize` does not say which input char each output char
 came from, but offsets must map back through the normalizer.  So NFD,
@@ -199,6 +199,10 @@ def nfd_transform(s: str, compat: bool = False) -> List[Tuple[str, int]]:
     return [(chr(cp), ch) for cp, ch in zip(chars, changes)]
 
 
+def nfkd_transform(s: str) -> List[Tuple[str, int]]:
+    return nfd_transform(s, compat=True)
+
+
 def _source_map_to_transform(out_cps: List[int], src: List[Optional[int]],
                              n_inputs: int) -> Tuple[List[Tuple[str, int]], int]:
     """(char, change) stream and initial offset from output chars and the
@@ -250,3 +254,7 @@ def nfc_transform(s: str, compat: bool = False) -> Tuple[List[Tuple[str, int]], 
             src.append(g)
             last = g
     return _source_map_to_transform(out, src, len(s))
+
+
+def nfkc_transform(s: str) -> Tuple[List[Tuple[str, int]], int]:
+    return nfc_transform(s, compat=True)
